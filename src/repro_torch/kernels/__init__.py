@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+Each kernel is a CUDA source under ``csrc/``, built by ``build.py`` at first
+use, and a Python wrapper that launches it on CUDA tensors, takes the plain
+version on CPU tensors, and counts its launches.
+"""
+
+from .flash_attention import flash_attention, flash_attention_plain
+
+__all__ = ["flash_attention", "flash_attention_plain"]

@@ -1,0 +1,159 @@
+"""GQA attention: the full-sequence block through the flash kernel, and the
+cached decode step with a log-sum-exp combine over cache shards.
+
+Port of the GQA path of ``src/repro/models/attention.py``. Parameters keep
+the JAX layouts ``wq (D, H, Dh)``, ``wk``/``wv (D, KH, Dh)``,
+``wo (H, Dh, D)``. ``flash_attention`` here is the kernel wrapper of
+``kernels/flash_attention.py``: the model's full-sequence attention runs
+the Hopper kernel on the card. Caches hold the original (unrepeated) kv
+heads after qk-norm and RoPE, in the layout the decode step reads.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..kernels.flash_attention import flash_attention
+from .config import ModelConfig
+from .layers import apply_rope, dense_init, pdtype, rms_norm
+
+__all__ = ["Attention", "init_attention", "flash_attention", "decode_attention",
+           "attention_block", "init_self_attn_cache"]
+
+
+# ------------------------------------------------------------------ init
+class Attention(nn.Module):
+    """``wq``, ``wk``, ``wv``, ``wo`` and, with qk-norm, ``q_norm``/``k_norm``."""
+
+    def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None) -> None:
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+        self.q_norm, self.k_norm = q_norm, k_norm
+
+
+def init_attention(gen: Optional[torch.Generator], cfg: ModelConfig,
+                   device) -> Attention:
+    D, Dh = cfg.d_model, cfg.head_dim_
+    H, KH = cfg.n_heads_padded, cfg.n_kv_heads   # params store ORIGINAL kv heads
+    dt = pdtype(cfg)
+    wq = dense_init(gen, (D, H, Dh), dtype=dt, device=device)
+    wk = dense_init(gen, (D, KH, Dh), dtype=dt, device=device)
+    wv = dense_init(gen, (D, KH, Dh), dtype=dt, device=device)
+    wo = dense_init(gen, (H, Dh, D), std=0.02 / (2 * cfg.n_layers) ** 0.5,
+                    dtype=dt, device=device)
+    if gen is not None and cfg.n_heads_padded > cfg.n_heads:
+        # pad q-slots are the LAST slots of each kv superblock, so real head j
+        # keeps its original kv group; their wo rows are zeroed so they cannot
+        # affect the output
+        sb = H // KH
+        real = cfg.n_heads // KH
+        keep = (torch.arange(H, device=device) % sb) < real
+        wo.data.mul_(keep.to(dt)[:, None, None])
+    q_norm = k_norm = None
+    if cfg.qk_norm:
+        q_norm = nn.Parameter(torch.zeros(Dh, dtype=dt, device=device),
+                              requires_grad=False)
+        k_norm = nn.Parameter(torch.zeros(Dh, dtype=dt, device=device),
+                              requires_grad=False)
+    return Attention(wq, wk, wv, wo, q_norm, k_norm)
+
+
+# ------------------------------------------------------- flash-decode (serve)
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: int,
+                     n_shards: int) -> torch.Tensor:
+    """q: (B, H, 1, Dh); caches: (B, KH, L, Dh) cut into ``n_shards`` blocks
+    along L. Per-shard partials, combined by log-sum-exp; positions at or past
+    ``cache_len`` are masked."""
+    B, H, _, Dh = q.shape
+    KH, L = k_cache.shape[1], k_cache.shape[2]
+    Dhv = v_cache.shape[-1]
+    G = H // KH
+    pad = (-L) % n_shards
+    if pad:   # zero-pad; padded positions sit beyond cache_len and are masked
+        k_cache = torch.nn.functional.pad(k_cache, (0, 0, 0, pad))
+        v_cache = torch.nn.functional.pad(v_cache, (0, 0, 0, pad))
+        L = L + pad
+    Lc = L // n_shards
+    qg = q.reshape(B, KH, G, Dh).float()
+    kb = k_cache.reshape(B, KH, n_shards, Lc, Dh).float()
+    vb = v_cache.reshape(B, KH, n_shards, Lc, Dhv)
+    s = torch.einsum("bkgd,bknld->bkngl", qg, kb) * Dh ** -0.5
+    pos = torch.arange(L, device=q.device).reshape(n_shards, Lc)
+    s = s.masked_fill((pos >= cache_len)[None, None, :, None, :], float("-inf"))
+    m_i = s.amax(-1)                                         # (B,KH,n,G)
+    p = torch.exp(s - m_i[..., None])
+    p = torch.where(torch.isfinite(m_i)[..., None], p, torch.zeros_like(p))
+    l_i = p.sum(-1)
+    o_i = torch.einsum("bkngl,bknld->bkngd", p.to(vb.dtype).float(), vb.float())
+    m_g = m_i.amax(2, keepdim=True)
+    w = torch.exp(m_i - m_g)
+    l_g = (l_i * w).sum(2)
+    o_g = (o_i * w[..., None]).sum(2) / l_g.clamp_min(1e-30)[..., None]
+    return o_g.reshape(B, H, 1, Dhv).to(q.dtype)
+
+
+# ------------------------------------------------------------------ GQA block
+def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
+                    causal: bool = True,
+                    positions: Optional[torch.Tensor] = None,
+                    cache: Optional[Dict[str, torch.Tensor]] = None,
+                    cache_pos: int = 0,
+                    max_len: Optional[int] = None,
+                    want_cache: bool = False,
+                    impl: Optional[str] = None,
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Self-attention over x (B, S, D).
+
+    With ``cache`` it runs one decode step: k and v of x are written into the
+    cache at ``cache_pos`` in place, and the returned cache is the same dict.
+    Without, it attends over the full sequence through ``flash_attention``
+    (``impl`` is passed on); ``want_cache`` then returns the post-norm,
+    post-RoPE keys and the values, unrepeated and zero-padded to ``max_len``
+    along the sequence: the cache the decode step reads."""
+    B, S, D = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q = torch.einsum("bsd,dhq->bhsq", x, p.wq)                 # (B,H,S,Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = torch.einsum("bsd,dhq->bhsq", x, p.wk)                 # (B,KH,S,Dh)
+    v = torch.einsum("bsd,dhq->bhsq", x, p.wv)
+    if cfg.qk_norm:
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is not None:
+        # The cache stores the ORIGINAL kv heads: GQA needs only KH | H, so
+        # kv_repeat has no effect here, as in the reference.
+        cache["k"][:, :, cache_pos:cache_pos + S] = k.to(cache["k"].dtype)
+        cache["v"][:, :, cache_pos:cache_pos + S] = v.to(cache["v"].dtype)
+        out = decode_attention(q, cache["k"], cache["v"], cache_pos + S,
+                               cfg.decode_seq_shards)
+        new_cache = cache
+    else:
+        # The kernel maps q head h to kv head h // (H / KH), the grouping the
+        # reference's kv_repeat followed by h // (H / (KH * rep)) gives, so the
+        # repeated copy of k and v is never made.
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, impl=impl)
+        new_cache = None
+        if want_cache:
+            pad = (max_len or S) - S
+            new_cache = {"k": torch.nn.functional.pad(k, (0, 0, 0, pad)),
+                         "v": torch.nn.functional.pad(v, (0, 0, 0, pad))}
+    y = torch.einsum("bhsq,hqd->bsd", out, p.wo)
+    return y, new_cache
+
+
+def init_self_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
+                         device) -> Dict[str, torch.Tensor]:
+    """Zero k and v caches (B, KH, max_len, Dh) of the original kv heads."""
+    shp = (batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
+    dt = pdtype(cfg)
+    return {"k": torch.zeros(shp, dtype=dt, device=device),
+            "v": torch.zeros(shp, dtype=dt, device=device)}

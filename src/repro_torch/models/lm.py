@@ -1,0 +1,181 @@
+"""The decoder-only LM for the ``attn+mlp`` block pattern: init, full-sequence
+forward (prefill), loss and the cached decode step.
+
+Port of ``src/repro/models/lm.py``. The JAX package stacks each pattern
+entry's parameters over ``n_groups`` and ``lax.scan``s them; here the layers
+are an ``nn.ModuleList`` of per-layer blocks in layer order. Other mixers and
+wrappers are not ported yet and raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .attention import (Attention, attention_block, init_attention,
+                        init_self_attn_cache)
+from .config import ModelConfig
+from .layers import (MLP, apply_mlp, dense_init, init_mlp, init_norm, pdtype,
+                     resolve_device, rms_norm)
+
+# ROADMAP.md Queue 1 item that ports each block kind this module lacks
+_NOT_PORTED = {
+    "mlstm": "item 9 (xLSTM)", "slstm": "item 9 (xLSTM)",
+    "moe": "item 10 (MoE)", "mla": "item 10 (MLA)",
+    "mamba": "item 11 (Mamba)",
+}
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless every layer of ``cfg`` is attn+mlp."""
+    for blk in cfg.block_pattern:
+        mixer, _, ffn = blk.partition("+")
+        for part in (mixer, ffn):
+            if part in _NOT_PORTED:
+                raise NotImplementedError(
+                    f"{cfg.name}: block {blk!r} is not ported yet "
+                    f"(ROADMAP.md Queue 1 {_NOT_PORTED[part]})")
+        if (mixer, ffn) != ("attn", "mlp"):
+            raise NotImplementedError(f"{cfg.name}: unknown block {blk!r}")
+    if cfg.first_layer_dense:
+        raise NotImplementedError(f"{cfg.name}: a dense first layer is not "
+                                  "ported yet (ROADMAP.md Queue 1 item 10)")
+    if cfg.is_encdec or cfg.vlm is not None:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder and VLM "
+                                  "wrappers are not ported yet (ROADMAP.md "
+                                  "Queue 1 item 11)")
+
+
+# ================================================================ modules
+class Block(nn.Module):
+    """One ``attn+mlp`` layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, ln1: nn.Parameter, attn: Attention, ln2: nn.Parameter,
+                 mlp: MLP) -> None:
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+
+def init_block(gen: Optional[torch.Generator], cfg: ModelConfig, device) -> Block:
+    return Block(init_norm(cfg, device), init_attention(gen, cfg, device),
+                 init_norm(cfg, device), init_mlp(gen, cfg, device))
+
+
+class LM(nn.Module):
+    """``embed`` (Vpad, D), ``head`` (D, Vpad) unless tied, ``final_norm`` and
+    ``blocks``, one per layer."""
+
+    def __init__(self, embed: nn.Parameter, head: Optional[nn.Parameter],
+                 final_norm: nn.Parameter, blocks: List[Block]) -> None:
+        super().__init__()
+        self.embed = embed
+        self.head = head
+        self.final_norm = final_norm
+        self.blocks = nn.ModuleList(blocks)
+
+
+def init_params(cfg: ModelConfig, seed: Optional[int] = 0, device=None) -> LM:
+    """The model with weights drawn from a ``torch.Generator`` seeded with
+    ``seed`` (``None`` leaves them uninitialised for the converter). Runs on
+    the card unless ``device`` names another."""
+    check_ported(cfg)
+    device = resolve_device(device)
+    gen = None
+    if seed is not None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    dt = pdtype(cfg)
+    embed = dense_init(gen, (cfg.padded_vocab, cfg.d_model), dtype=dt, device=device)
+    head = (None if cfg.tie_embeddings else
+            dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype=dt, device=device))
+    blocks = [init_block(gen, cfg, device) for _ in range(cfg.n_layers)]
+    return LM(embed, head, init_norm(cfg, device), blocks)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device=None) -> Dict[str, List[Dict[str, torch.Tensor]]]:
+    """Zero KV caches, one ``{"k", "v"}`` per layer, on the card unless
+    ``device`` names another."""
+    check_ported(cfg)
+    device = resolve_device(device)
+    return {"layers": [init_self_attn_cache(cfg, batch, max_len, device)
+                       for _ in range(cfg.n_layers)]}
+
+
+# ================================================================== forward
+def _apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, **kw):
+    h = rms_norm(x, blk.ln1, cfg.norm_eps)
+    y, cache = attention_block(blk.attn, h, cfg, **kw)
+    x = x + y
+    x = x + apply_mlp(blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps))
+    return x, cache
+
+
+def _logits(cfg: ModelConfig, model: LM, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    head = model.embed.T if cfg.tie_embeddings else model.head
+    return torch.einsum("bsd,dv->bsv", x, head)
+
+
+def _embed(cfg: ModelConfig, model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    # scaled in the parameter dtype, as the reference multiplies in bf16
+    return model.embed[tokens] * (cfg.d_model ** 0.5)
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
+            want_caches: bool = False, max_len: Optional[int] = None,
+            attn_impl: Optional[str] = None):
+    """Full-sequence forward over ``batch["tokens"]`` (B, S). Returns
+    ``(logits, aux, caches, n_prefix)`` as the reference does. With
+    ``want_caches`` the caches are those ``decode_step`` reads, with room for
+    ``max_len`` positions (default S). ``attn_impl="plain"`` runs attention
+    through the kernel's plain version."""
+    tokens = batch["tokens"]
+    x = _embed(cfg, model, tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    caches = [] if want_caches else None
+    for blk in model.blocks:
+        x, c = _apply_block(blk, x, cfg, causal=True, positions=positions,
+                            want_cache=want_caches, max_len=max_len,
+                            impl=attn_impl)
+        if want_caches:
+            caches.append(c)
+    logits = _logits(cfg, model, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux, ({"layers": caches} if want_caches else None), 0
+
+
+@torch.no_grad()
+def loss_fn(cfg: ModelConfig, model: LM,
+            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+    logits, aux, _, _ = forward(cfg, model, batch)
+    labels = batch["labels"]
+    logits = logits[:, :labels.shape[1]].float()
+    # mask vocab padding out of the partition function
+    vmask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
+    logits = logits.masked_fill(~vmask, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold).mean()
+    loss = nll + aux
+    return loss, {"nll": nll, "aux": aux}
+
+
+# ================================================================== decode
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, model: LM, caches: Dict, tokens: torch.Tensor,
+                pos: int):
+    """One serving step: tokens (B, 1) at absolute position ``pos`` given the
+    KV caches. Returns ``(logits, caches)``; the caches are updated in place
+    (the reference returns new arrays) and the same dict is returned."""
+    x = _embed(cfg, model, tokens)
+    positions = pos + torch.arange(x.shape[1], device=x.device)
+    for blk, c in zip(model.blocks, caches["layers"]):
+        x, _ = _apply_block(blk, x, cfg, positions=positions, cache=c,
+                            cache_pos=pos)
+    return _logits(cfg, model, x), caches

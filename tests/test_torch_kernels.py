@@ -1,0 +1,102 @@
+"""The flash-attention kernel module of the PyTorch port against JAX.
+
+On the CPU the wrapper takes the kernel's plain version; it is held against
+the Pallas kernel (interpret mode) on the cases of ``test_kernels.py`` and
+against the JAX model's XLA flash on the cases the model needs beyond them:
+a query offset, a sequence no block divides, G = 3, and G = 4 reached through
+``kv_repeat``. The CUDA kernel itself is held against the plain version on
+the card (``test_torch_cuda.py`` and ``chip_smoke.py``)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro.models.attention import flash_attention as xla_flash  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+                                                 flash_attention_plain)
+
+# fp32: the two differ only in summation order (tests/test_kernels.py's
+# tolerance); bf16: the frameworks round at different places
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# tests/test_kernels.py FLASH_CASES: (B, H, KH, S, Dh, dtype, causal, bq, bk)
+FLASH_CASES = [
+    (1, 2, 2, 128, 64, "float32", True, 64, 64),
+    (2, 4, 2, 256, 64, "float32", True, 128, 128),
+    (2, 8, 2, 256, 128, "bfloat16", True, 128, 64),
+    (1, 3, 1, 384, 64, "float32", True, 128, 128),   # GQA G=3
+    (2, 4, 4, 256, 64, "float32", False, 128, 128),  # non-causal (encoder)
+    (1, 2, 1, 512, 32, "bfloat16", True, 128, 128),
+]
+
+
+def _qkv(seed, B, H, KH, Sq, Sk, Dh):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, H, Sq, Dh)).astype(np.float32),
+            rng.normal(size=(B, KH, Sk, Dh)).astype(np.float32),
+            rng.normal(size=(B, KH, Sk, Dh)).astype(np.float32))
+
+
+def _both(arrs, dtype):
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    th = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, th
+
+
+def _close(jax_out, torch_out, tol):
+    np.testing.assert_allclose(torch_out.float().numpy(),
+                               np.asarray(jax_out, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("B,H,KH,S,Dh,dtype,causal,bq,bk", FLASH_CASES)
+def test_plain_matches_pallas_kernel(B, H, KH, S, Dh, dtype, causal, bq, bk):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(S + H, B, H, KH, S, S, Dh), dtype)
+    ref = pallas_flash(jq, jk, jv, causal=causal, block_q=bq, block_k=bk,
+                       interpret=True)
+    out = flash_attention(tq, tk, tv, causal=causal)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    _close(ref, out, TOL[dtype])
+
+
+# (B, H, KH, Sq, Sk, Dh, q_offset, kv_repeat, dtype, causal)
+XLA_CASES = [
+    (1, 4, 2, 16, 48, 64, 32, 1, "float32", True),    # q_offset: a later chunk
+    (2, 4, 2, 100, 100, 64, 0, 1, "float32", True),   # S no block divides
+    (1, 6, 2, 100, 100, 32, 0, 1, "float32", True),   # G = 3, ragged
+    (2, 8, 2, 64, 64, 64, 0, 2, "float32", True),     # G = 4 via kv_repeat=2
+    (2, 8, 2, 100, 100, 128, 0, 2, "bfloat16", True),
+    (1, 4, 4, 100, 100, 64, 0, 1, "float32", False),
+]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,Dh,q_offset,rep,dtype,causal", XLA_CASES)
+def test_plain_matches_model_flash(B, H, KH, Sq, Sk, Dh, q_offset, rep, dtype,
+                                   causal):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(Sq + Dh, B, H, KH, Sq, Sk, Dh), dtype)
+    # the reference model repeats kv heads before its flash; the port's
+    # kernel takes the original heads with G = H / KH
+    ref = xla_flash(jq, jnp.repeat(jk, rep, axis=1), jnp.repeat(jv, rep, axis=1),
+                    causal=causal, chunk=32, q_offset=q_offset)
+    out = flash_attention(tq, tk, tv, causal=causal, q_offset=q_offset)
+    _close(ref, out, TOL[dtype])
+
+
+def test_wrapper_dispatch_on_cpu():
+    """A CPU tensor takes the plain version and launches nothing."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 4, 2, 24, 24, 64))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before
+    torch.testing.assert_close(out, flash_attention_plain(q, k, v, causal=True),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, causal=True, impl="plain"), out, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, causal=True, impl="fast")

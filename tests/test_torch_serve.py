@@ -1,0 +1,116 @@
+"""Serving on the log with the PyTorch port, against the JAX engine.
+
+The port's ``ServeEngine`` runs on the port's own ``BoltSystem``; with fp32
+weights converted from JAX its greedy token streams equal the JAX engine's
+token for token, although it prefills in one forward pass where the JAX
+engine teacher-forces the prompt through its decode step."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.core import BoltSystem as JaxBoltSystem  # noqa: E402
+from repro.models.config import ModelConfig  # noqa: E402
+from repro.models.lm import init_params as jax_init_params  # noqa: E402
+from repro.serve import ModelDraft as JaxDraft  # noqa: E402
+from repro.serve import ModelTarget as JaxTarget  # noqa: E402
+from repro.serve import ServeEngine as JaxServeEngine  # noqa: E402
+from repro.serve.speculative import sequential_decode as jax_sequential  # noqa: E402
+from repro.streams import Producer as JaxProducer  # noqa: E402
+from repro.streams import Topic as JaxTopic  # noqa: E402
+import repro_torch as rt  # noqa: E402
+from repro_torch.core import BoltSystem  # noqa: E402
+from repro_torch.serve import (ModelDraft, ModelTarget, ServeEngine,  # noqa: E402
+                               SpeculativeDecoder, decode_response,
+                               sequential_decode)
+from repro_torch.streams import Producer, Topic  # noqa: E402
+
+pytestmark = pytest.mark.slow  # JAX tracing; fast lane: -m 'not slow'
+
+
+def _tiny_cfg(**kw):
+    return ModelConfig(name="tiny", n_layers=2, d_model=32, n_heads=2,
+                       n_kv_heads=1, d_ff=64, vocab_size=128,
+                       tie_embeddings=True, attn_chunk=32, **kw)
+
+
+def _requests(n):
+    rng = np.random.default_rng(0)
+    return [{"id": f"r{i}",
+             "prompt": [int(t) for t in rng.integers(2, 128, 3 + 2 * i)]}
+            for i in range(n)]
+
+
+def _serve(system, topic_cls, producer_cls, engine_cls, cfg, params, reqs,
+           gen_tokens):
+    req = topic_cls.create(system, "req")
+    resp = topic_cls.create(system, "resp")
+    prod = producer_cls(req)
+    for r in reqs:
+        prod.produce(r)
+    prod.flush()
+    eng = engine_cls(cfg, params, req, resp, batch_size=4)
+    assert eng.poll_and_serve(gen_tokens=gen_tokens) == len(reqs)
+    return req, resp, eng
+
+
+def test_serve_engine_roundtrip_matches_jax():
+    """The port of test_serve_and_checkpoint.py::test_serve_engine_roundtrip,
+    with the streams held equal to the JAX engine's (fp32)."""
+    cfg = _tiny_cfg(dtype="float32")
+    jparams = jax_init_params(cfg, jax.random.key(0))
+    model = rt.params_from_jax(cfg, jax.device_get(jparams), device="cpu")
+    reqs = _requests(3)                      # prompts of 3, 5 and 7 tokens
+    system = BoltSystem(n_brokers=3)
+    req, resp, eng = _serve(system, Topic, Producer, ServeEngine, cfg, model,
+                            reqs, gen_tokens=6)
+    log = resp.log
+    out = decode_response(log.read(0, log.visible_tail))
+    assert set(out) == {"r0", "r1", "r2"}
+    assert all(len(toks) == 6 for toks in out.values())
+    assert all(0 <= t < cfg.vocab_size for toks in out.values() for t in toks)
+    # durable request cursor: nothing left to serve...
+    assert eng.poll_and_serve() == 0
+    # ...even for a RESTARTED engine in the same consumer group
+    assert ServeEngine(cfg, model, req, resp, batch_size=4).poll_and_serve() == 0
+    assert system.serve_stats.requests == 3
+    assert system.serve_stats.responses == 3
+    assert system.serve_stats.tokens_out == 18
+
+    jsystem = JaxBoltSystem(n_brokers=3)
+    _, jresp, _ = _serve(jsystem, JaxTopic, JaxProducer, JaxServeEngine, cfg,
+                         jparams, reqs, gen_tokens=6)
+    jlog = jresp.log
+    assert out == decode_response(jlog.read(0, jlog.visible_tail))
+    # model_steps counts prompt positions, as the reference does
+    assert system.serve_stats.model_steps == jsystem.serve_stats.model_steps
+
+
+def test_torch_target_draft_speculative_is_exact():
+    """The port of test_serve_on_log.py::test_jax_target_draft_speculative_is_exact:
+    speculative == sequential on the torch adapters, and both equal the JAX
+    adapters' stream (fp32)."""
+    tcfg = _tiny_cfg(dtype="float32").with_(name="spec-target")
+    dcfg = ModelConfig(name="spec-draft", n_layers=1, d_model=16, n_heads=2,
+                       n_kv_heads=1, d_ff=32, vocab_size=128,
+                       tie_embeddings=True, attn_chunk=32, dtype="float32")
+    jt = jax.device_get(jax_init_params(tcfg, jax.random.key(0)))
+    jd = jax.device_get(jax_init_params(dcfg, jax.random.key(1)))
+    system = BoltSystem(n_brokers=2)
+    target = ModelTarget(tcfg, rt.params_from_jax(tcfg, jt, device="cpu"),
+                         stats=system.serve_stats)
+    draft = ModelDraft(dcfg, rt.params_from_jax(dcfg, jd, device="cpu"),
+                       stats=system.serve_stats)
+    prompt = [5, 9, 13]
+    ref = sequential_decode(target, prompt, 8)
+    root = system.create_log("resp")
+    dec = SpeculativeDecoder(target, draft, k=2, stats=system.serve_stats)
+    res = dec.decode_request(root, "r0", prompt, 8)
+    assert res.tokens == ref                      # exact despite a real draft
+    assert decode_response(root.read(0, root.visible_tail)) == {"r0": ref}
+    assert all(0 <= t < tcfg.vocab_size for t in res.tokens)
+    assert ref == jax_sequential(JaxTarget(tcfg, jt), prompt, 8)
+    assert (draft.propose(prompt + ref[:3], 4)
+            == JaxDraft(dcfg, jd).propose(prompt + ref[:3], 4))
