@@ -9,7 +9,7 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 from .configs import ARCHS, get_config, get_smoke_config
 from .convert import params_from_jax
 from .core import BoltSystem
-from .kernels import flash_attention
+from .kernels import flash_attention, mlstm_chunk
 from .models import (LM, ModelConfig, decode_step, forward, init_caches,
                      init_params, loss_fn)
 from .serve import (ModelDraft, ModelTarget, ServeEngine, SpeculativeDecoder,
@@ -17,7 +17,8 @@ from .serve import (ModelDraft, ModelTarget, ServeEngine, SpeculativeDecoder,
 from .streams import Consumer, Producer, Topic
 
 __all__ = ["ARCHS", "get_config", "get_smoke_config", "params_from_jax",
-           "BoltSystem", "flash_attention", "LM", "ModelConfig", "init_params",
-           "init_caches", "forward", "loss_fn", "decode_step", "ServeEngine",
-           "ModelTarget", "ModelDraft", "SpeculativeDecoder", "decode_response",
-           "sequential_decode", "Topic", "Producer", "Consumer"]
+           "BoltSystem", "flash_attention", "mlstm_chunk", "LM", "ModelConfig",
+           "init_params", "init_caches", "forward", "loss_fn", "decode_step",
+           "ServeEngine", "ModelTarget", "ModelDraft", "SpeculativeDecoder",
+           "decode_response", "sequential_decode", "Topic", "Producer",
+           "Consumer"]

@@ -4,8 +4,11 @@
 ``repro.models.lm.init_params`` as numpy arrays (``jax.device_get``) and
 returns the port's ``LM`` with the same values. The JAX tree stacks each
 block-pattern entry ``j`` over ``n_groups``; layer ``g * len(pattern) + j`` of
-the port is ``groups[j][g]``. bf16 arrays arrive through their ``uint16``
-view, so this module needs neither JAX nor ``ml_dtypes``.
+the port is ``groups[j][g]``. Each block's parameters copy by name: ``ln1``,
+``attn``, ``ln2`` and ``mlp`` for ``attn+mlp``; ``ln1`` and the mixer's
+leaves (``x_up`` .. ``x_out``, ``s_gates`` .. ``s_out``) for ``mlstm`` and
+``slstm``. bf16 arrays arrive through their ``uint16`` view, so this module
+needs neither JAX nor ``ml_dtypes``.
 """
 
 from __future__ import annotations
@@ -48,10 +51,9 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], device=None) -> L
     for i, blk in enumerate(model.blocks):
         g, j = divmod(i, n_pat)
         src = tree["groups"][j]
-        _copy(blk.ln1, src["ln1"][g], f"layer {i} ln1")
-        _copy(blk.ln2, src["ln2"][g], f"layer {i} ln2")
-        for name, p in blk.attn.named_parameters():
-            _copy(p, src["attn"][name][g], f"layer {i} attn.{name}")
-        for name, p in blk.mlp.named_parameters():
-            _copy(p, src["mlp"][name][g], f"layer {i} mlp.{name}")
+        for part, mod in blk.named_children():
+            for name, p in mod.named_parameters():
+                _copy(p, src[part][name][g], f"layer {i} {part}.{name}")
+        for name, p in blk.named_parameters(recurse=False):
+            _copy(p, src[name][g], f"layer {i} {name}")
     return model

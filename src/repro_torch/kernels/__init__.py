@@ -6,5 +6,7 @@ version on CPU tensors, and counts its launches.
 """
 
 from .flash_attention import flash_attention, flash_attention_plain
+from .mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_plain", "mlstm_chunk",
+           "mlstm_chunk_plain"]

@@ -35,16 +35,25 @@ def _nvcc() -> str:
                        "toolkit (PATH or CUDA_HOME)")
 
 
-def build(name: str, sources: Sequence[str]) -> Path:
-    """Compile ``sources`` (names under ``csrc/``) into one shared library,
-    unless a library of these sources and flags is built already. A fresh
-    build writes ptxas's report (registers, shared memory and spills of each
-    kernel) to stderr."""
+def _library_path(name: str, sources: Sequence[str]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def report(name: str, sources: Sequence[str]) -> str:
+    """ptxas's report of the library's build."""
+    return _library_path(name, sources).with_suffix(".ptxas").read_text()
+
+
+def build(name: str, sources: Sequence[str]) -> Path:
+    """Compile ``sources`` (names under ``csrc/``) into one shared library,
+    unless a library of these sources and flags is built already. A fresh
+    build writes ptxas's report (registers, shared memory and spills of each
+    kernel) to stderr and beside the library (``report(name, sources)``)."""
+    out = _library_path(name, sources)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -55,6 +64,7 @@ def build(name: str, sources: Sequence[str]) -> Path:
         raise RuntimeError(f"nvcc failed ({res.returncode}) for {name}:\n"
                            f"{res.stdout}\n{res.stderr}")
     sys.stderr.write(res.stdout + res.stderr)
+    out.with_suffix(".ptxas").write_text(res.stdout + res.stderr)
     os.replace(tmp, out)                   # atomic: a concurrent build loses nothing
     return out
 

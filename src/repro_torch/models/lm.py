@@ -1,11 +1,13 @@
-"""The decoder-only LM for the ``attn+mlp`` block pattern: init, full-sequence
-forward (prefill), loss and the cached decode step.
+"""The decoder-only LM: init, full-sequence forward (prefill), loss and the
+cached decode step, for the block kinds ``attn+mlp``, ``mlstm`` and ``slstm``.
 
 Port of ``src/repro/models/lm.py``. The JAX package stacks each pattern
 entry's parameters over ``n_groups`` and ``lax.scan``s them; here the layers
-are an ``nn.ModuleList`` of per-layer blocks in layer order. Other mixers and
-wrappers are not ported yet and raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+are an ``nn.ModuleList`` of per-layer blocks in layer order, layer i of kind
+``block_pattern[i % len(block_pattern)]``. Each layer's cache is its own
+dict: ``{"k", "v"}`` for attention, the recurrent state for xLSTM. Other
+mixers and wrappers are not ported yet and raise ``NotImplementedError``
+naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -20,17 +22,20 @@ from .attention import (Attention, attention_block, init_attention,
 from .config import ModelConfig
 from .layers import (MLP, apply_mlp, dense_init, init_mlp, init_norm, pdtype,
                      resolve_device, rms_norm)
+from .xlstm import (MLSTM, SLSTM, apply_mlstm, apply_slstm, init_mlstm,
+                    init_mlstm_state, init_slstm, init_slstm_state)
 
 # ROADMAP.md Queue 1 item that ports each block kind this module lacks
 _NOT_PORTED = {
-    "mlstm": "item 9 (xLSTM)", "slstm": "item 9 (xLSTM)",
     "moe": "item 10 (MoE)", "mla": "item 10 (MLA)",
     "mamba": "item 11 (Mamba)",
 }
+_PORTED = ("attn+mlp", "mlstm", "slstm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless every layer of ``cfg`` is attn+mlp."""
+    """Raise NotImplementedError unless every layer of ``cfg`` is of a
+    ported kind: ``attn+mlp``, ``mlstm`` or ``slstm``."""
     for blk in cfg.block_pattern:
         mixer, _, ffn = blk.partition("+")
         for part in (mixer, ffn):
@@ -38,7 +43,7 @@ def check_ported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: block {blk!r} is not ported yet "
                     f"(ROADMAP.md Queue 1 {_NOT_PORTED[part]})")
-        if (mixer, ffn) != ("attn", "mlp"):
+        if blk not in _PORTED:
             raise NotImplementedError(f"{cfg.name}: unknown block {blk!r}")
     if cfg.first_layer_dense:
         raise NotImplementedError(f"{cfg.name}: a dense first layer is not "
@@ -59,7 +64,34 @@ class Block(nn.Module):
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
 
 
-def init_block(gen: Optional[torch.Generator], cfg: ModelConfig, device) -> Block:
+class MLSTMBlock(nn.Module):
+    """One ``mlstm`` layer: ``ln1``, ``mlstm``; no FFN."""
+
+    def __init__(self, ln1: nn.Parameter, mlstm: MLSTM) -> None:
+        super().__init__()
+        self.ln1, self.mlstm = ln1, mlstm
+
+
+class SLSTMBlock(nn.Module):
+    """One ``slstm`` layer: ``ln1``, ``slstm``; no FFN."""
+
+    def __init__(self, ln1: nn.Parameter, slstm: SLSTM) -> None:
+        super().__init__()
+        self.ln1, self.slstm = ln1, slstm
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """The block kind of each layer, in layer order."""
+    return [cfg.block_pattern[i % len(cfg.block_pattern)]
+            for i in range(cfg.n_layers)]
+
+
+def init_block(gen: Optional[torch.Generator], cfg: ModelConfig, device,
+               kind: str) -> nn.Module:
+    if kind == "mlstm":
+        return MLSTMBlock(init_norm(cfg, device), init_mlstm(gen, cfg, device))
+    if kind == "slstm":
+        return SLSTMBlock(init_norm(cfg, device), init_slstm(gen, cfg, device))
     return Block(init_norm(cfg, device), init_attention(gen, cfg, device),
                  init_norm(cfg, device), init_mlp(gen, cfg, device))
 
@@ -69,7 +101,7 @@ class LM(nn.Module):
     ``blocks``, one per layer."""
 
     def __init__(self, embed: nn.Parameter, head: Optional[nn.Parameter],
-                 final_norm: nn.Parameter, blocks: List[Block]) -> None:
+                 final_norm: nn.Parameter, blocks: List[nn.Module]) -> None:
         super().__init__()
         self.embed = embed
         self.head = head
@@ -91,24 +123,38 @@ def init_params(cfg: ModelConfig, seed: Optional[int] = 0, device=None) -> LM:
     embed = dense_init(gen, (cfg.padded_vocab, cfg.d_model), dtype=dt, device=device)
     head = (None if cfg.tie_embeddings else
             dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype=dt, device=device))
-    blocks = [init_block(gen, cfg, device) for _ in range(cfg.n_layers)]
+    blocks = [init_block(gen, cfg, device, kind) for kind in layer_kinds(cfg)]
     return LM(embed, head, init_norm(cfg, device), blocks)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> Dict[str, List[Dict[str, torch.Tensor]]]:
-    """Zero KV caches, one ``{"k", "v"}`` per layer, on the card unless
-    ``device`` names another."""
+    """Empty caches, one per layer, on the card unless ``device`` names
+    another: zero ``{"k", "v"}`` of ``max_len`` positions for attention, the
+    initial state ``{"C", "n", "m"}`` or ``{"sc", "sn", "sh", "sm"}`` for
+    mLSTM and sLSTM (which ignore ``max_len``)."""
     check_ported(cfg)
     device = resolve_device(device)
-    return {"layers": [init_self_attn_cache(cfg, batch, max_len, device)
-                       for _ in range(cfg.n_layers)]}
+    init = {"attn+mlp": lambda: init_self_attn_cache(cfg, batch, max_len, device),
+            "mlstm": lambda: init_mlstm_state(cfg, batch, device),
+            "slstm": lambda: init_slstm_state(cfg, batch, device)}
+    return {"layers": [init[kind]() for kind in layer_kinds(cfg)]}
 
 
 # ================================================================== forward
-def _apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, **kw):
+def _apply_block(blk: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
+                 cache=None, want_cache: bool = False, mlstm_impl=None, **kw):
     h = rms_norm(x, blk.ln1, cfg.norm_eps)
-    y, cache = attention_block(blk.attn, h, cfg, **kw)
+    if isinstance(blk, MLSTMBlock):
+        y, cache = apply_mlstm(blk.mlstm, h, cfg, state=cache,
+                               want_state=want_cache, impl=mlstm_impl)
+        return x + y, cache
+    if isinstance(blk, SLSTMBlock):
+        y, cache = apply_slstm(blk.slstm, h, cfg, state=cache,
+                               want_state=want_cache)
+        return x + y, cache
+    y, cache = attention_block(blk.attn, h, cfg, cache=cache,
+                               want_cache=want_cache, **kw)
     x = x + y
     x = x + apply_mlp(blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps))
     return x, cache
@@ -128,12 +174,13 @@ def _embed(cfg: ModelConfig, model: LM, tokens: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def forward(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
             want_caches: bool = False, max_len: Optional[int] = None,
-            attn_impl: Optional[str] = None):
+            attn_impl: Optional[str] = None, mlstm_impl: Optional[str] = None):
     """Full-sequence forward over ``batch["tokens"]`` (B, S). Returns
     ``(logits, aux, caches, n_prefix)`` as the reference does. With
-    ``want_caches`` the caches are those ``decode_step`` reads, with room for
-    ``max_len`` positions (default S). ``attn_impl="plain"`` runs attention
-    through the kernel's plain version."""
+    ``want_caches`` the caches are those ``decode_step`` continues from, with
+    room for ``max_len`` positions (default S) in attention layers.
+    ``attn_impl="plain"`` and ``mlstm_impl="plain"`` run attention and the
+    mLSTM scan through their kernels' plain versions."""
     tokens = batch["tokens"]
     x = _embed(cfg, model, tokens)
     S = x.shape[1]
@@ -142,7 +189,7 @@ def forward(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
     for blk in model.blocks:
         x, c = _apply_block(blk, x, cfg, causal=True, positions=positions,
                             want_cache=want_caches, max_len=max_len,
-                            impl=attn_impl)
+                            impl=attn_impl, mlstm_impl=mlstm_impl)
         if want_caches:
             caches.append(c)
     logits = _logits(cfg, model, x)
@@ -171,8 +218,9 @@ def loss_fn(cfg: ModelConfig, model: LM,
 def decode_step(cfg: ModelConfig, model: LM, caches: Dict, tokens: torch.Tensor,
                 pos: int):
     """One serving step: tokens (B, 1) at absolute position ``pos`` given the
-    KV caches. Returns ``(logits, caches)``; the caches are updated in place
-    (the reference returns new arrays) and the same dict is returned."""
+    caches. Returns ``(logits, caches)``; the caches (KV caches and recurrent
+    states) are updated in place (the reference returns new arrays) and the
+    same dict is returned."""
     x = _embed(cfg, model, tokens)
     positions = pos + torch.arange(x.shape[1], device=x.device)
     for blk, c in zip(model.blocks, caches["layers"]):
