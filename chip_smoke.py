@@ -9,12 +9,16 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      parallel), print their ptxas reports and the card's name and power limit;
   2. kernel: hold the kernel against its plain PyTorch version on the card
      (the cases of tests/test_kernels.py, ragged S, a query offset, G = 4; fp32
-     and bf16), then time it at the qwen3-8b prefill shape beside the plain
-     version, F.scaled_dot_product_attention, and the card's bound;
+     and bf16), and the bf16 kernel on the edges of its tiles and TMA boxes
+     (Sq and Sk of 1 to 4097, q_offset, non-causal Sq != Sk, G = 1/4/8, Dh =
+     32/64/128, B > 1 with KH > 1); then time it at the qwen3-8b prefill shape
+     beside the plain version, F.scaled_dot_product_attention, and the card's
+     bound, and beside SDPA at S = 512-8192 and at the served batch;
   3. prefill: qwen3-8b at full width and depth (36 layers, bf16, seeded random
      weights), one forward over 4 prompts of 32 tokens through the kernel and
      through the plain version, logits compared; the eager prefill and decode
-     step timed, with the device's busy time from torch.profiler;
+     step timed, with the device's busy time from torch.profiler; one forward
+     of a 4096-token prompt timed, with the kernel's share of its device time;
   4. serve: 4 requests on the port's own log, served by ServeEngine (prefill
      through the kernel, 15 decode steps), the kernel launched once a layer;
   5. speculative, in fp32: the phase-3 comparison again on an fp32 qwen3-8b,
@@ -80,7 +84,26 @@ KERNEL_CASES = [
     (2, 16, 4, 256, 256, 128, True, 0),        # G = 4
     (4, 32, 8, 32, 32, 128, True, 0),          # the served qwen3-8b prefill batch
 ]
+# bf16 kernel against plain on the edges of its 128-row q and kv tiles and
+# of its TMA boxes: (B, H, KH, Sq, Sk, Dh, causal, q_offset)
+EDGE_CASES = [
+    *[(1, 4, 2, n, n, 128, True, 0) for n in (1, 63, 65, 127, 129, 4097)],
+    *[(2, 4, 2, 129, n, 64, False, 0) for n in (1, 63, 65, 127, 4097)],  # non-causal
+    (2, 8, 2, 129, 300, 128, True, 171),       # q_offset, Sq < Sk, B > 1, KH > 1
+    (1, 8, 2, 63, 1000, 128, True, 937),       # the last 63 rows of a sequence
+    (1, 8, 2, 65, 4097, 128, True, 100),       # keys past the last row unseen
+    (2, 4, 4, 127, 129, 32, True, 2),          # G = 1, Dh = 32
+    (1, 4, 2, 129, 4097, 32, False, 0),        # Dh = 32, non-causal, long Sk
+    (2, 16, 4, 129, 129, 64, True, 0),         # G = 4, Dh = 64
+    (2, 16, 2, 200, 200, 128, True, 0),        # G = 8
+    (3, 8, 2, 65, 127, 128, False, 0),         # non-causal Sk != Sq, B = 3
+    (1, 2, 1, 1, 129, 64, True, 128),          # one query at the end
+]
 PREFILL_SHAPE = (1, 32, 8, 4096, 128)          # qwen3-8b prefill: B, H, KH, S, Dh
+# the prefill shape's heads at other lengths (B*S = 4096 to S = 4096), and
+# the served qwen3-8b prefill batch
+SWEEP = [(8, 512), (4, 1024), (2, 2048), (1, 4096), (1, 8192), (4, 32)]   # (B, S)
+LONG_PROMPT = (1, 4096)                        # phase 3's long-prompt forward
 # mLSTM kernel against plain, both fp32: tests/test_kernels.py's tolerance
 # for the chunkwise form; the kernel's scans and products sum in another order
 MLSTM_TOL = 3e-4
@@ -128,17 +151,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_busy(fn):
-    """(device ms, kernels) of one synchronised call of ``fn`` under
-    torch.profiler, or (None, 0) where the profiler sees no device time."""
+def device_kernels(fn) -> list:
+    """(name, device ms) of each kernel of one synchronised call of ``fn``
+    under torch.profiler; empty where the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        return None, 0
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def logit_diff(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -164,7 +185,7 @@ def phase_device():
         f"in {time.perf_counter() - t0:.1f} s")
     for name, sources in libs.items():
         for line in build.report(name, sources).splitlines():
-            if any(key in line for key in ("Compiling entry", "Used", "spill")):
+            if any(key in line for key in ("Compiling entry", "Used", "spill", "C75")):
                 say(f"[device] {name} ptxas: {line.replace('ptxas info', '').strip(' :')}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -191,6 +212,18 @@ def phase_kernel() -> dict:
                 f"(tol {TOL[dtype]})")
             if not err <= TOL[dtype]:
                 raise AssertionError(f"kernel disagrees with its plain version: {err}")
+    for B, H, KH, Sq, Sk, Dh, causal, q_offset in EDGE_CASES:
+        q = randn(gen, (B, H, Sq, Dh), torch.bfloat16)
+        k = randn(gen, (B, KH, Sk, Dh), torch.bfloat16)
+        v = randn(gen, (B, KH, Sk, Dh), torch.bfloat16)
+        out = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        ref = flash_attention(q, k, v, causal=causal, q_offset=q_offset, impl="plain")
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        say(f"[kernel] edge B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} Dh={Dh} causal={causal} "
+            f"q_offset={q_offset} bfloat16: max_abs_err={err:.3e} (tol {TOL[torch.bfloat16]})")
+        if not err <= TOL[torch.bfloat16]:
+            raise AssertionError(f"kernel disagrees with its plain version at an edge: {err}")
 
     B, H, KH, S, Dh = PREFILL_SHAPE
     q = randn(gen, (B, H, S, Dh), torch.bfloat16)
@@ -200,7 +233,7 @@ def phase_kernel() -> dict:
     err = (out.float() - ref.float()).abs().max().item()
     if not err <= TOL[torch.bfloat16]:
         raise AssertionError(f"kernel disagrees at the prefill shape: {err}")
-    del out, ref
+    del out
     ke, ve = k.repeat_interleave(H // KH, 1), v.repeat_interleave(H // KH, 1)
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)
     plain_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, impl="plain"),
@@ -214,7 +247,19 @@ def phase_kernel() -> dict:
         f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
         f"(ops {t_ops:.4f}, bytes {t_bytes:.4f}); max_abs_err {err:.3e}")
-    del q, k, v, ke, ve
+    del q, k, v, ke, ve, ref
+    for B, S in SWEEP:
+        q = randn(gen, (B, H, S, Dh), torch.bfloat16)
+        k, v = randn(gen, (B, KH, S, Dh), torch.bfloat16), randn(gen, (B, KH, S, Dh), torch.bfloat16)
+        ke, ve = k.repeat_interleave(H // KH, 1), v.repeat_interleave(H // KH, 1)
+        k_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)
+        s_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
+                       iters=20)
+        fl = 2 * B * H * S * S * Dh
+        say(f"[kernel] sweep B={B} H={H} KH={KH} S={S} Dh={Dh} bf16 causal: kernel "
+            f"{k_ms:.4f} ms ({fl / k_ms / 1e9:.1f} TFLOP/s), sdpa {s_ms:.4f} ms "
+            f"({fl / s_ms / 1e9:.1f} TFLOP/s), kernel/sdpa {k_ms / s_ms:.3f}")
+        del q, k, v, ke, ve
     torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -265,15 +310,43 @@ def time_prefill_and_decode(cfg, model, tag: str, tokens) -> None:
     decode = lambda: decode_step(cfg, model, caches, nxt, S)  # noqa: E731
     for name, fn in (("forward(want_caches)", prefill), ("decode_step", decode)):
         ms = cuda_ms(fn, iters=5, warmup=1)
-        busy, n = device_busy(fn)
-        share = "device time not measured" if busy is None else (
-            f"device busy {busy:.2f} ms in {n} kernels, idle share {1 - busy / ms:.3f}")
+        kernels = device_kernels(fn)
+        busy = sum(t for _, t in kernels)
+        share = "device time not measured" if not kernels else (
+            f"device busy {busy:.2f} ms in {len(kernels)} kernels, idle share "
+            f"{1 - busy / ms:.3f}")
         say(f"[{tag}] {name} B={tokens.shape[0]} S={S}: {ms:.2f} ms eager; {share}")
+
+
+def time_long_prompt(cfg, model) -> None:
+    """One forward of a LONG_PROMPT-token prompt through the kernel: its
+    time and the kernel's share of its device time."""
+    from repro_torch import forward
+    from repro_torch.kernels.flash_attention import flash_attention
+    tokens = prefill_tokens(cfg, LONG_PROMPT)
+    fn = lambda: forward(cfg, model, {"tokens": tokens})  # noqa: E731
+    before = flash_attention.launches
+    logits, _, _, _ = fn()
+    if flash_attention.launches - before != cfg.n_layers:
+        raise AssertionError("the long prefill did not launch the kernel once a layer")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("the long prefill's logits are not finite")
+    del logits
+    ms = cuda_ms(fn, iters=3, warmup=1)
+    kernels = device_kernels(fn)
+    busy = sum(t for _, t in kernels)
+    mine = sum(t for name, t in kernels if "flash_fwd_bf16" in name)
+    tail = "device time not measured" if not kernels else (
+        f"device busy {busy:.2f} ms, flash kernel {mine / busy:.4f} of it "
+        f"({mine:.2f} ms in {cfg.n_layers} launches)")
+    say(f"[prefill] forward B={tokens.shape[0]} S={tokens.shape[1]}: {ms:.2f} ms eager; "
+        f"{tail}")
 
 
 def phase_prefill(cfg, model) -> None:
     check_prefill(cfg, model, "qwen3-8b bf16")
     time_prefill_and_decode(cfg, model, "prefill", prefill_tokens(cfg))
+    time_long_prompt(cfg, model)
     say(f"[prefill] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 

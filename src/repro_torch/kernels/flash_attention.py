@@ -3,7 +3,8 @@
 ``flash_attention`` is the port of the Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py:25 _flash_kernel``. On a CUDA tensor it
 launches the hand-written kernel of ``csrc/flash_attention.cu`` (built at
-first use, see ``build.py``) or raises; on a CPU tensor, or with
+first use, see ``build.py``; in bf16 a TMA and ``wgmma`` kernel with a
+producer warpgroup, in fp32 a CUDA-core one) or raises; on a CPU tensor, or with
 ``impl="plain"``, it computes ``flash_attention_plain``, the naive softmax
 attention of ``src/repro/kernels/ref.py:9`` with the same masks. There is no
 fallback from the kernel to the plain version.

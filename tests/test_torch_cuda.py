@@ -1,8 +1,10 @@
 """The PyTorch port's CUDA kernels against their plain versions, on the card.
 
-Every test here needs a CUDA card (marker ``cuda``) and skips without one:
-a CUDA kernel has no CPU mode. The file imports no JAX, so it runs on a
-machine with only PyTorch: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+Every test marked ``cuda`` needs a CUDA card and skips without one: a CUDA
+kernel has no CPU mode. The file imports no JAX, so it runs on a machine with
+only PyTorch: ``python -m pytest -m cuda tests/test_torch_cuda.py``. The
+wrapper's argument checks, which run before any launch, are tested here on
+CPU tensors and carry no marker.
 """
 
 import numpy as np
@@ -10,15 +12,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import _check, flash_attention  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk  # noqa: E402
 
-pytestmark = pytest.mark.cuda
+cuda = pytest.mark.cuda
 
 # fp32: summation order only; bf16: the kernel rounds P to bf16 before P V
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
+@cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,Dh,q_offset,causal", [
     (1, 2, 2, 128, 128, 64, 0, True),       # tests/test_kernels.py FLASH_CASES
@@ -47,6 +50,72 @@ def test_flash_kernel_matches_plain(B, H, KH, Sq, Sk, Dh, q_offset, causal, dtyp
                                atol=TOL[dtype])
 
 
+# The bf16 kernel's edges: its q and kv tiles are 128 rows, its TMA boxes
+# overhang Sq and Sk (zero-filled), its consumers take 64 rows each, and a
+# kv tile is masked only on a consumer's diagonal or past Sk
+@cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,Dh,q_offset,causal", [
+    *[(1, 4, 2, n, n, 128, 0, True) for n in (1, 63, 65, 127, 129, 4097)],
+    *[(2, 4, 2, 129, n, 64, 0, False) for n in (1, 63, 65, 127, 4097)],
+    (2, 8, 2, 129, 300, 128, 171, True),    # q_offset, Sq < Sk, B > 1, KH > 1
+    (1, 8, 2, 63, 1000, 128, 937, True),    # the last 63 rows of a sequence
+    (1, 8, 2, 65, 4097, 128, 100, True),    # keys past the last row unseen
+    (2, 4, 4, 127, 129, 32, 2, True),       # G = 1, Dh = 32
+    (1, 4, 2, 129, 4097, 32, 0, False),     # Dh = 32, long Sk
+    (2, 16, 4, 129, 129, 64, 0, True),      # G = 4
+    (2, 16, 2, 200, 200, 128, 0, True),     # G = 8
+    (3, 8, 2, 65, 127, 128, 0, False),      # non-causal Sk != Sq, B = 3
+    (1, 2, 1, 1, 129, 64, 128, True),       # one query at the end
+])
+def test_flash_kernel_bf16_edges(B, H, KH, Sq, Sk, Dh, q_offset, causal):
+    test_flash_kernel_matches_plain(B, H, KH, Sq, Sk, Dh, q_offset, causal, "bfloat16")
+
+
+def _qkv(Sq=8, Dh=64, dtype=torch.bfloat16, H=4, KH=2):
+    return (torch.zeros(1, H, Sq, Dh, dtype=dtype), torch.zeros(1, KH, Sq, Dh, dtype=dtype),
+            torch.zeros(1, KH, Sq, Dh, dtype=dtype))
+
+
+def _misaligned():
+    q, k, v = _qkv()
+    buf = torch.zeros(q.numel() + 1, dtype=q.dtype)
+    return buf[1:].view(q.shape), k, v                 # 2 bytes past 16-byte alignment
+
+
+def _transposed():
+    q, k, v = _qkv(dtype=torch.float32)
+    return torch.zeros(1, 4, 64, 8).transpose(2, 3), k, v
+
+
+# The wrapper's argument checks, on CPU tensors: what the kernels cannot
+# take raises before a launch
+@pytest.mark.parametrize("make,error,match", [
+    (lambda: _qkv(), None, None),
+    (lambda: _qkv(dtype=torch.float32, Dh=128), None, None),
+    (lambda: _qkv(dtype=torch.float16), TypeError, "dtype"),
+    (lambda: (*_qkv()[:2], _qkv()[2].float()), TypeError, "dtype"),
+    (lambda: _qkv(Dh=96), ValueError, "head dim"),
+    (lambda: (_qkv()[0][0], *_qkv()[1:]), ValueError, "want q"),
+    (lambda: _qkv(H=4, KH=3), ValueError, "KH dividing H"),
+    (lambda: (*_qkv()[:2], _qkv()[2].to("meta")), ValueError, "one device"),
+    (_misaligned, ValueError, "16-byte aligned"),
+    (_transposed, ValueError, "contiguous"),
+], ids=["bf16", "fp32", "fp16", "mixed-dtype", "dh96", "q-3d", "kh-not-dividing",
+        "two-devices", "misaligned", "non-contiguous"])
+def test_flash_wrapper_checks(make, error, match):
+    q, k, v = make()
+    if error is None:
+        _check(q, k, v, 0)
+    else:
+        with pytest.raises(error, match=match):
+            _check(q, k, v, 0)
+
+
+def test_flash_wrapper_rejects_negative_offset():
+    with pytest.raises(ValueError, match="q_offset"):
+        _check(*_qkv(), -1)
+
+
 # mLSTM, fp32 in both: the kernel's scans and products sum in another order
 # than the plain version's (tests/test_kernels.py's chunkwise tolerance)
 MLSTM_TOL = 3e-4
@@ -60,6 +129,7 @@ def _mlstm_inputs(seed, B, H, S, Dh, device="cuda"):
     return q, k, v, li, lf
 
 
+@cuda
 @pytest.mark.parametrize("B,H,S,Dh,chunk,carry", [
     (1, 2, 64, 32, 16, False),        # tests/test_kernels.py MLSTM_CASES
     (2, 3, 128, 64, 32, False),
