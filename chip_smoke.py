@@ -27,8 +27,11 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      equals sequential greedy decode;
   6. mlstm kernel: hold the chunkwise-mLSTM kernel against its plain version
      (h and the final state C, n, m) on the cases of tests/test_kernels.py, a
-     carried-in state, ragged S and Dh = 1024 at the served shape; then time
-     it at the xlstm-1.3b prefill shape beside the plain version and the bound;
+     carried-in state, ragged S, Dh = 1024 at the served shape, and stress
+     inputs (small forget gates, near-cancelling denominators, S = 4096 with
+     a carried state); the same call twice gives the same bits; then time it
+     at the xlstm-1.3b prefill and served shapes, each of its kernels by
+     torch.profiler, beside the plain version and the bounds;
   7. xlstm prefill: xlstm-1.3b at full width and depth (48 layers, seeded
      random weights), one forward over 4 prompts of 256 tokens through the
      kernel (launched once an mLSTM layer), each layer's kernel call held
@@ -107,18 +110,24 @@ LONG_PROMPT = (1, 4096)                        # phase 3's long-prompt forward
 # mLSTM kernel against plain, both fp32: tests/test_kernels.py's tolerance
 # for the chunkwise form; the kernel's scans and products sum in another order
 MLSTM_TOL = 3e-4
-# (B, H, S, Dh, chunk, carried-in state)
+# (B, H, S, Dh, chunk, carried-in state, inputs: see mlstm_inputs)
 MLSTM_CASES = [
-    (1, 2, 64, 32, 16, False),                 # tests/test_kernels.py MLSTM_CASES
-    (2, 3, 128, 64, 32, False),
-    (1, 4, 128, 128, 64, False),
-    (2, 2, 96, 32, 32, False),
-    (2, 2, 128, 64, 32, True),                 # a carried-in state
-    (1, 2, 100, 64, 32, False),                # ragged S
-    (1, 2, 70, 1024, 64, True),                # Dh = 1024, ragged, carried
-    (4, 4, 256, 1024, 64, False),              # the served xlstm-1.3b prefill
+    (1, 2, 64, 32, 16, False, None),           # tests/test_kernels.py MLSTM_CASES
+    (2, 3, 128, 64, 32, False, None),
+    (1, 4, 128, 128, 64, False, None),
+    (2, 2, 96, 32, 32, False, None),
+    (2, 2, 128, 64, 32, True, None),           # a carried-in state
+    (1, 2, 100, 64, 32, False, None),          # ragged S
+    (1, 2, 70, 1024, 64, True, None),          # Dh = 1024, ragged, carried
+    (4, 4, 256, 1024, 64, False, None),        # the served xlstm-1.3b prefill
+    (1, 4, 256, 1024, 64, True, "forget"),     # F in the hundreds within a chunk
+    (1, 4, 256, 1024, 64, True, "cancel"),     # q nearly orthogonal to n
+    (2, 2, 128, 64, 32, True, "cancel"),
+    (1, 4, 4096, 1024, 64, True, None),        # the prefill shape, carried state
 ]
 MLSTM_SHAPE = (1, 4, 4096, 1024, 64)           # xlstm-1.3b prefill: B, H, S, Dh, chunk
+MLSTM_SERVED = (4, 4, 256, 1024, 64)           # the served xlstm-1.3b batch's calls
+MLSTM_PIECES = 6       # bf16 products per fp32 product in the kernel's walk (3 pieces)
 # xlstm-1.3b at full depth with random weights is ill-conditioned: where
 # |q . n| nears 0 in some mLSTM layer, h jumps, and a rounding difference
 # anywhere grows to O(1) in the logits (two plain forwards that differ only
@@ -424,11 +433,26 @@ def phase_speculative() -> None:
         f"{res.acceptance:.3f}; sequential {t1 - t0:.2f} s, speculative {t2 - t1:.2f} s")
 
 
-def mlstm_inputs(gen: torch.Generator, B, H, S, Dh):
+def mlstm_inputs(gen: torch.Generator, B, H, S, Dh, kind=None):
+    """Random mLSTM inputs. kind "forget": small forget gates (log f ~ -8 a
+    step, so F reaches hundreds within a chunk); "cancel": keys along one
+    direction u and queries nearly orthogonal to it, so q . n cancels to a
+    few percent of |q| |n| while staying above the floor exp(-m)."""
     q, k, v = (randn(gen, (B, H, S, Dh), torch.float32) for _ in range(3))
     li = randn(gen, (B, H, S), torch.float32)
     lf = F.logsigmoid(randn(gen, (B, H, S), torch.float32) + 2.0)
-    return q, k * Dh ** -0.5, v, li, lf
+    k = k * Dh ** -0.5
+    if kind == "forget":
+        lf = 2.0 * F.logsigmoid(randn(gen, (B, H, S), torch.float32) - 4.0)
+    elif kind == "cancel":
+        u = randn(gen, (Dh,), torch.float32)
+        u /= u.norm()
+        k = (u + 0.05 * randn(gen, (B, H, S, Dh), torch.float32)) * 4 * Dh ** -0.5
+        q = q - (q @ u)[..., None] * u + 0.05 * randn(gen, (B, H, S, 1), torch.float32) * u
+        li = li + 3.0
+    elif kind is not None:
+        raise ValueError(kind)
+    return q, k, v, li, lf
 
 
 def mlstm_err(out, ref) -> tuple:
@@ -437,62 +461,108 @@ def mlstm_err(out, ref) -> tuple:
     return d.max().item(), (d / (MLSTM_TOL * (1 + ref.abs()))).max().item()
 
 
+def mlstm_kernel_ms(args, chunk: int, iters: int = 10) -> tuple:
+    """(ms a call, {kernel: ms a call} from torch.profiler) of mlstm_chunk."""
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+    fn = lambda: mlstm_chunk(*args, chunk=chunk)  # noqa: E731
+    ms = cuda_ms(fn, iters=iters)
+    per = {}
+    for name, t in device_kernels(fn):
+        name = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        name = name.removeprefix("void ")
+        per[name] = per.get(name, 0.0) + t
+    return ms, per
+
+
+def mlstm_bounds(B, H, S, Dh, chunk) -> dict:
+    """Least times (ms) for the mLSTM call at these shapes on an H100 SXM:
+    the bytes (q, k, v read and h written in fp32, li and lf read, the state
+    written) and the function's operations once each at the bf16 tensor-core
+    rate, the type the kernel multiplies in; the bound is the larger. Design
+    figures beside it: the kernel's own work, its tensor-core products (Q
+    C0, the update of C, (Q K^T .* W) V) MLSTM_PIECES times at the bf16 rate
+    plus Q K^T and W K at the fp32 rate; and the operations once each at
+    the fp32 rate (no tensor cores)."""
+    n = (S // chunk) * B * H
+    tc = (4 * chunk * Dh ** 2 + 2 * chunk ** 2 * Dh) * n      # on the tensor cores
+    cc = 4 * chunk ** 2 * Dh * n                              # on CUDA cores
+    nbytes = 4 * (4 * B * H * S * Dh + 2 * B * H * S + B * H * (Dh * Dh + Dh + 1))
+    out = {"bytes": nbytes / PEAK_BYTES * 1e3,
+           "ops": (tc + cc) / PEAK_BF16_FLOPS * 1e3,
+           "split": (MLSTM_PIECES * tc / PEAK_BF16_FLOPS + cc / PEAK_FP32_FLOPS) * 1e3,
+           "fp32": (tc + cc) / PEAK_FP32_FLOPS * 1e3}
+    out["bound"] = max(out["bytes"], out["ops"])
+    return out
+
+
 def phase_mlstm_kernel() -> dict:
     from repro_torch.kernels.mlstm_chunk import mlstm_chunk
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    for B, H, S, Dh, chunk, carry in MLSTM_CASES:
-        args = mlstm_inputs(gen, B, H, S, Dh)
+    for B, H, S, Dh, chunk, carry, kind in MLSTM_CASES:
+        args = mlstm_inputs(gen, B, H, S, Dh, kind)
         state = None
         if carry:
-            _, state = mlstm_chunk(*mlstm_inputs(gen, B, H, 48, Dh), chunk=chunk,
+            _, state = mlstm_chunk(*mlstm_inputs(gen, B, H, 48, Dh, kind), chunk=chunk,
                                    impl="plain")
         h, st = mlstm_chunk(*args, chunk=chunk, state=state)
         hp, stp = mlstm_chunk(*args, chunk=chunk, state=state, impl="plain")
         torch.cuda.synchronize()
         errs = {"h": mlstm_err(h, hp), **{key: mlstm_err(st[key], stp[key])
                                           for key in ("C", "n", "m")}}
-        say(f"[mlstm kernel] B={B} H={H} S={S} Dh={Dh} chunk={chunk} carried={carry}: "
-            + ", ".join(f"{key} max_abs_err={e[0]:.3e}" for key, e in errs.items())
-            + f" (tol {MLSTM_TOL} abs + rel)")
+        say(f"[mlstm kernel] B={B} H={H} S={S} Dh={Dh} chunk={chunk} carried={carry} "
+            f"inputs={kind or 'random'}: "
+            + ", ".join(f"{key} max_abs_err={e[0]:.3e} (scaled {e[1]:.3f})"
+                        for key, e in errs.items())
+            + f" (tol {MLSTM_TOL} abs + rel: scaled <= 1)")
         if not all(e[1] <= 1 for e in errs.values()):
             raise AssertionError(f"mlstm kernel disagrees with its plain version: {errs}")
+    del args, h, st, hp, stp, state
 
     B, H, S, Dh, chunk = MLSTM_SHAPE
     args = mlstm_inputs(gen, B, H, S, Dh)
     h, st = mlstm_chunk(*args, chunk=chunk)
+    h2, st2 = mlstm_chunk(*args, chunk=chunk)
     hp, stp = mlstm_chunk(*args, chunk=chunk, impl="plain")
     err, scaled = mlstm_err(h, hp)
     if not scaled <= 1:
         raise AssertionError(f"mlstm kernel disagrees at the prefill shape: {err}")
-    del h, st, hp, stp
-    ms = cuda_ms(lambda: mlstm_chunk(*args, chunk=chunk), iters=10)
+    if not (torch.equal(h, h2) and all(torch.equal(st[x], st2[x]) for x in "Cnm")):
+        raise AssertionError("two calls of the mlstm kernel on the same inputs differ")
+    del h, st, h2, st2, hp, stp
+    ms, per = mlstm_kernel_ms(args, chunk)
     plain_ms = cuda_ms(lambda: mlstm_chunk(*args, chunk=chunk, impl="plain"),
                        iters=3, warmup=1)
-    # the reference's operations per chunk: Q K^T, (Q K^T .* W) V and W K on
-    # L x L x Dh, Q C0 and the update of C on L x Dh x Dh
+    bd = mlstm_bounds(B, H, S, Dh, chunk)
     flops = (6 * chunk ** 2 * Dh + 4 * chunk * Dh ** 2) * (S // chunk) * B * H
-    # q, k, v read and h written (fp32), li and lf read, the state written
-    nbytes = 4 * (4 * B * H * S * Dh + 2 * B * H * S + B * H * (Dh * Dh + Dh + 1))
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    split = ", ".join(f"{name} {t:.4f}" for name, t in per.items()) or "not measured"
     say(f"[mlstm kernel] prefill shape B={B} H={H} S={S} Dh={Dh} chunk={chunk} fp32: "
-        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-        f"bound {max(t_ops, t_bytes):.4f} ms (ops {t_ops:.4f} at fp32 67 TFLOP/s, bytes "
-        f"{t_bytes:.4f}); no single PyTorch call computes it; max_abs_err {err:.3e}")
+        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the reference's operations; "
+        f"per kernel, ms: {split}), plain {plain_ms:.4f} ms, bound {bd['bound']:.4f} ms "
+        f"(bytes {bd['bytes']:.4f}; operations once at bf16 989 TFLOP/s {bd['ops']:.4f}); "
+        f"design figures: the kernel's split products ({MLSTM_PIECES} bf16 products of "
+        f"each tensor-core product at 989 TFLOP/s and Q K^T, W K at fp32 67 TFLOP/s) "
+        f"{bd['split']:.4f} ms, the operations at fp32 67 TFLOP/s {bd['fp32']:.4f} ms; no "
+        f"single PyTorch call computes it; max_abs_err {err:.3e}; two calls equal bit for "
+        f"bit")
     del args
-    B, H, S, Dh, chunk = MLSTM_CASES[-1][:5]
+    B, H, S, Dh, chunk = MLSTM_SERVED
     args = mlstm_inputs(gen, B, H, S, Dh)
-    served_ms = cuda_ms(lambda: mlstm_chunk(*args, chunk=chunk), iters=10)
+    served_ms, per = mlstm_kernel_ms(args, chunk)
+    bs = mlstm_bounds(B, H, S, Dh, chunk)
+    split = ", ".join(f"{name} {t:.4f}" for name, t in per.items()) or "not measured"
     say(f"[mlstm kernel] served shape B={B} H={H} S={S} Dh={Dh} chunk={chunk}: kernel "
-        f"{served_ms:.4f} ms a call")
+        f"{served_ms:.4f} ms a call (per kernel, ms: {split}); bound {bs['bound']:.4f} ms "
+        f"(bytes {bs['bytes']:.4f}, operations at bf16 {bs['ops']:.4f}; split products "
+        f"{bs['split']:.4f}, fp32 {bs['fp32']:.4f})")
     del args
     torch.cuda.empty_cache()
     return {"name": "mlstm_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
             "replaces": "src/repro/kernels/mlstm_chunk.py:22",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bd["bound"],
+            "bound_by": "operations" if bd["ops"] >= bd["bytes"] else "bytes",
             "library_ms": None}
 
 

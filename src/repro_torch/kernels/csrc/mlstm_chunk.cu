@@ -12,108 +12,428 @@
 //     m = m_L.
 // These are the reference's exponents (`_mlstm_chunk_body`,
 // src/repro/models/xlstm.py:59) with F_t - m_t = -run_t cancelled by hand.
-// The denominator keeps the reference's order, the vector n_t first and then
-// its dot with q_t: where |q_t . n_t| nears 0 (it does in random-weight
-// models) h_t is ill-conditioned, and summing the same terms in another
-// order (rowsum(Q K^T .* W) + w_t q_t . n0) moved h there by more than the
-// reference's own rounding. For margin that dot product is summed in fp64,
-// and so are the gates' scans (64 scalars a chunk), whose differences
-// g_s - run_t of numbers in the hundreds are the exponents of W; the other
-// Dh-term dot products are summed as 32 partial sums of 32 terms. Beyond
-// the TPU kernel it takes an initial state, returns the final one, and
-// takes a last chunk shorter than L. All else is fp32 on CUDA cores: no
-// tensor cores (no TF32), no fast-math.
+// Beyond the TPU kernel it takes an initial state, returns the final one,
+// and takes a last chunk shorter than L. Inputs and outputs are fp32.
 //
-// Design. The Pallas kernel keeps C (Dh x Dh) whole in VMEM and walks the
-// chunks as a sequential grid axis. At xlstm-1.3b's Dh = 1024, C is 4 MiB
-// per (batch, head), far beyond one SM's 227 KB, and CUDA blocks run in no
-// order. So the work is split in two kernels:
-//   1. `mlstm_qk`, one CTA per (b*h, chunk), all in parallel: what needs no
-//      state, into scratch buffers. That is the L x L product Q K^T, and
-//      nloc_t = sum_{s<=t} exp(g_s - c_t) k_s with c_t = max_{s<=t} g_s,
-//      which is W K up to the factor exp(c_t - run_t).
-//   2. `mlstm_scan`, one CTA per (b*h, 32-column slice e of the values),
-//      each walking the chunks in order inside the CTA. h[:, e] and C[:, e]
-//      need only columns e of V and C, so the CTA holds its slice of C
-//      (Dh x 32 fp32, 128 KiB at Dh = 1024) in dynamic shared memory for the
-//      whole walk. What every slice shares is cheap given pass 1: the gates'
-//      scans (L scalars), the weighted scores (L x L from the scratch), and
-//      n (Dh floats) with q . n_t, which each CTA keeps and computes itself.
-// Pass 1 holds what every column slice would otherwise recompute: two
-// L x L x Dh products, Dh/32 times over. Keeping them in one pass costs a
-// write and Dh/32 reads of the scratch per chunk, far less than those
-// products.
+// Precision. Random-weight xlstm-1.3b is ill-conditioned: where |q_t . n_t|
+// nears 0, h_t amplifies any rounding, so the kernel keeps fp32's accuracy
+// throughout. The gates' scans and every exponent's difference are fp64 (F
+// reaches hundreds within a chunk); q_t . n_t is summed in fp64 with n_t
+// formed as the reference forms it; the Dh-wide products go to the tensor
+// cores with each fp32 operand split into three bf16 pieces (24 bits), of
+// whose nine products the six that fp32 needs are summed in fp32. Two
+// pieces (three products, 16 bits) hold tests/test_kernels.py's 3e-4 on
+// random inputs but not where the denominator cancels; single-pass TF32 or
+// bf16 hold it nowhere (tests/test_torch_mlstm_precision.py).
 //
-// Bound on an H100 SXM (67 TFLOP/s fp32 without tensor cores, 3.35 TB/s):
-// (6 L^2 Dh + 4 L Dh^2) operations per chunk and head against reading q, k,
-// v and writing h once (16 S Dh bytes per head). At the xlstm-1.3b prefill
-// (Dh = 1024, L = 64) it is bound by the operations. This first version
-// streams q and k through shared memory in 32-column tiles (the next tile's
-// loads in flight in registers while this one is used) with register tiles
-// of 2x4 and 1x4, so the products are bound by shared-memory reads and by
-// 8 warps an SM; wgmma in TF32 or bf16 and TMA are for later.
+// Design. The TPU kernel keeps C (Dh x Dh, 4 MiB at xlstm-1.3b's Dh = 1024)
+// in VMEM and walks the chunks as a sequential grid axis. Here C lives in
+// registers, as the walk's wgmma accumulators, and five kernels share the
+// work so that only the walk is sequential, and only over Dh^2-sized terms:
+//   1. `mlstm_gates`, a CTA per (b, h): the gates' fp64 scans, the carried
+//      stabiliser chunk to chunk, each step's weights (w_t, wk_t, exp(-m_t))
+//      and each chunk's decay; S floats of work, not Dh-wide.
+//   2. `mlstm_prep`, a CTA per (chunk, b h, block of 256 keys), all in
+//      parallel on CUDA cores: Q K^T (64 x 64, a partial sum per block), n's
+//      intra-chunk part W K dotted with q (fp64), n's per-chunk increment,
+//      and the walk's operands q, k .* wk and v cut into bf16 pieces.
+//   3. `mlstm_den`, a CTA per (chunk, b h): the weighted scores Q K^T .* W
+//      in pieces; n0 of the chunk by the recurrence over earlier chunks'
+//      increments; den_t = max(|q_t . n_t|, exp(-m_t)) once per row, where
+//      every column slice of the previous design repeated it.
+//   4. `mlstm_walk`, a CTA per (128 values e, 256 keys d, b h), 256 threads:
+//      two warpgroups, each holding C^T[64 e, 256 d] as 4 fp32 m64n64
+//      accumulators (128 registers), walk the chunks in order. Per chunk:
+//      h^T = C0^T Q^T (wgmma with C0^T split in registers as A, q by TMA as
+//      B), scaled by w_t, plus this key block's share of V^T (Q K^T .* W)^T
+//      (both from shared memory), written out as a partial sum; then C^T =
+//      decay C^T + V^T (k .* wk) (V^T transposed and k .* wk read MN-major
+//      through the descriptors). Thread 0 issues the TMA loads, five tiles
+//      ahead in a 6-stage ring of mbarrier-guarded slots (q, then k .* wk,
+//      64 keys x 64 steps x 3 pieces a slot) and one chunk buffer (V's 128
+//      values and the scores); a separate producer warp would put three
+//      warps on one SM sub-partition, and ptxas then caps every thread at
+//      168 registers (setmaxnreg or not) and spills the state.
+//   5. `mlstm_out`: h = the key blocks' partial sums, in order, / den_t.
+// At Dh = 1024, B H = 4 that is 128 walk CTAs, one wave on 132 SMs; the
+// key blocks of one e-block share nothing while they run (as a thread-block
+// cluster reducing h through distributed shared memory, they did not all
+// fit the card at once and ran in two waves).
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 67 fp32 without tensor
+// cores, 3.35 TB/s): at the xlstm-1.3b prefill (B=1, H=4, S=4096, Dh=1024,
+// L=64) the function's own operations, once each at the bf16 rate, take
+// 0.08 ms, under the 0.09 ms of reading q, k, v and writing h once: the
+// function is bound by its bytes. This design's own work is bound by its
+// operations: the walk's six bf16 products of 4 L Dh^2 operations per chunk
+// and head take 0.43 ms and the CUDA-core 4 L^2 Dh 0.06 ms, so the split's
+// 6x is most of the kernel's floor. The design itself moves about 1.3 GB
+// through device memory (the operands' pieces, 288 MiB, and the walk's
+// partial sums of h, 256 MiB, each written and read), 0.4 ms of bytes.
+// ptxas (sm_90a): mlstm_walk<4> 224 registers, no spills; the other passes
+// 32-62 registers, no spills.
 
+#include <cuda.h>               // CUtensorMap and its enums (header only)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int LMAX = 64;          // largest chunk
-constexpr int E = 32;             // value columns of C per scan CTA
-constexpr int DT = 32;            // key columns per streamed q/k tile
-constexpr int THREADS = 256;
-constexpr int LDT = DT + 1;       // padded row stride of the q/k tiles
-constexpr int LDS = LMAX + 1;     // padded row stride of the score tile
+constexpr int LMAX = 64;          // largest chunk, rows of every chunk tile
+constexpr int DT = 32;            // key columns per tile of the CUDA-core passes
+constexpr int THREADS = 256;      // CUDA-core passes
+constexpr int LDT = DT + 1;       // padded row stride of their q/k tiles
 constexpr int MAX_DH = 1024;
+constexpr int PIECES = 3;         // bf16 pieces of a split fp32 operand
 
-// ------------------------------------------------ pass 1: Q K^T and n_loc
-// CTA (c, bh), for the chunk's rows t, s < L_c (zero past L_c):
-//   qk[bh][c][t][s] = q_t . k_s,
-//   nloc[t] = sum_{s<=t} exp(g_s - c_t) k_s, with c_t = max_{s<=t} g_s,
-// the intra-chunk part of n_t up to the factor exp(c_t - run_t), which
-// needs the carried m0 and is applied in pass 2. Neither needs the state.
-// QK^T: 256 threads, each a 4x4 tile (t = ty + 16 i, s = tx + 16 j);
-// nloc: each 2 rows (t = uy, uy + 32) x 4 columns (4 ux ..) of a key tile.
-__global__ void __launch_bounds__(THREADS) mlstm_qk(const float* __restrict__ q,
-                                                    const float* __restrict__ k,
-                                                    const float* __restrict__ li,
-                                                    const float* __restrict__ lf,
-                                                    float* __restrict__ qk,
-                                                    float* __restrict__ nloc,
-                                                    int S, int Dh, int chunk) {
-  __shared__ float qs[LMAX * LDT];
-  __shared__ float ks[LMAX * LDT];
-  __shared__ float wl[LMAX * LDS];   // exp(g_s - c_t), s <= t
-  __shared__ double gs[LMAX], cm[LMAX];
-  const int c = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
-  const int t0 = c * chunk, Lc = min(chunk, S - t0);
-  const size_t base = ((size_t)bh * S + t0) * Dh;
-  if (tid == 0) {     // the same scan as pass 2's, so c_t is the same
-    double F = 0.0, run = -INFINITY;
+// ------------------------------------------------------------ scratch
+// One buffer, laid out by `Scratch`; the wrapper allocates
+// mlstm_chunk_scratch_bytes() of it. The walk's tensor-core operands are
+// split x = x1 + x2 + x3 into three bf16 pieces, piece p at slab p BH + bh of
+// a (3 BH, S, Dp) array, Dp = Dh rounded up to 64 (the pad is 0).
+struct Scratch {
+  double* g;       // (BH, S): g_t = li_t - F_t, in fp64
+  double* run;     // (BH, S): run_t = max(m0, max_{s<=t} g_s), in fp64
+  float4* step;    // (BH, S): {w_t = exp(m0 - run_t), wk_t = exp(g_t - run_L),
+                   //           lo_t = exp(-m_t), den_t}
+  float* decay;    // (BH, nc): exp(m0 - run_L) of each chunk
+  double2* chain;  // (BH, nc): first {F_L, c_L}, then {m0, run_L} of each chunk
+  double* qnl;     // (P, BH, S): q_t . (W K)_t over key block p, in fp64
+  float* qkp;      // (BH, nc, P, 64, 64): Q K^T over key block p
+  float* ksum;     // (BH, nc, Dh): sum_s wk_s k_s of each chunk
+  float* hp;       // (P, BH, S, Dh): the walk's partial sums of h's numerator
+  __nv_bfloat16* qx;    // (3 BH, S, Dp): q, split
+  __nv_bfloat16* kwx;   // (3 BH, S, Dp): k_t wk_t, split
+  __nv_bfloat16* vx;    // (3 BH, S, Dp): v, split
+  __nv_bfloat16* swx;   // (3 BH nc, 64, 64): Q K^T .* W of each chunk, split
+};
+
+__host__ __device__ inline int padded(int Dh) { return (Dh + 63) / 64 * 64; }
+
+constexpr int KB = 256;           // keys per block of passes 2 and 4 (4 walk tiles)
+__host__ __device__ inline int key_blocks(int Dh) { return (Dh + KB - 1) / KB; }
+
+inline size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
+
+inline size_t scratch_layout(Scratch* s, char* base, int BH, int S, int Dh, int nc) {
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base + off;
+    off = align256(off + bytes);
+    return p;
+  };
+  const size_t n = (size_t)BH * S, m = (size_t)BH * nc, x = PIECES * n * padded(Dh) * 2;
+  const int P = key_blocks(Dh);
+  char* g = take(n * 8);
+  char* run = take(n * 8);
+  char* step = take(n * 16);
+  char* decay = take(m * 4);
+  char* chain = take(m * 16);
+  char* qnl = take(P * n * 8);
+  char* qkp = take(m * P * LMAX * LMAX * 4);
+  char* ksum = take(m * Dh * 4);
+  char* hp = take(P * n * Dh * 4);
+  char* qx = take(x);
+  char* kwx = take(x);
+  char* vx = take(x);
+  char* swx = take(PIECES * m * LMAX * LMAX * 2);
+  if (s) *s = Scratch{reinterpret_cast<double*>(g), reinterpret_cast<double*>(run),
+                      reinterpret_cast<float4*>(step), reinterpret_cast<float*>(decay),
+                      reinterpret_cast<double2*>(chain), reinterpret_cast<double*>(qnl),
+                      reinterpret_cast<float*>(qkp), reinterpret_cast<float*>(ksum),
+                      reinterpret_cast<float*>(hp), reinterpret_cast<__nv_bfloat16*>(qx),
+                      reinterpret_cast<__nv_bfloat16*>(kwx), reinterpret_cast<__nv_bfloat16*>(vx),
+                      reinterpret_cast<__nv_bfloat16*>(swx)};
+  return off;
+}
+
+// x = x1 + x2 + x3 to fp32's 24 significant bits, each piece a bf16 (8): x1
+// = x rounded, x2 = the rest rounded, x3 = what remains of that, rounded.
+__device__ __forceinline__ void split3(float x, __nv_bfloat16 (&p)[PIECES]) {
+  p[0] = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(p[0]);
+  p[1] = __float2bfloat16_rn(r);
+  p[2] = __float2bfloat16_rn(r - __bfloat162float(p[1]));
+}
+
+// ------------------------------------------------ PTX: mbarrier, TMA, wgmma
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete, spinning inside the PTX
+// (no divergent branch around the wgmma that follow); a wrong count or
+// phase traps after ~2^32 clocks instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 4294967296;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// Arrive on `bar` from the threads where `pred` holds, without a branch.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      :: "r"(bar), "r"((int)pred) : "memory");
+}
+
+// Named barrier `id` over `threads` threads (one warpgroup's, here).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// One TMA box of a 3-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptors of bf16 tiles of 128-byte swizzled rows (64 values), 1 KiB
+// aligned: K-major (a row per M or N index; a k-step is 32 bytes along the
+// row), and MN-major (a row per k; a k-step is 16 rows, 2 KiB).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+}
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + 32 * kk, 16);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + 2048 * kk, 8192);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Pin registers that an asynchronous wgmma reads or writes at this point of
+// the instruction order.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+#define WGMMA_D32                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WGMMA_D32_OUT(d)                                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 64),
+// B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : WGMMA_D32_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16) * B (16 x 64), both in shared memory; A
+// MN-major (transposed by the descriptor), B K-major (TB = 0) or MN-major (1).
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", %32, %33, p, 1, 1, 1, %35;\n}\n"
+      : WGMMA_D32_OUT(d)
+      : "l"(a), "l"(b), "r"(1), "n"(TB));
+}
+
+// The products of split operands that fp32 needs, A1 B1 + A1 B2 + A2 B1 +
+// A1 B3 + A2 B2 + A3 B1, issued smallest first (the three dropped are below
+// 2^-25 of the product). A from registers (pieces a1, a2, a3) or shared
+// memory; B's pieces in shared memory.
+__device__ __forceinline__ void wgmma_rs6(float (&d)[32], const uint32_t (&a1)[4],
+                                          const uint32_t (&a2)[4], const uint32_t (&a3)[4],
+                                          const uint64_t (&b)[PIECES]) {
+  wgmma_rs(d, a3, b[0]);
+  wgmma_rs(d, a2, b[1]);
+  wgmma_rs(d, a1, b[2]);
+  wgmma_rs(d, a2, b[0]);
+  wgmma_rs(d, a1, b[1]);
+  wgmma_rs(d, a1, b[0]);
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_ss6(float (&d)[32], const uint64_t (&a)[PIECES],
+                                          const uint64_t (&b)[PIECES]) {
+  wgmma_ss<TB>(d, a[2], b[0]);
+  wgmma_ss<TB>(d, a[1], b[1]);
+  wgmma_ss<TB>(d, a[0], b[2]);
+  wgmma_ss<TB>(d, a[1], b[0]);
+  wgmma_ss<TB>(d, a[0], b[1]);
+  wgmma_ss<TB>(d, a[0], b[0]);
+}
+
+// ----------------------------------------------- pass 1: the gates' scans
+// CTA bh. The gates decide every weight, and m carries from chunk to chunk
+// through them alone, so one small pass does all of it in fp64 (F reaches
+// hundreds within a chunk when the forget gates are small, and every
+// exponent below is a difference of two such numbers): each chunk's own scan
+// (F_L, c_L = max g), in parallel; the carried m0 of each chunk, in order
+// (rounded to fp32 between chunks, as the plain version carries it); then
+// each step's weights.
+__global__ void __launch_bounds__(128) mlstm_gates(const float* __restrict__ li,
+                                                   const float* __restrict__ lf,
+                                                   const float* __restrict__ m0p, Scratch sc,
+                                                   float* __restrict__ m_out, int S, int chunk,
+                                                   int nc) {
+  const int bh = blockIdx.x;
+  const size_t gb = (size_t)bh * S;
+  double2* ch = sc.chain + (size_t)bh * nc;
+  for (int c = threadIdx.x; c < nc; c += blockDim.x) {
+    const int t0 = c * chunk, Lc = min(chunk, S - t0);
+    double F = 0.0, cmax = -INFINITY;
     for (int t = 0; t < Lc; ++t) {
-      F += lf[(size_t)bh * S + t0 + t];
-      const double g = li[(size_t)bh * S + t0 + t] - F;
-      run = fmax(run, g);
-      gs[t] = g;
-      cm[t] = run;
+      F += lf[gb + t0 + t];
+      const double g = li[gb + t0 + t] - F;
+      cmax = fmax(cmax, g);
+      sc.g[gb + t0 + t] = g;
     }
+    ch[c] = make_double2(F, cmax);
   }
   __syncthreads();
+  if (threadIdx.x == 0) {
+    float m = m0p ? m0p[bh] : -1e30f;
+    for (int c = 0; c < nc; ++c) {
+      const double2 fc = ch[c];
+      const double m0 = m, run_l = fmax(m0, fc.y);
+      ch[c] = make_double2(m0, run_l);
+      m = (float)(fc.x + run_l);          // m_L, carried to the next chunk
+    }
+    m_out[bh] = m;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < nc; c += blockDim.x) {
+    const int t0 = c * chunk, Lc = min(chunk, S - t0);
+    const double m0 = ch[c].x, run_l = ch[c].y;
+    double F = 0.0, cmax = -INFINITY;
+    for (int t = 0; t < Lc; ++t) {
+      F += lf[gb + t0 + t];
+      const double g = sc.g[gb + t0 + t];
+      cmax = fmax(cmax, g);
+      const double run = fmax(m0, cmax);
+      sc.run[gb + t0 + t] = run;
+      sc.step[gb + t0 + t] = make_float4(expf((float)(m0 - run)), expf((float)(g - run_l)),
+                                         expf((float)(-(F + run))), 0.f);
+    }
+    sc.decay[(size_t)bh * nc + c] = expf((float)(m0 - run_l));
+  }
+}
+
+// --------------------------------------- pass 2: each chunk's local terms
+// CTA (c, bh, key block p of KB keys), all in parallel, on CUDA cores; W[t,s]
+// = exp(g_s - run_t) for s <= t < L_c, else 0; over the block's keys:
+//   qkp[t][s] = q_t . k_s                    Q K^T, a partial sum,
+//   qnl[t] = q_t . (W K)_t, in fp64          n's intra-chunk part, dotted,
+//   ksum = sum_s wk_s k_s                    n's increment over the chunk;
+// and the walk's operands q, k_t wk_t and v, split into three bf16 pieces
+// (each element once).
+// 256 threads: Q K^T in 4x4 tiles (t = ty + 16 i, s = tx + 16 j); W K in 2
+// rows (t = uy, uy + 32) x 4 columns (4 ux ..) of each 32-column key tile.
+__global__ void __launch_bounds__(THREADS) mlstm_prep(const float* __restrict__ q,
+                                                      const float* __restrict__ k,
+                                                      const float* __restrict__ v, Scratch sc,
+                                                      int S, int Dh, int chunk, int nc) {
+  constexpr int LDS = LMAX + 1;
+  __shared__ float qs[LMAX * LDT];
+  __shared__ float ks[LMAX * LDT];
+  __shared__ float wl[LMAX * LDS];
+  __shared__ float wks[LMAX];
+  const int c = blockIdx.x, bh = blockIdx.y, p = blockIdx.z, tid = threadIdx.x;
+  const int t0 = c * chunk, Lc = min(chunk, S - t0);
+  const int P = gridDim.z, d_lo = p * KB, d_hi = min(Dh, d_lo + KB);
+  const size_t gb = (size_t)bh * S + t0, base = gb * Dh;
   for (int i = tid; i < LMAX * LMAX; i += THREADS) {
     const int t = i / LMAX, s = i % LMAX;
-    wl[t * LDS + s] = (s <= t && t < Lc) ? expf((float)(gs[s] - cm[t])) : 0.f;
+    wl[t * LDS + s] =
+        (s <= t && t < Lc) ? expf((float)(sc.g[gb + s] - sc.run[gb + t])) : 0.f;
   }
+  if (tid < LMAX) wks[tid] = tid < Lc ? sc.step[gb + tid].y : 0.f;
   const int tx = tid & 15, ty = tid >> 4;
   const int ux = tid & 7, uy = tid >> 3;
+  float* ksum = sc.ksum + ((size_t)bh * nc + c) * Dh;
+  const int Dp = padded(Dh), BH = gridDim.y;
+  // element (t, d) of this chunk's rows, in pieces, in a (3 BH, S, Dp) array
+  const size_t slab = (size_t)BH * S * Dp;
+  auto put = [&](__nv_bfloat16* x, size_t off, float2 val) {   // two columns
+    __nv_bfloat16 p0[PIECES], p1[PIECES];
+    split3(val.x, p0);
+    split3(val.y, p1);
+    for (int i = 0; i < PIECES; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(x + i * slab + gb * Dp + off) =
+          __halves2bfloat162(p0[i], p1[i]);
+  };
+  __syncthreads();
   float acc[4][4] = {};
-  for (int d0 = 0; d0 < Dh; d0 += DT) {
-    for (int i = tid; i < LMAX * DT; i += THREADS) {
-      const int r = i / DT, j = i % DT;
+  double qn[2] = {0.0, 0.0};
+  for (int d0 = d_lo; d0 < d_hi; d0 += DT) {
+    for (int i = tid; i < LMAX * DT / 2; i += THREADS) {   // two columns a thread
+      const int r = i / (DT / 2), j = 2 * (i % (DT / 2));
       const bool ok = r < Lc;
       const size_t off = base + (size_t)r * Dh + d0 + j;
-      qs[r * LDT + j] = ok ? q[off] : 0.f;
-      ks[r * LDT + j] = ok ? k[off] : 0.f;
+      const float2 qv = ok ? *reinterpret_cast<const float2*>(q + off) : make_float2(0.f, 0.f);
+      const float2 kv = ok ? *reinterpret_cast<const float2*>(k + off) : make_float2(0.f, 0.f);
+      qs[r * LDT + j] = qv.x;
+      qs[r * LDT + j + 1] = qv.y;
+      ks[r * LDT + j] = kv.x;
+      ks[r * LDT + j + 1] = kv.y;
+      if (ok) {
+        const size_t xo = (size_t)r * Dp + d0 + j;
+        put(sc.qx, xo, qv);
+        put(sc.kwx, xo, make_float2(__fmul_rn(kv.x, wks[r]), __fmul_rn(kv.y, wks[r])));
+        put(sc.vx, xo, *reinterpret_cast<const float2*>(v + off));
+      }
     }
     __syncthreads();
     float part[4][4] = {};       // a sum of DT terms, then added to the total
@@ -146,268 +466,483 @@ __global__ void __launch_bounds__(THREADS) mlstm_qk(const float* __restrict__ q,
       }
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = uy + 32 * r;
-      if (t < Lc)
-        *reinterpret_cast<float4*>(nloc + base + (size_t)t * Dh + d0 + 4 * ux) =
-            make_float4(nl[r][0], nl[r][1], nl[r][2], nl[r][3]);
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        qn[r] = fma((double)qs[(uy + 32 * r) * LDT + 4 * ux + u], (double)nl[r][u], qn[r]);
+    if (tid < DT) {   // the plain version's kw = k * wk, then its sum over s
+      float sum = 0.f;
+      for (int s = 0; s < LMAX; ++s) sum += __fmul_rn(ks[s * LDT + tid], wks[s]);
+      ksum[d0 + tid] = sum;
     }
     __syncthreads();
   }
-  float* out = qk + ((size_t)bh * gridDim.x + c) * LMAX * LMAX;
+  const int pad = (Dp - Dh) / 2;
+  for (int i = tid; p == P - 1 && i < Lc * pad; i += THREADS) {    // the pad, 2 a thread
+    const size_t xo = (size_t)(i / pad) * Dp + Dh + 2 * (i % pad);
+    put(sc.qx, xo, make_float2(0.f, 0.f));
+    put(sc.kwx, xo, make_float2(0.f, 0.f));
+    put(sc.vx, xo, make_float2(0.f, 0.f));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // the 8 lanes of a row differ in their low 3 bits
+    for (int off = 1; off < 8; off <<= 1) qn[r] += __shfl_xor_sync(0xffffffffu, qn[r], off);
+    const int t = uy + 32 * r;
+    if (ux == 0 && t < Lc) sc.qnl[(size_t)p * BH * S + gb + t] = qn[r];
+  }
+  float* out = sc.qkp + (((size_t)bh * nc + c) * P + p) * LMAX * LMAX;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) out[(ty + 16 * i) * LMAX + tx + 16 * jj] = acc[i][jj];
 }
 
-// ------------------------------------------------- pass 2: the chunk walk
-struct ScanParams {
-  const float *q, *k, *v, *li, *lf;
-  const float *C0, *n0, *m0;      // initial state; null: C = 0, n = 0, m = -1e30
-  const float *qk, *nloc;         // pass 1's outputs
-  float *h, *C, *n, *m;           // h and the final state
-  int S, Dh, chunk, nc;
+// ---------------------------------------- pass 3: n and the denominators
+// CTA (c, bh), all in parallel: the weighted scores Q K^T .* W from pass 2's
+// key blocks, split into three bf16 pieces for the walk; n0 of chunk c by the
+// recurrence n = decay n + ksum over the chunks before it (the plain
+// version's order, recomputed per chunk: nc Dh-vectors from L2); then, for
+// each row t,
+//   den_t = max(|qnl_t + w_t (q_t . n0)|, exp(-m_t)),  q_t . n0 in fp64:
+// where |q_t . n_t| nears 0, h_t's error is this sum's. The last chunk's CTA
+// writes the final n.
+__global__ void __launch_bounds__(THREADS) mlstm_den(const float* __restrict__ q,
+                                                     const float* __restrict__ n0p, Scratch sc,
+                                                     float* __restrict__ n_out, int S, int Dh,
+                                                     int chunk, int nc) {
+  __shared__ float ns[MAX_DH];
+  const int c = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
+  const int t0 = c * chunk, Lc = min(chunk, S - t0);
+  const size_t gb = (size_t)bh * S + t0;
+  const float* decay = sc.decay + (size_t)bh * nc;
+  const float* ksum = sc.ksum + (size_t)bh * nc * Dh;
+  const int P = key_blocks(Dh), BH = gridDim.y;
+  const float* qkp = sc.qkp + ((size_t)bh * nc + c) * P * LMAX * LMAX;
+  const size_t sw = ((size_t)bh * nc + c) * LMAX * LMAX, slab = (size_t)BH * nc * LMAX * LMAX;
+  for (int i = tid; i < LMAX * LMAX; i += THREADS) {
+    const int t = i / LMAX, s = i % LMAX;
+    float qk = qkp[i];
+    for (int p = 1; p < P; ++p) qk += qkp[(size_t)p * LMAX * LMAX + i];
+    const float w = (s <= t && t < Lc) ? expf((float)(sc.g[gb + s] - sc.run[gb + t])) : 0.f;
+    __nv_bfloat16 pc[PIECES];
+    split3(__fmul_rn(qk, w), pc);
+    for (int k = 0; k < PIECES; ++k) sc.swx[k * slab + sw + i] = pc[k];
+  }
+  for (int d = tid; d < Dh; d += THREADS) {
+    float n = n0p ? n0p[(size_t)bh * Dh + d] : 0.f;
+#pragma unroll 8
+    for (int j = 0; j < c; ++j) n = fmaf(decay[j], n, ksum[(size_t)j * Dh + d]);
+    ns[d] = n;
+    if (c == nc - 1) n_out[(size_t)bh * Dh + d] = fmaf(decay[c], n, ksum[(size_t)c * Dh + d]);
+  }
+  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int t = warp; t < Lc; t += THREADS / 32) {
+    const float* qr = q + (gb + t) * Dh;
+    double acc = 0.0;
+    for (int d = lane; d < Dh; d += 32) acc = fma((double)qr[d], (double)ns[d], acc);
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      float4 st = sc.step[gb + t];
+      double qn = sc.qnl[gb + t];
+      for (int p = 1; p < P; ++p) qn += sc.qnl[(size_t)p * BH * S + gb + t];
+      qn += (double)st.x * acc;
+      st.w = fmaxf(fabsf((float)qn), st.z);
+      sc.step[gb + t] = st;
+    }
+  }
+}
+
+// ------------------------------------------------- pass 4: the chunk walk
+// Over the chunks in order, with C held transposed, C^T[e, d], as fp32 wgmma
+// accumulators. CTA (e-block of 128 values, key block `part` of NJ tiles of
+// 64 keys, bh); the DS key blocks of one e-block share nothing while they
+// run, each writing its own partial sums of h.
+// Two warpgroups of 64 values e each, 64 x 64 NJ of C^T in registers; their
+// thread 0 also issues the TMA loads, STAGES - 1 tiles ahead (a third
+// warpgroup or warp as producer would put three warps on a sub-partition,
+// and ptxas then caps every thread at 168 registers, setmaxnreg or not, and
+// spills the state). Per chunk, for each warpgroup's 64 x 64 block of h^T:
+//   1. h^T = C0^T Q^T over the CTA's keys: A = C0^T from the accumulators,
+//      split in registers, B = q from shared memory (K-major);
+//   2. h^T = w_t h^T + its share of V^T (Q K^T .* W)^T: A = V^T (MN-major),
+//      B = the weighted scores (K-major), k-steps part, part + DS, ..; out
+//      to the partial sums hp[part] (pass 5 adds the DS of them up);
+//   3. C^T = decay C^T + V^T (k .* wk): A = V^T, B = k .* wk (MN-major).
+// Every product takes its operands in three bf16 pieces and sums the six
+// products that fp32 needs in fp32 (wgmma_rs6, wgmma_ss6).
+constexpr int WG = 128;
+constexpr int WALK_THREADS = 2 * WG;
+constexpr int EB = 2 * 64;                // values e per CTA
+constexpr int STAGES = 6;                 // ring of q or k .* wk tiles
+constexpr int TILE = LMAX * 128;          // 64 rows x 64 bf16
+constexpr int STAGE_BYTES = PIECES * TILE;
+constexpr int CHUNK_BYTES = 3 * PIECES * TILE;   // V (2 e-blocks) and the scores
+
+struct WalkSmem {
+  static constexpr int BAR = 0;     // full[STAGES], empty[STAGES], cfull, cempty
+  static constexpr int WS = 512;    // w_t of the chunk, a copy per warpgroup
+  static constexpr int RING = 1024;
+  static constexpr int CHUNK = RING + STAGES * STAGE_BYTES;   // the chunk buffer
+  static constexpr int SW = 2 * PIECES * TILE;                // V's piece p at 2 p TILE
+  static constexpr int SMEM = 1024 + CHUNK + CHUNK_BYTES;  // + alignment slack
+  static_assert(SMEM <= 232448, "over the 227 KiB a CTA may use");
 };
 
-__host__ __device__ constexpr int scan_smem_floats(int Dh) {
-  return Dh * E          // Cs: this CTA's columns of C
-         + Dh            // ns: n, whole
-         + LMAX * E      // vs: the chunk's columns of V
-         + LMAX * LDS    // ss: Q K^T .* W
-         + 3 * LMAX * LDT  // qs, ks, nt: a 32-column tile of q, wk-weighted k, nloc
-         + 5 * LMAX;     // per-step gate terms
+struct WalkArgs {
+  const float* C0;       // null: C = 0
+  float* C;
+  float* hp;             // (DS, BH, S, Dh): partial sums of h's numerator
+  const float4* step;
+  const float* decay;
+  int BH, S, Dh, chunk, nc, ds;
+};
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
+template <int NJ>
+__global__ void __launch_bounds__(WALK_THREADS, 1)
+mlstm_walk(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_kw,
+           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_s,
+           const WalkArgs a) {
+  using L = WalkSmem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 1 KiB alignment: the 128-byte swizzle repeats every 1024 bytes, and TMA
+  // and wgmma agree on it only from such a boundary
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gen = smem_raw + (base - smem_u32(smem_raw));   // the same, generic
+  const uint32_t bar_full = base + L::BAR, bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_cfull = bar_empty + 8 * STAGES, bar_cempty = bar_cfull + 8;
+  const int S = a.S, Dh = a.Dh, chunk = a.chunk, nc = a.nc, DS = a.ds;
+  const int bh = blockIdx.y, eb = blockIdx.x / DS, part = blockIdx.x % DS;
+  const int d_base = part * NJ * 64;
 
-__device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
-  acc.x = fmaf(a, b.x, acc.x);
-  acc.y = fmaf(a, b.y, acc.y);
-  acc.z = fmaf(a, b.z, acc.z);
-  acc.w = fmaf(a, b.w, acc.w);
-}
-
-// CTA (e-slice, bh); 256 threads. Output layout: thread (ty, tx) owns h rows
-// t = ty and ty + 32 at columns 4 tx .. 4 tx + 3 of the slice; in the state
-// update it owns row d0 + ty of the current key tile at the same columns.
-__global__ void __launch_bounds__(THREADS, 1) mlstm_scan(ScanParams p) {
-  extern __shared__ __align__(16) float smem[];
-  const int Dh = p.Dh, S = p.S;
-  float* Cs = smem;
-  float* ns = Cs + Dh * E;
-  float* vs = ns + Dh;
-  float* ss = vs + LMAX * E;
-  float* qs = ss + LMAX * LDS;
-  float* ks = qs + LMAX * LDT;
-  float* nt = ks + LMAX * LDT;    // a tile of nloc
-  float* ws = nt + LMAX * LDT;    // exp(m0 - run_t): weight of the carried state
-  float* lo = ws + LMAX;          // exp(-m_t): floor of the denominator
-  float* wk = lo + LMAX;          // exp(g_s - run_L): weight of k_s v_s^T in C
-  float* den = wk + LMAX;         // the denominator
-  float* an = den + LMAX;         // exp(c_t - run_t): nloc's factor
-  // The gates' scans in fp64: F grows to hundreds within a chunk when the
-  // forget gates are small, and g_s - run_t, a difference of two such
-  // numbers, would lose its low bits in fp32 (the exponents of W, of the
-  // state's weights and of the stabiliser all are such differences)
-  __shared__ double Fs[LMAX];     // F_t (first the raw lf_t)
-  __shared__ double gs[LMAX];     // g_t (first the raw li_t)
-  __shared__ double rn[LMAX];     // run_t
-  __shared__ double cm[LMAX];     // c_t
-  __shared__ double sc[2];        // m0 of the chunk, run_L
-  __shared__ float mc;            // m, carried from chunk to chunk
-
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int e0 = blockIdx.x * E, bh = blockIdx.y;
-  const size_t base = (size_t)bh * S * Dh;     // q, k, v, h of this (b, h)
-  const size_t gbase = (size_t)bh * S;         // li, lf
-
-  for (int i = tid; i < Dh * E; i += THREADS) {
-    const int d = i / E, e = i % E;
-    Cs[i] = p.C0 ? p.C0[((size_t)bh * Dh + d) * Dh + e0 + e] : 0.f;
+  // rows past a chunk of fewer than 64 steps are never loaded: zero them once
+  for (int i = threadIdx.x; i < (L::SMEM - 1024 - L::RING) / 16; i += WALK_THREADS)
+    reinterpret_cast<uint4*>(gen + L::RING)[i] = make_uint4(0, 0, 0, 0);
+  fence_async_smem();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * WG / 32);        // every warp
+    }
+    mbar_init(bar_cfull, 1);
+    mbar_init(bar_cempty, 2 * WG / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int d = tid; d < Dh; d += THREADS) ns[d] = p.n0 ? p.n0[(size_t)bh * Dh + d] : 0.f;
-  if (tid == 0) mc = p.m0 ? p.m0[bh] : -1e30f;
+  __syncthreads();
 
-  for (int c = 0; c < p.nc; ++c) {
-    const int t0 = c * p.chunk, Lc = min(p.chunk, S - t0);
-    // ---- gates: the scans in order in one thread, then the exponentials
-    if (tid < Lc) {
-      Fs[tid] = p.lf[gbase + t0 + tid];
-      gs[tid] = p.li[gbase + t0 + tid];
+  // The loads, in the order of use: ring load n is tile n % NJ of q (first
+  // NJ of a chunk) or of k .* wk (next NJ) of chunk n / (2 NJ), piece p at
+  // slab p BH + bh; chunk c's V (the CTA's values) and weighted scores go to
+  // the chunk buffer. Issued by thread 0, each into a slot both warpgroups
+  // have freed.
+  const uint32_t box = chunk * 128;
+  const int n_loads = 2 * NJ * nc;
+  auto load_tile = [&](int n) {
+    const int st = n % STAGES, c = n / (2 * NJ), j = n % (2 * NJ);
+    const uint32_t full = bar_full + 8 * st, dst = base + L::RING + st * STAGE_BYTES;
+    const CUtensorMap* map = j < NJ ? &tm_q : &tm_kw;
+    mbar_wait(bar_empty + 8 * st, ((n / STAGES) & 1) ^ 1);   // round 0 passes
+    mbar_expect_tx(full, PIECES * box);
+    for (int p = 0; p < PIECES; ++p)
+      tma_load_3d(dst + p * TILE, map, d_base + 64 * (j % NJ), c * chunk, p * a.BH + bh, full);
+  };
+  auto load_chunk = [&](int c) {
+    const int t0 = c * chunk;
+    const uint32_t full = bar_cfull, ch = base + L::CHUNK;
+    mbar_wait(bar_cempty, (c & 1) ^ 1);
+    mbar_expect_tx(full, PIECES * (2 * box + TILE));
+    for (int p = 0; p < PIECES; ++p) {
+      for (int w = 0; w < 2; ++w)
+        tma_load_3d(ch + (2 * p + w) * TILE, &tm_v, EB * eb + 64 * w, t0, p * a.BH + bh, full);
+      tma_load_3d(ch + L::SW + p * TILE, &tm_s, 0, 0, (p * a.BH + bh) * nc + c, full);
     }
-    __syncthreads();
-    if (tid == 0) {     // the same scan as pass 1's, so c_t is the same
-      const double m0 = mc;
-      double F = 0.0, cmax = -INFINITY;
-      for (int t = 0; t < Lc; ++t) {
-        F += Fs[t];
-        const double g = gs[t] - F;
-        cmax = fmax(cmax, g);
-        Fs[t] = F;
-        gs[t] = g;
-        rn[t] = fmax(m0, cmax);
-        cm[t] = cmax;
-      }
-      sc[0] = m0;
-      sc[1] = rn[Lc - 1];
-      mc = (float)(F + sc[1]);    // m_L, carried to the next chunk
-    }
-    __syncthreads();
-    if (tid < LMAX) {
-      const bool ok = tid < Lc;
-      ws[tid] = ok ? expf((float)(sc[0] - rn[tid])) : 0.f;
-      lo[tid] = ok ? expf((float)(-(Fs[tid] + rn[tid]))) : 1.f;
-      wk[tid] = ok ? expf((float)(gs[tid] - sc[1])) : 0.f;
-      an[tid] = ok ? expf((float)(cm[tid] - rn[tid])) : 0.f;
-    }
-    // ---- weighted scores from pass 1, and this slice's columns of V
-    const float* qkc = p.qk + ((size_t)bh * p.nc + c) * LMAX * LMAX;
-    for (int i = tid; i < LMAX * LMAX; i += THREADS) {
-      const int t = i / LMAX, s = i % LMAX;
-      ss[t * LDS + s] = (s <= t && t < Lc) ? qkc[i] * expf((float)(gs[s] - rn[t])) : 0.f;
-    }
-    for (int i = tid; i < LMAX * E; i += THREADS) {
-      const int s = i / E, e = i % E;
-      vs[i] = s < Lc ? p.v[base + (size_t)(t0 + s) * Dh + e0 + e] : 0.f;
-    }
-    __syncthreads();
-    const float decay = expf((float)(sc[0] - sc[1]));   // exp(F_L + m0 - m_L)
-    // ---- intra-chunk: (Q K^T .* W) V
-    // (rows and columns past L_c are zero, so the loop runs over LMAX and unrolls)
-    float4 hin[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
-#pragma unroll 8
-    for (int s = 0; s < LMAX; ++s) {
-      const float4 b = ld4(vs + s * E + 4 * tx);
-      fma4(hin[0], ss[ty * LDS + s], b);
-      fma4(hin[1], ss[(ty + 32) * LDS + s], b);
-    }
-    // ---- inter-chunk: q C0 and q . n_t, then the state update, tile by tile;
-    // n_t = exp(c_t - run_t) nloc_t + w_state_t n0 as the reference forms it
-    float4 hst[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
-    // q_t . n_t in fp64: where it nears 0, h_t's error is this sum's
-    double qn = 0.0;
-    // the next tile of q and k is loaded into registers while this one is
-    // used: its loads are in flight during the products
-    constexpr int PER = LMAX * DT / THREADS;
-    float qr[PER], kr[PER], nr[PER];
-    auto fetch = [&](int d0) {
+  };
+  const bool producer = threadIdx.x == 0;
+  if (producer) {
+    for (int n = 0; n < STAGES - 1 && n < n_loads; ++n) load_tile(n);
+    load_chunk(0);
+  }
+  // freeing ring load n lets load n + STAGES - 1 in (into the slot of n - 1)
+  auto release = [&](int n, int lane) {
+    mbar_arrive_if(bar_empty + 8 * (n % STAGES), lane == 0);
+    if (producer && n + STAGES - 1 < n_loads) load_tile(n + STAGES - 1);
+  };
+
+  {
+    // the warpgroup, broadcast from lane 0 so the compiler knows it is uniform
+    const int w = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / WG, 0);
+    const int tid = threadIdx.x % WG, lane = tid & 31;
+    const int r = (tid >> 5) * 16 + (lane >> 2);          // rows r, r + 8 of the block
+    const int q2 = 2 * (lane & 3);                        // column pair in a block of 8
+    const int e_w = EB * eb + 64 * w;                     // this warpgroup's values
+    // accumulator element i: row r + 8 ((i >> 1) & 1), column 8 (i >> 2) + q2 + (i & 1)
+    auto row_of = [&](int i) { return r + 8 * ((i >> 1) & 1); };
+    auto col_of = [&](int i) { return 8 * (i >> 2) + q2 + (i & 1); };
+
+    float cacc[NJ][32];                   // C^T[e_w + row, d_base + 64 j + column]
 #pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const int i = tid + u * THREADS, r = i / DT, j = i % DT;
-        const size_t off = base + (size_t)(t0 + r) * Dh + d0 + j;
-        qr[u] = r < Lc ? p.q[off] : 0.f;
-        kr[u] = r < Lc ? p.k[off] : 0.f;
-        nr[u] = r < Lc ? p.nloc[off] : 0.f;
-      }
-    };
-    fetch(0);
-    for (int d0 = 0; d0 < Dh; d0 += DT) {
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const int i = tid + u * THREADS, r = i / DT, j = i % DT;
-        qs[r * LDT + j] = qr[u];
-        ks[r * LDT + j] = kr[u] * wk[r];
-        nt[r * LDT + j] = nr[u];
+      for (int i = 0; i < 32; ++i) {
+        const int e = e_w + row_of(i), d = d_base + 64 * j + col_of(i);
+        cacc[j][i] = (a.C0 && e < Dh && d < Dh) ? a.C0[((size_t)bh * Dh + d) * Dh + e] : 0.f;
       }
-      __syncthreads();
-      if (d0 + DT < Dh) fetch(d0 + DT);
-      // reads rows d0 .. d0 + DT of C and n as they were before this chunk;
-      // each tile's DT terms are summed apart and then added to the totals,
-      // which keeps the rounding of the Dh-term sums near a blocked GEMM's
-      float4 part[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
-#pragma unroll 8
-      for (int j = 0; j < DT; ++j) {
-        const float4 b = ld4(Cs + (d0 + j) * E + 4 * tx);
-        fma4(part[0], qs[ty * LDT + j], b);
-        fma4(part[1], qs[(ty + 32) * LDT + j], b);
-      }
+
+    uint32_t a1[2][4], a2[2][4], a3[2][4];   // A fragments of C0^T, two in turn
+    for (int c = 0, it = 0; c < nc; ++c) {
+      const int t0 = c * chunk, Lc = min(chunk, S - t0);
+      const size_t gb = (size_t)bh * S + t0;
+      const uint32_t ch = base + L::CHUNK;
+      // this chunk's w_t, for step 2: loaded now, read after the products
+      float* ws = reinterpret_cast<float*>(gen + L::WS) + w * LMAX;
+      if (tid < LMAX) ws[tid] = tid < Lc ? a.step[gb + tid].x : 0.f;
+      float hq[32];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        hst[r].x += part[r].x;
-        hst[r].y += part[r].y;
-        hst[r].z += part[r].z;
-        hst[r].w += part[r].w;
-      }
-      if (tid < LMAX) {
-        const float a = an[tid], w = ws[tid];
-#pragma unroll 8
-        for (int j = 0; j < DT; ++j)
-          qn = fma((double)qs[tid * LDT + j],
-                   (double)fmaf(a, nt[tid * LDT + j], w * ns[d0 + j]), qn);
-      }
-      __syncthreads();
-      // then updates them: row d0 + ty of C at this thread's columns, and n
-      {
-        float* crow = Cs + (d0 + ty) * E + 4 * tx;
-        const float4 c4 = ld4(crow);
-        float4 acc = make_float4(decay * c4.x, decay * c4.y, decay * c4.z, decay * c4.w);
-        float nsum = 0.f;
-#pragma unroll 8
-        for (int s = 0; s < LMAX; ++s) {
-          const float kw = ks[s * LDT + ty];
-          fma4(acc, kw, ld4(vs + s * E + 4 * tx));
-          nsum += kw;
+      for (int i = 0; i < 32; ++i) hq[i] = 0.f;
+      // ---- 1. h^T = C0^T Q^T over this CTA's keys, a k-step a group, with
+      // the fragments of the next built while the last is on the tensor cores
+#pragma unroll
+      for (int g = 0; g < 4 * NJ; ++g) {
+        const int j = g / 4, kk = g % 4, b = g & 1;
+        const int st = (it + j) % STAGES;
+        const uint32_t tq = base + L::RING + st * STAGE_BYTES;
+        if (g >= 2) {
+          wgmma_wait<1>();                // group g - 2, which read buffer b, is done
+          pin(a1);
+          pin(a2);
+          pin(a3);
+          if ((g - 2) % 4 == 3) release(it + j - 1, lane);
         }
-        *reinterpret_cast<float4*>(crow) = acc;
-        if (tx == 0) ns[d0 + ty] = fmaf(decay, ns[d0 + ty], nsum);
-      }
-      __syncthreads();
-    }
-    // ---- h = (intra + w_state q C0) / max(|q . n_t|, exp(-m_t))
-    if (tid < LMAX) den[tid] = fmaxf(fabsf((float)qn), lo[tid]);
-    __syncthreads();
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = ty + 32 * r;
-      if (t < Lc) {
-        const float w = ws[t], dn = den[t];
-        float4 o;
-        o.x = (hin[r].x + w * hst[r].x) / dn;
-        o.y = (hin[r].y + w * hst[r].y) / dn;
-        o.z = (hin[r].z + w * hst[r].z) / dn;
-        o.w = (hin[r].w + w * hst[r].w) / dn;
-        *reinterpret_cast<float4*>(p.h + base + (size_t)(t0 + t) * Dh + e0 + 4 * tx) = o;
+        for (int i = 0; i < 4; ++i) {
+          const float x0 = cacc[j][8 * kk + 2 * i], x1 = cacc[j][8 * kk + 2 * i + 1];
+          const __nv_bfloat162 p1 = __floats2bfloat162_rn(x0, x1);
+          const float2 f1 = __bfloat1622float2(p1);
+          const float r0 = x0 - f1.x, r1 = x1 - f1.y;
+          const __nv_bfloat162 p2 = __floats2bfloat162_rn(r0, r1);
+          const float2 f2 = __bfloat1622float2(p2);
+          const __nv_bfloat162 p3 = __floats2bfloat162_rn(r0 - f2.x, r1 - f2.y);
+          a1[b][i] = *reinterpret_cast<const uint32_t*>(&p1);
+          a2[b][i] = *reinterpret_cast<const uint32_t*>(&p2);
+          a3[b][i] = *reinterpret_cast<const uint32_t*>(&p3);
+        }
+        if (kk == 0) mbar_wait(bar_full + 8 * st, ((it + j) / STAGES) & 1);
+        const uint64_t qd[PIECES] = {desc_kmajor(tq, kk), desc_kmajor(tq + TILE, kk),
+                                     desc_kmajor(tq + 2 * TILE, kk)};
+        wgmma_fence();
+        wgmma_rs6(hq, a1[b], a2[b], a3[b], qd);
+        wgmma_commit();
       }
+      wgmma_wait<0>();
+      pin(a1);
+      pin(a2);
+      pin(a3);
+      pin(hq);
+      release(it + NJ - 1, lane);
+      it += NJ;
+      // ---- 2. h^T = w_t h^T + (a share of) V^T (Q K^T .* W)^T, out as a
+      // partial sum
+      bar_sync(1 + w, WG);                // ws written by the warpgroup
+#pragma unroll
+      for (int i = 0; i < 32; ++i) hq[i] *= ws[col_of(i)];
+      mbar_wait(bar_cfull, c & 1);
+      wgmma_fence();
+      for (int kk = part; kk < 4; kk += DS) {
+        const uint64_t sd[PIECES] = {desc_kmajor(ch + L::SW, kk),
+                                     desc_kmajor(ch + L::SW + TILE, kk),
+                                     desc_kmajor(ch + L::SW + 2 * TILE, kk)};
+        const uint64_t vk[PIECES] = {desc_mnmajor(ch + w * TILE, kk),
+                                     desc_mnmajor(ch + (2 + w) * TILE, kk),
+                                     desc_mnmajor(ch + (4 + w) * TILE, kk)};
+        wgmma_ss6<0>(hq, vk, sd);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(hq);
+      float* hp = a.hp + ((size_t)part * a.BH * S + gb) * Dh;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int t = col_of(i), e = e_w + row_of(i);
+        if (t < Lc && e < Dh) hp[(size_t)t * Dh + e] = hq[i];
+      }
+      // ---- 3. C^T = decay C^T + V^T (k .* wk), a tile a group
+      const float decay = a.decay[(size_t)bh * nc + c];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int st = (it + j) % STAGES;
+        const uint32_t tk = base + L::RING + st * STAGE_BYTES;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) cacc[j][i] *= decay;
+        mbar_wait(bar_full + 8 * st, ((it + j) / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t kd[PIECES] = {desc_mnmajor(tk, kk), desc_mnmajor(tk + TILE, kk),
+                                       desc_mnmajor(tk + 2 * TILE, kk)};
+          const uint64_t vk[PIECES] = {desc_mnmajor(ch + w * TILE, kk),
+                                       desc_mnmajor(ch + (2 + w) * TILE, kk),
+                                       desc_mnmajor(ch + (4 + w) * TILE, kk)};
+          wgmma_ss6<1>(cacc[j], vk, kd);
+        }
+        wgmma_commit();
+        if (j > 0) {                      // tile j - 1's group is done: free its stage
+          wgmma_wait<1>();
+          pin(cacc[j - 1]);
+          release(it + j - 1, lane);
+        }
+      }
+      wgmma_wait<0>();
+      pin(cacc[NJ - 1]);
+      release(it + NJ - 1, lane);
+      it += NJ;
+      mbar_arrive_if(bar_cempty, lane == 0);
+      if (producer && c + 1 < nc) load_chunk(c + 1);
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int e = e_w + row_of(i), d = d_base + 64 * j + col_of(i);
+        if (e < Dh && d < Dh) a.C[((size_t)bh * Dh + d) * Dh + e] = cacc[j][i];
+      }
   }
+}
 
-  for (int i = tid; i < Dh * E; i += THREADS) {
-    const int d = i / E, e = i % E;
-    p.C[((size_t)bh * Dh + d) * Dh + e0 + e] = Cs[i];
-  }
-  for (int e = tid; e < E; e += THREADS) p.n[(size_t)bh * Dh + e0 + e] = ns[e0 + e];
-  if (blockIdx.x == 0 && tid == 0) p.m[bh] = mc;
+// ------------------------------------------------------ pass 5: h itself
+// A CTA a row (b h, t), four values a thread: h = (the key blocks' partial
+// sums of the numerator, in order) / den_t.
+__global__ void __launch_bounds__(MAX_DH / 4) mlstm_out(const float* __restrict__ hp,
+                                                        const float4* __restrict__ step,
+                                                        float* __restrict__ h, int rows, int Dh,
+                                                        int DS) {
+  const size_t row = blockIdx.x, i = row * (Dh / 4) + threadIdx.x;
+  const size_t part = (size_t)rows * (Dh / 4);
+  const float4* p = reinterpret_cast<const float4*>(hp);
+  float4 x[MAX_DH / KB];
+#pragma unroll
+  for (int k = 0; k < MAX_DH / KB; ++k)
+    if (k < DS) x[k] = p[k * part + i];
+  float4 s = x[0];
+#pragma unroll
+  for (int k = 1; k < MAX_DH / KB; ++k)
+    if (k < DS) {
+      s.x += x[k].x;
+      s.y += x[k].y;
+      s.z += x[k].z;
+      s.w += x[k].w;
+    }
+  const float dn = step[row].w;
+  reinterpret_cast<float4*>(h)[i] = make_float4(s.x / dn, s.y / dn, s.z / dn, s.w / dn);
+}
+
+// cuTensorMapEncodeTiled is a driver-API function: reached through the
+// runtime's entry-point query, so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                  cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a contiguous (n2, n1, n0) bf16 array, boxes of 64
+// values x `rows` rows of one slab, 128-byte swizzled. Three dimensions, so a
+// box that overhangs n1 or n0 is zero-filled instead of reading the next
+// slab. TMA needs a 16-byte aligned base (the scratch buffer is 256-byte
+// aligned) and strides of a multiple of 16 bytes (n0 is a multiple of 64).
+bool tensor_map(CUtensorMap* map, const __nv_bfloat16* ptr, int n0, int n1, int n2,
+                int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
+  const cuuint64_t strides[2] = {(cuuint64_t)n0 * 2, (cuuint64_t)n0 * n1 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<__nv_bfloat16*>(ptr),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NJ>
+cudaError_t launch_walk(const Scratch& sc, const WalkArgs& a, float* h, cudaStream_t stream) {
+  const int Dp = padded(a.Dh);
+  CUtensorMap tq, tk, tv, ts;
+  if (!tensor_map(&tq, sc.qx, Dp, a.S, PIECES * a.BH, a.chunk) ||
+      !tensor_map(&tk, sc.kwx, Dp, a.S, PIECES * a.BH, a.chunk) ||
+      !tensor_map(&tv, sc.vx, Dp, a.S, PIECES * a.BH, a.chunk) ||
+      !tensor_map(&ts, sc.swx, LMAX, LMAX, PIECES * a.BH * a.nc, LMAX))
+    return cudaErrorInvalidValue;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      mlstm_walk<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, WalkSmem::SMEM);
+  if (set != cudaSuccess) return set;
+  mlstm_walk<NJ><<<dim3((a.Dh + EB - 1) / EB * a.ds, a.BH), WALK_THREADS, WalkSmem::SMEM,
+                   stream>>>(tq, tk, tv, ts, a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mlstm_out<<<a.BH * a.S, a.Dh / 4, 0, stream>>>(a.hp, a.step, h, a.BH * a.S, a.Dh, a.ds);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of the scratch buffer that mlstm_chunk_fwd needs.
+size_t mlstm_chunk_scratch_bytes(int BH, int S, int Dh, int chunk) {
+  const int nc = (S + chunk - 1) / chunk;
+  return scratch_layout(nullptr, nullptr, BH, S, Dh, nc);
+}
+
 // q, k, v, h: (BH, S, Dh); li, lf: (BH, S); C0/C: (BH, Dh, Dh); n0/n: (BH,
-// Dh); m0/m: (BH); qk: (BH, ceil(S / chunk), 64, 64) and nloc: (BH, S, Dh)
-// scratch. C0, n0 and m0
-// may be null (the empty state). Dh % 32 == 0, Dh <= 1024, 1 <= chunk <= 64.
-// Returns a cudaError_t; 0 on success.
+// Dh); m0/m: (BH); all fp32 and contiguous; scratch: 256-byte aligned, of
+// mlstm_chunk_scratch_bytes(). C0, n0 and m0 may be null (the empty state).
+// Dh % 32 == 0, Dh <= 1024, 1 <= chunk <= min(64, S). Launches five
+// kernels on `stream`; returns a cudaError_t, 0 on success.
 int mlstm_chunk_fwd(const float* q, const float* k, const float* v, const float* li,
                     const float* lf, const float* C0, const float* n0, const float* m0,
-                    float* h, float* C, float* n, float* m, float* qk, float* nloc, int BH,
-                    int S, int Dh, int chunk, cudaStream_t stream) {
-  if (BH < 1 || S < 1 || Dh % E || Dh % DT || Dh > MAX_DH || chunk < 1 || chunk > LMAX)
+                    float* h, float* C, float* n, float* m, void* scratch, int BH, int S,
+                    int Dh, int chunk, cudaStream_t stream) {
+  if (BH < 1 || S < 1 || Dh < 32 || Dh % 32 || Dh > MAX_DH || chunk < 1 || chunk > LMAX ||
+      chunk > S)
     return (int)cudaErrorInvalidValue;
-  const int nc = (S + chunk - 1) / chunk;
-  mlstm_qk<<<dim3(nc, BH), THREADS, 0, stream>>>(q, k, li, lf, qk, nloc, S, Dh, chunk);
+  // the walk's key blocks: as few as hold C^T in registers (4 tiles of 64)
+  const int tiles = (Dh + 63) / 64, split = key_blocks(Dh);
+  const int nc = (S + chunk - 1) / chunk, NJ = (tiles + split - 1) / split;
+  Scratch sc;
+  scratch_layout(&sc, static_cast<char*>(scratch), BH, S, Dh, nc);
+  mlstm_gates<<<BH, 128, 0, stream>>>(li, lf, m0, sc, m, S, chunk, nc);
+  mlstm_prep<<<dim3(nc, BH, key_blocks(Dh)), THREADS, 0, stream>>>(q, k, v, sc, S, Dh, chunk, nc);
+  mlstm_den<<<dim3(nc, BH), THREADS, 0, stream>>>(q, n0, sc, n, S, Dh, chunk, nc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int smem = scan_smem_floats(Dh) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(mlstm_scan, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  ScanParams p{q, k, v, li, lf, C0, n0, m0, qk, nloc, h, C, n, m, S, Dh, chunk, nc};
-  mlstm_scan<<<dim3(Dh / E, BH), THREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  const WalkArgs a{C0, C, sc.hp, sc.step, sc.decay, BH, S, Dh, chunk, nc, split};
+  switch (NJ) {
+    case 1: return (int)launch_walk<1>(sc, a, h, stream);
+    case 2: return (int)launch_walk<2>(sc, a, h, stream);
+    case 3: return (int)launch_walk<3>(sc, a, h, stream);
+    default: return (int)launch_walk<4>(sc, a, h, stream);
+  }
 }
 
 const char* mlstm_chunk_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -99,8 +99,10 @@ def _library() -> ctypes.CDLL:
     lib = build.load("mlstm_chunk", SOURCES)
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
-    lib.mlstm_chunk_fwd.argtypes = [ptr] * 14 + [i32, i32, i32, i32, ptr]
+    lib.mlstm_chunk_fwd.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
     lib.mlstm_chunk_fwd.restype = i32
+    lib.mlstm_chunk_scratch_bytes.argtypes = [i32] * 4
+    lib.mlstm_chunk_scratch_bytes.restype = ctypes.c_size_t
     lib.mlstm_chunk_error_string.argtypes = [i32]
     lib.mlstm_chunk_error_string.restype = ctypes.c_char_p
     return lib
@@ -136,6 +138,9 @@ def _check(q, k, v, li, lf, chunk: int, state: Optional[State]) -> None:
             raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 8:           # the kernel reads two values at a time
+            raise ValueError(f"{name} must be 8-byte aligned")
 
 
 def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -157,22 +162,21 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, li, lf, chunk, state)
     B, H, S, Dh = q.shape
-    nc = -(-S // chunk)
     h = torch.empty_like(q)
     out = {"C": q.new_empty(B, H, Dh, Dh), "n": q.new_empty(B, H, Dh),
            "m": q.new_empty(B, H)}
-    qk = q.new_empty(B * H, nc, MAX_CHUNK, MAX_CHUNK)   # pass 1: Q K^T per chunk
-    nloc = torch.empty_like(q)                          # ... and n's intra-chunk part
     s0 = [0, 0, 0] if state is None else [state[key].data_ptr()
                                           for key in ("C", "n", "m")]
     lib = _library()
+    scratch = torch.empty(lib.mlstm_chunk_scratch_bytes(B * H, S, Dh, chunk),
+                          dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mlstm_chunk_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
             lf.data_ptr(), *s0, h.data_ptr(), out["C"].data_ptr(),
-            out["n"].data_ptr(), out["m"].data_ptr(), qk.data_ptr(),
-            nloc.data_ptr(), B * H, S, Dh, chunk, stream)
+            out["n"].data_ptr(), out["m"].data_ptr(), scratch.data_ptr(),
+            B * H, S, Dh, chunk, stream)
     if err:
         raise RuntimeError("mlstm_chunk kernel launch failed: "
                            + lib.mlstm_chunk_error_string(err).decode())

@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import _check, flash_attention  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import _check as mlstm_check  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk  # noqa: E402
 
 cuda = pytest.mark.cuda
@@ -121,33 +122,51 @@ def test_flash_wrapper_rejects_negative_offset():
 MLSTM_TOL = 3e-4
 
 
-def _mlstm_inputs(seed, B, H, S, Dh, device="cuda"):
+def _mlstm_inputs(seed, B, H, S, Dh, device="cuda", kind=None):
+    """Random inputs; kind "forget": small forget gates (F in the hundreds
+    within a chunk); "cancel": keys along one direction u, queries nearly
+    orthogonal to it, so q . n cancels (as chip_smoke.py's mlstm_inputs)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)  # noqa: E731
     q, k, v = f(B, H, S, Dh), f(B, H, S, Dh) * Dh ** -0.5, f(B, H, S, Dh)
     li, lf = f(B, H, S), torch.nn.functional.logsigmoid(f(B, H, S) + 2.0)
+    if kind == "forget":
+        lf = 2.0 * torch.nn.functional.logsigmoid(f(B, H, S) - 4.0)
+    elif kind == "cancel":
+        u = f(Dh)
+        u /= u.norm()
+        k = (u + 0.05 * f(B, H, S, Dh)) * 4 * Dh ** -0.5
+        q = q - (q @ u)[..., None] * u + 0.05 * f(B, H, S, 1) * u
+        li = li + 3.0
     return q, k, v, li, lf
 
 
+# The last four: the kernel's stress inputs. Its exponents are differences
+# of numbers in the hundreds, h is ill-conditioned where q . n cancels, and
+# the state is carried through the 64 chunks of the xlstm-1.3b prefill
 @cuda
-@pytest.mark.parametrize("B,H,S,Dh,chunk,carry", [
-    (1, 2, 64, 32, 16, False),        # tests/test_kernels.py MLSTM_CASES
-    (2, 3, 128, 64, 32, False),
-    (1, 4, 128, 128, 64, False),
-    (2, 2, 96, 32, 32, False),
-    (2, 2, 128, 64, 32, True),        # a carried-in state
-    (1, 2, 100, 64, 32, False),       # ragged S
-    (1, 2, 70, 1024, 64, True),       # xlstm-1.3b's Dh, ragged, carried
-    (4, 4, 256, 1024, 64, False),     # the served xlstm-1.3b prefill
+@pytest.mark.parametrize("B,H,S,Dh,chunk,carry,kind", [
+    (1, 2, 64, 32, 16, False, None),        # tests/test_kernels.py MLSTM_CASES
+    (2, 3, 128, 64, 32, False, None),
+    (1, 4, 128, 128, 64, False, None),
+    (2, 2, 96, 32, 32, False, None),
+    (2, 2, 128, 64, 32, True, None),        # a carried-in state
+    (1, 2, 100, 64, 32, False, None),       # ragged S
+    (1, 2, 70, 1024, 64, True, None),       # xlstm-1.3b's Dh, ragged, carried
+    (4, 4, 256, 1024, 64, False, None),     # the served xlstm-1.3b prefill
+    (1, 4, 256, 1024, 64, True, "forget"),  # F in the hundreds within a chunk
+    (1, 4, 256, 1024, 64, True, "cancel"),  # q nearly orthogonal to n
+    (2, 2, 128, 64, 32, True, "cancel"),
+    (1, 4, 4096, 1024, 64, True, None),     # the prefill shape, carried state
 ])
-def test_mlstm_kernel_matches_plain(B, H, S, Dh, chunk, carry):
+def test_mlstm_kernel_matches_plain(B, H, S, Dh, chunk, carry, kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     assert not torch.backends.cuda.matmul.allow_tf32   # the plain version in fp32
-    q, k, v, li, lf = _mlstm_inputs(S + Dh, B, H, S, Dh)
+    q, k, v, li, lf = _mlstm_inputs(S + Dh, B, H, S, Dh, kind=kind)
     state = None
     if carry:
-        _, state = mlstm_chunk(*_mlstm_inputs(1, B, H, 48, Dh), chunk=chunk,
+        _, state = mlstm_chunk(*_mlstm_inputs(1, B, H, 48, Dh, kind=kind), chunk=chunk,
                                impl="plain")
     before = mlstm_chunk.launches
     h, st = mlstm_chunk(q, k, v, li, lf, chunk=chunk, state=state)
@@ -157,3 +176,43 @@ def test_mlstm_kernel_matches_plain(B, H, S, Dh, chunk, carry):
     torch.testing.assert_close(h, hp, rtol=MLSTM_TOL, atol=MLSTM_TOL)
     for key in ("C", "n", "m"):
         torch.testing.assert_close(st[key], stp[key], rtol=MLSTM_TOL, atol=MLSTM_TOL)
+
+
+# The kernel's passes hand partial sums to each other through scratch memory
+# and its walk reads its tiles through a ring of TMA slots: a race among them
+# would show as two calls on the same inputs that differ
+@cuda
+@pytest.mark.parametrize("B,H,S,Dh,chunk", [(1, 4, 4096, 1024, 64), (2, 2, 100, 96, 32)])
+def test_mlstm_kernel_repeats_bit_for_bit(B, H, S, Dh, chunk):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args = _mlstm_inputs(7, B, H, S, Dh)
+    h, st = mlstm_chunk(*args, chunk=chunk)
+    h2, st2 = mlstm_chunk(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2)
+    assert all(torch.equal(st[key], st2[key]) for key in ("C", "n", "m"))
+
+
+def _mlstm_cpu(S=8, Dh=64, shift=None):
+    q, k, v, li, lf = _mlstm_inputs(0, 1, 2, S, Dh, device="cpu")
+    if shift is not None:                  # the same values 4 bytes past alignment
+        buf = torch.zeros(q.numel() + 1)
+        buf[1:] = q.flatten()
+        q = buf[1:].view(q.shape)
+    return q, k, v, li, lf
+
+
+# The mLSTM wrapper's argument checks on CPU tensors, before any launch
+@pytest.mark.parametrize("make,error,match", [
+    (lambda: _mlstm_cpu(), None, None),
+    (lambda: _mlstm_cpu(shift=1), ValueError, "8-byte aligned"),
+    (lambda: _mlstm_cpu(Dh=48), ValueError, "head dim"),
+], ids=["ok", "misaligned", "dh48"])
+def test_mlstm_wrapper_checks(make, error, match):
+    args = make()
+    if error is None:
+        mlstm_check(*args, 8, None)
+    else:
+        with pytest.raises(error, match=match):
+            mlstm_check(*args, 8, None)
