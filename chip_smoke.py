@@ -2,11 +2,13 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve-timing N     # only the served paths' times
 
 Phases, each of which fails the run (non-zero exit, no "ok" line):
-  1. device: build the flash-attention and mLSTM kernels from
-     src/repro_torch/kernels/csrc into build/kernels/ (one nvcc each, in
-     parallel), print their ptxas reports and the card's name and power limit;
+  1. device: build the flash-attention forward and backward and the mLSTM
+     kernels from src/repro_torch/kernels/csrc into build/kernels/ (one nvcc
+     each, in parallel), print their ptxas reports and the card's name and
+     power limit;
   2. kernel: hold the kernel against its plain PyTorch version on the card
      (the cases of tests/test_kernels.py, ragged S, a query offset, G = 4; fp32
      and bf16), and the bf16 kernel on the edges of its tiles and TMA boxes
@@ -40,14 +42,33 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      prefill and decode step timed, with the device's busy time;
   8. xlstm serve: 4 requests (prompts of 37-256 tokens, 16 new tokens each)
      served by ServeEngine in bf16 on the port's log, the kernel launched once
-     an mLSTM layer; a restarted engine serves 0.
-The line before the last lists the kernels as JSON; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
+     an mLSTM layer; a restarted engine serves 0;
+  9. train: (a) the flash backward kernel against autograd through the plain
+     version on the phase-2 cases and edges and at the shape (d) gives it,
+     in fp32 and bf16, a second call equal bit for bit, then timed at the
+     qwen3-8b training shape beside the plain version, SDPA's backward and
+     the bound; (b) qwen3-8b at full width with 8 of its 36 layers trained 6
+     steps by the launcher (repro_torch.launch.train.run: the token topic on
+     the port's log, bf16, AdamW with fp32 master and moments, remat full,
+     batch 2 x 4096 in 2 microbatches), with step time, tokens/s, peak
+     memory, and the device's busy and idle shares of one more step of the
+     shape; (c) one train step, kernels against plain, at full width with 2
+     layers in fp32 and bf16; (d) smollm-135m at full size: a run of 2k
+     steps against a run checkpointed to the log at step k and resumed by a
+     fresh run(resume=True) on the same BoltSystem, the losses after k equal
+     bit for bit. Every run of the launcher in (b) and (d) is a main path:
+     the forward and backward kernels launched the counted number of times.
+The line before the last lists the kernels as JSON, each with its launches
+on every main path (launches_by_path) and their sum (launches); the last
+line is {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -107,6 +128,7 @@ PREFILL_SHAPE = (1, 32, 8, 4096, 128)          # qwen3-8b prefill: B, H, KH, S, 
 # the served qwen3-8b prefill batch
 SWEEP = [(8, 512), (4, 1024), (2, 2048), (1, 4096), (1, 8192), (4, 32)]   # (B, S)
 LONG_PROMPT = (1, 4096)                        # phase 3's long-prompt forward
+SERVE_PROMPTS = (5, 13, 21, 32)                # phase 4's served qwen3-8b batch
 # mLSTM kernel against plain, both fp32: tests/test_kernels.py's tolerance
 # for the chunkwise form; the kernel's scans and products sum in another order
 MLSTM_TOL = 3e-4
@@ -141,6 +163,35 @@ XLSTM_FLOOR_FACTOR = 3.0
 XLSTM_TAIL_FACTOR = 10.0
 XLSTM_PROMPT = (4, 256)
 XLSTM_SERVE_PROMPTS = (37, 100, 190, 256)
+
+
+# flash backward against autograd through the plain version: the wrapper's
+# BWD_TOL (kernels/flash_attention.py), on KERNEL_CASES, EDGE_CASES and the
+# shape phase 9d's training gives the kernels (smollm-135m: G = 3, Dh = 64)
+RESUME_CASES = [(4, 9, 3, 1024, 1024, 64, True, 0)]
+TRAIN_SHAPE = (1, 32, 8, 4096, 128)            # qwen3-8b training: B, H, KH, S, Dh
+# phase 9b: qwen3-8b at full width, depth cut to 8 of 36 layers (AdamW's fp32
+# master and moments for 36 layers, 8.2 B x 16 bytes = 131 GB, do not fit one
+# card; 8 layers, 2.8 B parameters, take ~45 GB); remat is the config's, full
+TRAIN_RUN = dict(config="qwen3-8b", n_layers=8, batch=2, seq=4096, accum=2, steps=6)
+# phase 9c: one step, kernels against plain, at train/step.py's STEP_TOL
+# (fp32) and BF16_STEP_TOL. Adam's first update is g / (|g| + eps), so a
+# weight whose gradient is within eps of 0 moves by lr / eps times its
+# gradient's rounding error: at eps = 1e-8 a 7e-10 difference in an
+# embedding row's gradient (the two attention paths sum in different orders)
+# moved a weight by 7e-5. So the check runs at STEP_EPS = 1e-6, 100x less
+# sensitive; at the optimizer's own eps (AdamWConfig's 1e-8) the step is run
+# as well, and every parameter that differs beyond STEP_TOL there must have
+# a (clipped) gradient within NEAR_ZERO_GRAD x eps of 0
+STEP_LR = 1e-3
+STEP_EPS = 1e-6
+NEAR_ZERO_GRAD = 10.0
+# the step's gradients, kernels against plain: fp32 as the backward kernel
+# alone (1e-4 of each tensor's max); bf16 relative RMS per tensor, a guard
+# against gross faults only, as bf16 rounds each layer's activations
+STEP_GRAD_TOL = {"float32": 1e-4, "bfloat16": 0.1}
+RESUME_RUN = dict(config="smollm-135m", n_layers=30, batch=4, seq=1024)
+RESUME_K = 3
 
 
 def say(*parts) -> None:
@@ -184,9 +235,11 @@ def randn(gen: torch.Generator, shape, dtype) -> torch.Tensor:
 
 def phase_device():
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import BWD_SOURCES as FLASH_BWD_SOURCES
     from repro_torch.kernels.flash_attention import SOURCES as FLASH_SOURCES
     from repro_torch.kernels.mlstm_chunk import SOURCES as MLSTM_SOURCES
-    libs = {"flash_attention": FLASH_SOURCES, "mlstm_chunk": MLSTM_SOURCES}
+    libs = {"flash_attention": FLASH_SOURCES, "flash_attention_bwd": FLASH_BWD_SOURCES,
+            "mlstm_chunk": MLSTM_SOURCES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:       # one nvcc each, together
         built = dict(zip(libs, pool.map(build.build, libs, libs.values())))
@@ -205,7 +258,7 @@ def phase_device():
 
 
 def phase_kernel() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import _forward_kernel, flash_attention
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     for B, H, KH, Sq, Sk, Dh, causal, q_offset in KERNEL_CASES:
@@ -249,13 +302,16 @@ def phase_kernel() -> dict:
                        iters=3, warmup=1)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
                          iters=20)
+    lse_ms = cuda_ms(lambda: _forward_kernel(q, k, v, True, 0, with_lse=True), iters=20)
+    ms_again = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)
     flops = 2 * B * H * S * S * Dh              # 4*B*H*S^2*Dh, halved by the mask
     nbytes = 2 * (2 * B * H * S * Dh + 2 * B * KH * S * Dh)   # Q, O, K, V in bf16
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     say(f"[kernel] prefill shape B={B} H={H} KH={KH} S={S} Dh={Dh} bf16 causal: "
         f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-        f"(ops {t_ops:.4f}, bytes {t_bytes:.4f}); max_abs_err {err:.3e}")
+        f"(ops {t_ops:.4f}, bytes {t_bytes:.4f}); max_abs_err {err:.3e}; with the lse "
+        f"output {lse_ms:.4f} ms, without it again {ms_again:.4f} ms")
     del q, k, v, ke, ve, ref
     for B, S in SWEEP:
         q = randn(gen, (B, H, S, Dh), torch.bfloat16)
@@ -285,6 +341,7 @@ def prefill_tokens(cfg, shape=(4, 32)) -> torch.Tensor:
     return torch.randint(2, cfg.vocab_size, shape, generator=gen, device="cuda")
 
 
+@torch.no_grad()
 def check_prefill(cfg, model, tag: str) -> None:
     """One forward of 4 prompts x 32 tokens through the kernel (launched once
     a layer) and through the plain version; logits finite and close."""
@@ -307,6 +364,7 @@ def check_prefill(cfg, model, tag: str) -> None:
         raise AssertionError(f"{tag} prefill logits disagree: {d}")
 
 
+@torch.no_grad()
 def time_prefill_and_decode(cfg, model, tag: str, tokens) -> None:
     """The eager prefill and one decode step, each timed and profiled."""
     from repro_torch import decode_step, forward
@@ -327,6 +385,7 @@ def time_prefill_and_decode(cfg, model, tag: str, tokens) -> None:
         say(f"[{tag}] {name} B={tokens.shape[0]} S={S}: {ms:.2f} ms eager; {share}")
 
 
+@torch.no_grad()
 def time_long_prompt(cfg, model) -> None:
     """One forward of a LONG_PROMPT-token prompt through the kernel: its
     time and the kernel's share of its device time."""
@@ -359,10 +418,10 @@ def phase_prefill(cfg, model) -> None:
     say(f"[prefill] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def phase_serve(cfg, model, kernel, n_launches: int, prompts, tag: str) -> int:
+def phase_serve(cfg, model, kernel, n_launches: int, prompts, tag: str) -> tuple:
     """4 requests on the port's own log, 16 new tokens each; ``kernel`` is
     launched ``n_launches`` times in the served batch: its count is set to 0
-    just before and read just after."""
+    just before and read just after. Returns (launches, the batch's seconds)."""
     from repro_torch.core import BoltSystem
     from repro_torch.serve import ServeEngine, decode_response
     from repro_torch.streams import Producer, Topic
@@ -398,7 +457,7 @@ def phase_serve(cfg, model, kernel, n_launches: int, prompts, tag: str) -> int:
         f"tokens in {dt:.3f} s: {served / dt:.2f} requests/s, "
         f"{served * gen_tokens / dt:.1f} tokens/s; {kernel.__name__} launches "
         f"{launches}; restarted engine served 0")
-    return launches
+    return launches, dt
 
 
 def phase_speculative() -> None:
@@ -579,6 +638,7 @@ def mlstm_calls(fn):
         xlstm.mlstm_sequence = scan
 
 
+@torch.no_grad()
 def check_xlstm_prefill(cfg, model, tag: str, n_mlstm: int) -> None:
     """One full-depth forward through the kernel, each mLSTM layer's kernel
     call held against the plain version on the same inputs (h and state);
@@ -668,10 +728,376 @@ def phase_xlstm() -> int:
     del model32
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    launches = phase_serve(cfg, model, mlstm_chunk, n_mlstm, XLSTM_SERVE_PROMPTS,
-                           "xlstm serve")
+    launches, _ = phase_serve(cfg, model, mlstm_chunk, n_mlstm, XLSTM_SERVE_PROMPTS,
+                              "xlstm serve")
     say(f"[xlstm serve] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
+
+
+def check_backward() -> dict:
+    """(a): the backward kernel against autograd through the plain version on
+    every case, repeatable bit for bit; then timed at the training shape."""
+    from repro_torch.kernels.flash_attention import (BWD_TOL, _forward_kernel,
+                                                     backward_errors, flash_attention,
+                                                     flash_attention_backward,
+                                                     flash_attention_backward_plain)
+    worst = lambda got, ref: max(backward_errors(got, ref), key=lambda e: e[1])  # noqa: E731
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    n = 0
+    for B, H, KH, Sq, Sk, Dh, causal, q_offset in KERNEL_CASES + EDGE_CASES + RESUME_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(gen, (B, H, Sq, Dh), dtype)
+            k, v = randn(gen, (B, KH, Sk, Dh), dtype), randn(gen, (B, KH, Sk, Dh), dtype)
+            do = randn(gen, (B, H, Sq, Dh), dtype)
+            qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+            got = torch.autograd.grad(flash_attention(*qkv, causal=causal, q_offset=q_offset),
+                                      qkv, do)
+            again = torch.autograd.grad(
+                flash_attention(*qkv, causal=causal, q_offset=q_offset), qkv, do)
+            ref = flash_attention_backward_plain(q, k, v, do, causal=causal, q_offset=q_offset)
+            torch.cuda.synchronize()
+            err, scaled = worst(got, ref)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            say(f"[train] backward B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} Dh={Dh} "
+                f"causal={causal} q_offset={q_offset} {str(dtype)[6:]}: "
+                f"{'max_abs/max' if dtype == torch.float32 else 'rel_rms'} {err:.3e} "
+                f"(tol {BWD_TOL[dtype]}); second call equal: {same}")
+            if not (scaled <= 1 and same):
+                raise AssertionError(f"backward kernel disagrees or repeats unequally: {err}")
+            n += 1
+    del q, k, v, do, qkv, got, again, ref
+
+    B, H, KH, S, Dh = TRAIN_SHAPE
+    q = randn(gen, (B, H, S, Dh), torch.bfloat16)
+    k, v = randn(gen, (B, KH, S, Dh), torch.bfloat16), randn(gen, (B, KH, S, Dh), torch.bfloat16)
+    do = randn(gen, (B, H, S, Dh), torch.bfloat16)
+    o, lse = _forward_kernel(q, k, v, True, 0, with_lse=True)
+    got = flash_attention_backward(q, k, v, o, do, lse, causal=True)
+    again = flash_attention_backward(q, k, v, o, do, lse, causal=True)
+    ref = flash_attention_backward_plain(q, k, v, do, causal=True)
+    err, scaled = worst(got, ref)
+    max_abs = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+    if not (scaled <= 1 and all(torch.equal(a, b) for a, b in zip(got, again))):
+        raise AssertionError(f"backward kernel disagrees at the training shape: {err}")
+    del got, again, ref
+    ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, do, lse, causal=True), iters=10)
+    plain_ms = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, do, causal=True),
+                       iters=3, warmup=1)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True),
+                         iters=10)
+    flops = 5 * B * H * S * S * Dh        # five products of 2 S^2 Dh, halved by the mask
+    nbytes = 2 * 4 * (B * H + B * KH) * S * Dh + 4 * B * H * S   # q o do dq, k v dk dv, lse
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    say(f"[train] backward held on {n} cases; training shape B={B} H={H} KH={KH} S={S} "
+        f"Dh={Dh} bf16 causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
+        f"bound {max(t_ops, t_bytes):.4f} ms (ops {t_ops:.4f}, bytes {t_bytes:.4f}); "
+        f"rel_rms {err:.3e}, max_abs_err {max_abs:.3e}; two calls equal bit for bit")
+    del q, k, v, do, o, lse, qs, ks, vs, out
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:70",
+            "launches": None, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
+def counted_run(**kw) -> tuple:
+    """One ``launch.train.run`` as a main path: the flash kernels' counts are
+    set to 0 just before it and read just after, and must be one forward a
+    layer and microbatch (two under remat full, which recomputes it in the
+    backward) and one backward. Returns run's result and the two counts."""
+    from repro_torch import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import run
+    cfg = get_config(kw["config"]).with_(n_layers=kw["n_layers"])
+    flash_attention.launches = flash_attention.backward_launches = 0   # main path starts
+    out = run(**kw)
+    torch.cuda.synchronize()
+    fwd, bwd = flash_attention.launches, flash_attention.backward_launches  # ... and ends
+    calls = cfg.n_layers * kw.get("accum", 1) * len(out[0])
+    want = ({"none": 1, "full": 2}[cfg.remat] * calls, calls)
+    say(f"[train] {cfg.name} {cfg.n_layers} layers, {len(out[0])} steps: flash forward "
+        f"launches {fwd} (want {want[0]}), backward {bwd} (want {want[1]})")
+    if (fwd, bwd) != want:
+        raise AssertionError(f"{cfg.name}: kernels launched {fwd} and {bwd} times, want {want}")
+    return out, fwd, bwd
+
+
+def train_qwen() -> tuple:
+    """(b): the launcher trains qwen3-8b at full width with 8 layers, the
+    kernels' launches counted; then one more step of the same shape timed
+    and profiled for the device's busy and idle shares."""
+    from repro_torch import get_config
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    cfg = get_config(TRAIN_RUN["config"]).with_(n_layers=TRAIN_RUN["n_layers"])
+    run_kw = dict(TRAIN_RUN)
+    steps, accum = run_kw["steps"], run_kw["accum"]
+    torch.cuda.reset_peak_memory_stats()
+    (losses, model, _, seconds), fwd, bwd = counted_run(
+        **run_kw, ckpt_every=10 ** 9, log_every=1, device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ln_v = math.log(cfg.vocab_size)
+    say(f"[train] qwen3-8b {cfg.n_layers} of 36 layers, batch {run_kw['batch']} x "
+        f"{run_kw['seq']} in {accum} microbatches, remat {cfg.remat}: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f" (ln V = {ln_v:.4f})")
+    # that the path runs: finite losses, the first near ln V. That it trains
+    # right is 9c's check and the CPU tests' (the step against the reference)
+    if not (len(losses) == steps and all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - ln_v) <= 1.0):
+        raise AssertionError(f"training losses off: {losses}")
+    tokens = run_kw["batch"] * run_kw["seq"]
+    step_s = statistics.median(seconds[1:])
+    # one more step of the same shape (fresh AdamW state, random tokens, no
+    # data pipeline), not on the counted path: its wall time, unprofiled, and
+    # the device's busy time in a profiled repeat of it
+    opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.01)
+    state = adamw_init(model, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, accum=accum)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (run_kw["batch"], run_kw["seq"] + 1),
+                         generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def fn():
+        float(step_fn(model, state, batch)[2]["loss"])     # the loss read back, as run's
+
+    fn()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    kernels = device_kernels(fn)
+    busy = sum(t for _, t in kernels) / 1e3
+    fwd_s = sum(t for name, t in kernels if "flash_fwd" in name) / 1e3
+    bwd_s = sum(t for name, t in kernels if "flash_bwd" in name) / 1e3
+    gemm = sum(t for name, t in kernels if "gemm" in name.lower() or "nvjet" in name) / 1e3
+    share = "device time not measured" if not kernels else (
+        f"one more step of the shape: {wall:.3f} s unprofiled, device busy {busy:.3f} s in "
+        f"{len(kernels)} kernels in a profiled repeat, idle share {1 - busy / wall:.3f} of "
+        f"that step; of busy: flash forward {fwd_s / busy:.4f} ({fwd_s:.3f} s), flash "
+        f"backward {bwd_s / busy:.4f} ({bwd_s:.3f} s), matrix products {gemm / busy:.4f}")
+    say(f"[train] qwen3-8b step times " + ", ".join(f"{t:.3f}" for t in seconds)
+        + f" s; median after the first {step_s:.3f} s, {tokens / step_s:.0f} tokens/s; "
+        f"peak memory {peak:.2f} GiB; {share}")
+    per = {}
+    for name, t in kernels:
+        name = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        name = name.removeprefix("void ")
+        per[name] = per.get(name, 0.0) + t
+    top = sorted(per.items(), key=lambda x: -x[1])[:10]
+    calls = cfg.n_layers * accum
+    say(f"[train] profiled step, device ms by kernel (top 10): "
+        + "; ".join(f"{name[:60]} {t:.1f}" for name, t in top)
+        + "; flash backward per call by pass, ms: "
+        + ", ".join(f"{name} {t / calls:.4f}" for name, t in per.items() if "flash_bwd" in name))
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def one_step(cfg, impl, eps: float, batch) -> tuple:
+    """One AdamW step from the seeded parameters: (loss, grad norm, model)."""
+    from repro_torch import init_params
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    opt_cfg = AdamWConfig(lr=STEP_LR, weight_decay=0.01, eps=eps)
+    model = init_params(cfg, seed=5, trainable=True)
+    step = make_train_step(cfg, opt_cfg, accum=1, grad_dtype=cfg.dtype, attn_impl=impl)
+    _, state, m = step(model, adamw_init(model, opt_cfg), batch)
+    del state, step
+    torch.cuda.empty_cache()
+    return float(m["loss"]), float(m["grad_norm"]), model
+
+
+def step_kernel_vs_plain() -> None:
+    """(c): one step at full width with 2 layers, S = 1024, through the
+    kernels and through the plain version, from the same parameters and
+    batch: every gradient, then the loss, grad norm and every updated
+    parameter compared; in fp32 also at the optimizer's own eps, where the
+    parameters that differ must be those of near-zero gradients."""
+    from repro_torch import get_config, init_params, loss_fn
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.step import BF16_STEP_TOL, STEP_TOL
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config("qwen3-8b").with_(n_layers=2, dtype=dtype)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(12)
+        toks = torch.randint(0, cfg.vocab_size, (2, 1025), generator=gen, device="cuda")
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        grads = {}
+        for impl in (None, "plain"):
+            model = init_params(cfg, seed=5, trainable=True)
+            loss, _ = loss_fn(cfg, model, batch, attn_impl=impl)
+            grads[impl] = torch.autograd.grad(loss, list(model.parameters()))
+            del model, loss
+        size = (lambda t: t.abs().max()) if dtype == "float32" else torch.linalg.norm
+        g_err = max((size(a.float() - b.float()) / size(b.float()).clamp_min(1e-30)).item()
+                    for a, b in zip(grads[None], grads["plain"]))
+        plain_grads = grads["plain"]
+        del grads
+        torch.cuda.empty_cache()
+        if not g_err <= STEP_GRAD_TOL[dtype]:
+            raise AssertionError(f"{dtype} gradients, kernels against plain: {g_err}")
+        (lk, gk, mk), (lp, gp, mp) = (one_step(cfg, impl, STEP_EPS, batch)
+                                      for impl in (None, "plain"))
+        old = init_params(cfg, seed=5)
+        d2 = w2 = 0.0
+        worst_abs, worst_agree = 0.0, 1.0
+        for (name, pk), (_, pp), (_, po) in zip(mk.named_parameters(), mp.named_parameters(),
+                                                old.named_parameters()):
+            pk, pp, po = pk.detach().float(), pp.detach().float(), po.float()
+            if dtype == "float32":
+                bad = (pk - pp).abs() > STEP_TOL + STEP_TOL * pp.abs()
+                worst_abs = max(worst_abs, (pk - pp).abs().max().item())
+                if bad.any():
+                    raise AssertionError(f"fp32 step: {name} differs by {worst_abs}")
+            else:
+                agree = ((pk - po) - (pp - po)).abs().le(STEP_LR / 2).float().mean().item()
+                worst_agree = min(worst_agree, agree)
+                d2 += (pk - pp).square().sum().item()
+                w2 += pp.square().sum().item()
+        del mk, mp, old
+        torch.cuda.empty_cache()
+        if dtype == "float32":
+            ok = (abs(lk - lp) <= STEP_TOL * abs(lp) and abs(gk - gp) <= STEP_TOL * abs(gp))
+            detail = f"params max abs diff {worst_abs:.3e} (tol {STEP_TOL} abs + rel)"
+            eps = AdamWConfig().eps
+            (_, _, mk), (_, gp8, mp) = (one_step(cfg, impl, eps, batch)
+                                        for impl in (None, "plain"))
+            clip = min(1.0, AdamWConfig().clip_norm / gp8)   # the update sees g * clip
+            n_bad = n_all = 0
+            worst_g = 0.0
+            for (_, pk), (_, pp), g in zip(mk.named_parameters(), mp.named_parameters(),
+                                           plain_grads):
+                pk, pp = pk.detach(), pp.detach()
+                bad = (pk - pp).abs() > STEP_TOL + STEP_TOL * pp.abs()
+                n_bad += int(bad.sum())
+                n_all += bad.numel()
+                if bad.any():
+                    worst_g = max(worst_g, (g[bad].abs().max() * clip / eps).item())
+            del mk, mp
+            torch.cuda.empty_cache()
+            detail += (f"; at eps {eps:g}: {n_bad} of {n_all} params differ beyond the "
+                       f"tolerance, their clipped |g| at most {worst_g:.3f} eps (tol "
+                       f"{NEAR_ZERO_GRAD} eps)")
+            ok = ok and worst_g <= NEAR_ZERO_GRAD
+        else:
+            tol = BF16_STEP_TOL
+            rel = (d2 / w2) ** 0.5
+            ok = (abs(lk - lp) <= tol["loss"] and abs(gk - gp) <= tol["grad_norm"] * abs(gp)
+                  and worst_agree >= tol["update_agree"] and rel <= tol["params_rel_rms"])
+            detail = (f"updates within lr/2 on >= {worst_agree:.4f} of each tensor, params "
+                      f"rel_rms {rel:.3e} (tol {tol})")
+        del plain_grads
+        torch.cuda.empty_cache()
+        say(f"[train] step kernels vs plain, qwen3-8b 2 layers S=1024 {dtype}: gradients "
+            f"{'max |diff| / max |g|' if dtype == 'float32' else 'rel_rms'} {g_err:.3e} at "
+            f"the worst tensor (tol {STEP_GRAD_TOL[dtype]}); "
+            f"loss {lk:.6f} / {lp:.6f}, grad norm {gk:.6f} / {gp:.6f}; {detail}")
+        if not ok:
+            raise AssertionError(f"{dtype} train step: kernels against plain differ")
+
+
+def resume_exactly() -> tuple:
+    """(d): smollm-135m at full size, 2k steps straight against k steps,
+    a checkpoint to the log, and a fresh resumed run on the same system:
+    the losses after k equal bit for bit. Each of the three runs is a main
+    path with its launches counted; returns their sums (forward, backward)."""
+    from repro_torch.core import BoltSystem
+    from repro_torch.train import CheckpointManager
+    torch.use_deterministic_algorithms(True)
+    try:
+        kw = dict(RESUME_RUN, log_every=1, device="cuda")
+        t0 = time.perf_counter()
+        (straight, model, _, _), f0, b0 = counted_run(
+            steps=2 * RESUME_K, system=BoltSystem(n_brokers=2), ckpt_every=10 ** 9, **kw)
+        del model
+        t1 = time.perf_counter()
+        system = BoltSystem(n_brokers=2)
+        (first, model, _, _), f1, b1 = counted_run(
+            steps=RESUME_K, system=system, ckpt_every=RESUME_K, **kw)
+        del model                                    # the trainer is dropped
+        t2 = time.perf_counter()
+        (resumed, model, _, _), f2, b2 = counted_run(
+            steps=2 * RESUME_K, system=system, ckpt_every=10 ** 9, resume=True, **kw)
+        t3 = time.perf_counter()
+        del model
+    finally:
+        torch.use_deterministic_algorithms(False)
+    steps = CheckpointManager(system).steps()
+    say(f"[train] resume smollm-135m (30 layers, G=3, Dh=64), batch {RESUME_RUN['batch']} x "
+        f"{RESUME_RUN['seq']}: straight " + ", ".join(f"{x:.6f}" for x in straight)
+        + "; resumed after step " + f"{RESUME_K} " + ", ".join(f"{x:.6f}" for x in resumed)
+        + f"; checkpoints {steps}; {t1 - t0:.1f} s straight, {t2 - t1:.1f} s to the "
+        f"checkpoint, {t3 - t2:.1f} s resumed")
+    if first != straight[:RESUME_K] or resumed != straight[RESUME_K:] or steps != [RESUME_K]:
+        raise AssertionError(f"the resumed losses differ: {straight} against {first} + "
+                             f"{resumed}")
+    torch.cuda.empty_cache()
+    return f0 + f1 + f2, b0 + b1 + b2
+
+
+def phase_train() -> tuple:
+    """Phase 9: returns the backward kernel's entry and the forward's and the
+    backward's launches on each training path."""
+    bwd = check_backward()
+    qwen = train_qwen()
+    step_kernel_vs_plain()
+    smollm = resume_exactly()
+    paths = {"train qwen3-8b": qwen, "train smollm-135m": smollm}
+    return (bwd, {path: n[0] for path, n in paths.items()},
+            {path: n[1] for path, n in paths.items()})
+
+
+def serve_timing(repeats: int) -> None:
+    """``--serve-timing N``: only the served paths' times, N times each, to
+    compare two commits' packages in alternating processes (this script
+    copied beside each; no kernel checks and no "ok" line). For qwen3-8b
+    (phases 3-4) and xlstm-1.3b (phases 7-8): the eager prefill and decode
+    step of the timed prompts, and one served batch, as the phases time them;
+    prints each series and a JSON line of them."""
+    from repro_torch import decode_step, forward, get_config, init_params
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+    from repro_torch.models.lm import layer_kinds
+    result = {}
+    for name, kernel, prompts, shape in (
+            ("qwen3-8b", flash_attention, SERVE_PROMPTS, (4, 32)),
+            ("xlstm-1.3b", mlstm_chunk, XLSTM_SERVE_PROMPTS, XLSTM_PROMPT)):
+        cfg = get_config(name)
+        model = init_params(cfg, seed=0)
+        n_launches = (cfg.n_layers if kernel is flash_attention
+                      else layer_kinds(cfg).count("mlstm"))
+        tokens = prefill_tokens(cfg, shape)
+        S = tokens.shape[1]
+        rec = result[name] = {"prefill_ms": [], "decode_ms": [], "serve_s": []}
+        with torch.no_grad():
+            logits, _, caches, _ = forward(cfg, model, {"tokens": tokens}, want_caches=True,
+                                           max_len=S + 1)
+            nxt = logits[:, -1:, :cfg.vocab_size].argmax(-1)
+            for _ in range(repeats):
+                rec["prefill_ms"].append(cuda_ms(
+                    lambda: forward(cfg, model, {"tokens": tokens}, want_caches=True,
+                                    max_len=S + 1), iters=5, warmup=1))
+                rec["decode_ms"].append(cuda_ms(
+                    lambda: decode_step(cfg, model, caches, nxt, S), iters=5, warmup=1))
+            del logits, caches
+        for _ in range(repeats):
+            rec["serve_s"].append(phase_serve(cfg, model, kernel, n_launches, prompts,
+                                              f"{name} serve timing")[1])
+        say(f"[serve timing] {name}: " + "; ".join(
+            f"{key} " + ", ".join(f"{x:.4f}" for x in xs) for key, xs in rec.items()))
+        del model
+        torch.cuda.empty_cache()
+    say(json.dumps({"serve_timing": result}))
 
 
 def main() -> int:
@@ -679,8 +1105,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    # before the first cuBLAS call: deterministic cuBLAS for phase 9's resume
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--serve-timing"]:
+        serve_timing(int(sys.argv[2]))
+        return 0
     from repro_torch import get_config, init_params
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -696,14 +1127,19 @@ def main() -> int:
         f"({torch.cuda.memory_allocated() / 1e9:.1f} GB bf16) made in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_prefill(cfg, model)
-    kernel["launches"] = phase_serve(cfg, model, flash_attention, cfg.n_layers,
-                                     (5, 13, 21, 32), "serve")
+    served, _ = phase_serve(cfg, model, flash_attention, cfg.n_layers, SERVE_PROMPTS, "serve")
     del model
     torch.cuda.empty_cache()
     phase_speculative()
     torch.cuda.empty_cache()
-    mlstm["launches"] = phase_xlstm()
-    say(json.dumps({"kernels": [kernel, mlstm]}))
+    mlstm["launches_by_path"] = {"serve xlstm-1.3b": phase_xlstm()}
+    torch.cuda.empty_cache()
+    backward, trained_fwd, trained_bwd = phase_train()
+    kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd}
+    backward["launches_by_path"] = trained_bwd
+    for entry in (kernel, backward, mlstm):          # every path that launched it
+        entry["launches"] = sum(entry["launches_by_path"].values())
+    say(json.dumps({"kernels": [kernel, backward, mlstm]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

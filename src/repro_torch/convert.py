@@ -1,4 +1,4 @@
-"""Carry a JAX parameter tree into the port's model by a plain copy.
+"""Carry a JAX parameter tree, and an AdamW state, into the port by a plain copy.
 
 ``params_from_jax(cfg, tree, device)`` takes the tree of
 ``repro.models.lm.init_params`` as numpy arrays (``jax.device_get``) and
@@ -9,11 +9,16 @@ the port is ``groups[j][g]``. Each block's parameters copy by name: ``ln1``,
 leaves (``x_up`` .. ``x_out``, ``s_gates`` .. ``s_out``) for ``mlstm`` and
 ``slstm``. bf16 arrays arrive through their ``uint16`` view, so this module
 needs neither JAX nor ``ml_dtypes``.
+
+``opt_state_from_jax(cfg, model, state)`` does the same for the state of
+``repro.train.optimizer.adamw_init`` / ``adamw_update``: its ``m``, ``v`` and
+``master`` trees (each shaped like the parameters) become the port's dicts
+keyed by ``model.named_parameters()`` names, and ``step`` an int32 scalar.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -39,21 +44,52 @@ def _copy(dst: torch.Tensor, src: Any, name: str) -> None:
     dst.copy_(t)
 
 
-def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], device=None) -> LM:
-    """The port's model holding ``tree``'s values, on the card unless
-    ``device`` names another."""
-    model = init_params(cfg, seed=None, device=device)
-    _copy(model.embed, tree["embed"], "embed")
-    _copy(model.final_norm, tree["final_norm"], "final_norm")
+def _leaves(cfg: ModelConfig, model: LM,
+            tree: Mapping[str, Any]) -> Iterator[Tuple[str, torch.Tensor, Any]]:
+    """(name, the port's parameter, the JAX tree's leaf) for every parameter
+    of ``model``, the leaf taken from a tree shaped like the JAX params."""
+    yield "embed", model.embed, tree["embed"]
+    yield "final_norm", model.final_norm, tree["final_norm"]
     if model.head is not None:
-        _copy(model.head, tree["head"], "head")
+        yield "head", model.head, tree["head"]
     n_pat = len(cfg.block_pattern)
     for i, blk in enumerate(model.blocks):
         g, j = divmod(i, n_pat)
         src = tree["groups"][j]
         for part, mod in blk.named_children():
             for name, p in mod.named_parameters():
-                _copy(p, src[part][name][g], f"layer {i} {part}.{name}")
+                yield f"blocks.{i}.{part}.{name}", p, src[part][name][g]
         for name, p in blk.named_parameters(recurse=False):
-            _copy(p, src[name][g], f"layer {i} {name}")
-    return model
+            yield f"blocks.{i}.{name}", p, src[name][g]
+
+
+def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], device=None,
+                    trainable: bool = False) -> LM:
+    """The port's model holding ``tree``'s values, on the card unless
+    ``device`` names another; frozen unless ``trainable``."""
+    model = init_params(cfg, seed=None, device=device)
+    for name, p, leaf in _leaves(cfg, model, tree):
+        _copy(p, leaf, name)
+    return model.requires_grad_(trainable)
+
+
+def opt_state_from_jax(cfg: ModelConfig, model: LM, state: Mapping[str, Any]) -> Dict:
+    """The port's AdamW state (``train.optimizer``) holding the values of
+    the JAX state ``state`` (numpy leaves), on ``model``'s device."""
+    names = dict(model.named_parameters())
+    device = model.embed.device
+    out: Dict[str, Any] = {
+        "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                             device=device)}
+    for key in ("m", "v", "master"):
+        if key not in state:
+            continue
+        out[key] = {}
+        for name, p, leaf in _leaves(cfg, model, state[key]):
+            assert names[name] is p
+            t = tensor_from_numpy(leaf)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{key} {name}: JAX {tuple(t.shape)} does not "
+                                 f"fit the port's {tuple(p.shape)}")
+            out[key][name] = t.to(device)
+    return out

@@ -5,8 +5,10 @@ use, and a Python wrapper that launches it on CUDA tensors, takes the plain
 version on CPU tensors, and counts its launches.
 """
 
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (FlashAttentionFunction, flash_attention,
+                              flash_attention_backward, flash_attention_plain)
 from .mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
 
-__all__ = ["flash_attention", "flash_attention_plain", "mlstm_chunk",
+__all__ = ["FlashAttentionFunction", "flash_attention", "flash_attention_backward",
+           "flash_attention_plain", "mlstm_chunk",
            "mlstm_chunk_plain"]

@@ -63,6 +63,12 @@
 //     overlap, where a CTA an item paid its fill and drain each time.
 //   * fp32: no tensor-core path keeps fp32 exact, so 256 threads work in
 //     CUDA-core FMAs, four threads to a q row; P goes through shared memory.
+//
+// For training, both paths can also write each row's log-sum-exp,
+// lse = m + log(max(l, 1e-30)) in the units of the scaled scores (m taken as
+// 0 for a row that sees no key), which flash_attention_bwd.cu reads to
+// recompute P. With lse == nullptr nothing is written and the kernels do what
+// they did without it.
 
 #include <cuda.h>               // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
@@ -80,6 +86,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                // (B, H, Sq) or nullptr
   int H, KH, Sq, Sk, q_offset, causal;
   float scale;
 };
@@ -120,6 +127,7 @@ struct Tile {
 
 struct BfArgs {
   __nv_bfloat16* o;
+  float* lse;                // (B, H, Sq) or nullptr
   int B, H, KH, Sq, Sk, q_offset, causal;
   float scale_log2;          // Dh^-0.5 * log2(e)
 };
@@ -603,6 +611,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < 2; ++i) {
         l[i] += __shfl_xor_sync(0xffffffff, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffff, l[i], 2);
+        const int row = q0 + r0 + 8 * i;
+        if (a.lse != nullptr && (lane & 3) == 0 && row < Sq) {
+          // m is in log2 units of the scaled scores
+          const float base = m[i] == -INFINITY ? 0.f : m[i];
+          a.lse[(size_t)it.bh * Sq + row] =
+              (base + log2f(fmaxf(l[i], 1e-30f))) * 0.6931471805599453f;
+        }
         l[i] = 1.f / fmaxf(l[i], 1e-30f);
       }
 #pragma unroll
@@ -706,7 +721,15 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
 #pragma unroll
     for (int i = 0; i < DH / 4; ++i)
       og[(size_t)(q0 + row) * DH + sub + 4 * i] = o[i] * inv;
+    if (p.lse != nullptr && sub == 0)
+      p.lse[(size_t)bh * p.Sq + q0 + row] = (m == -INFINITY ? 0.f : m) + logf(fmaxf(l, 1e-30f));
   }
+}
+
+// Every row of a call with Sk == 0 sees no key: lse = log(1e-30).
+__global__ void fill_lse(float* lse, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) lse[i] = -69.07755278982137f;
 }
 
 template <typename Kernel>
@@ -770,8 +793,15 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int slabs, int box_
 
 template <int DH>
 cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  if (p.Sk == 0)                          // every score masked: O = 0
-    return cudaMemsetAsync(p.o, 0, (size_t)B * p.H * p.Sq * DH * 2, stream);
+  if (p.Sk == 0) {                        // every score masked: O = 0
+    const long long rows = (long long)B * p.H * p.Sq;
+    if (p.lse != nullptr && rows > 0) {
+      fill_lse<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(p.lse, rows);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+    return cudaMemsetAsync(p.o, 0, (size_t)rows * DH * 2, stream);
+  }
   CUtensorMap tq, tk, tv;
   if (!tensor_map<DH>(&tq, p.q, p.Sq, B * p.H, BM) ||
       !tensor_map<DH>(&tk, p.k, p.Sk, B * p.KH, BN) ||
@@ -784,7 +814,7 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const BfArgs a{static_cast<__nv_bfloat16*>(p.o), B, p.H, p.KH, p.Sq, p.Sk, p.q_offset,
+  const BfArgs a{static_cast<__nv_bfloat16*>(p.o), p.lse, B, p.H, p.KH, p.Sq, p.Sk, p.q_offset,
                  p.causal, p.scale * 1.4426950408889634f};
   // persistent: at most one CTA an SM, each walking items (next_item)
   const long long n_items = (long long)B * p.H * ((p.Sq + BM - 1) / BM);
@@ -806,15 +836,16 @@ cudaError_t dispatch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
 
 // q (B, H, Sq, Dh), k and v (B, KH, Sk, Dh), o (B, H, Sq, Dh): contiguous,
 // 16-byte aligned, on the current device, all bf16 (is_bf16 = 1) or all
-// fp32. H % KH == 0. Launches on `stream` and does not synchronise. Returns
+// fp32. H % KH == 0. lse, (B, H, Sq) fp32, receives each row's log-sum-exp
+// where it is not nullptr. Launches on `stream` and does not synchronise. Returns
 // the cudaError_t of the launch (0 on success); Dh outside {32, 64, 128}, or
 // a bf16 array that no TMA tensor map can describe, returns
 // cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int H, int KH, int Sq, int Sk, int Dh,
+                                   float* lse, int B, int H, int KH, int Sq, int Sk, int Dh,
                                    int q_offset, int causal, float scale, int is_bf16,
                                    void* stream) {
-  const Params p{q, k, v, o, H, KH, Sq, Sk, q_offset, causal, scale};
+  const Params p{q, k, v, o, lse, H, KH, Sq, Sk, q_offset, causal, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 32: return dispatch<32>(p, B, is_bf16, st);

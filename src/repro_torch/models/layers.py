@@ -4,8 +4,8 @@ Port of ``src/repro/models/layers.py``. Parameters keep the JAX einsum
 layouts (``w_in``/``w_gate`` (D, F), ``w_out`` (F, D)), so a JAX parameter
 tree converts by a plain copy. An ``init_*`` function given a
 ``torch.Generator`` draws its weights from it; given ``None`` it leaves them
-uninitialised for the converter to fill. Parameters are frozen: no training
-is ported.
+uninitialised for the converter to fill. Parameters are made frozen;
+``lm.init_params(..., trainable=True)`` unfreezes the model for training.
 """
 
 from __future__ import annotations

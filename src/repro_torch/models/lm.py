@@ -8,14 +8,24 @@ are an ``nn.ModuleList`` of per-layer blocks in layer order, layer i of kind
 dict: ``{"k", "v"}`` for attention, the recurrent state for xLSTM. Other
 mixers and wrappers are not ported yet and raise ``NotImplementedError``
 naming the ROADMAP.md item that ports them.
+
+``forward`` and ``loss_fn`` build a graph where grad is enabled, so a model
+made with ``init_params(..., trainable=True)`` trains; ``cfg.remat`` then
+recomputes each block's activations in the backward as the reference's
+``_remat`` does (``src/repro/models/lm.py:156``). Only ``attn+mlp`` blocks
+have a gradient yet; xLSTM blocks raise under grad. Serving runs under
+``torch.no_grad()``: ``decode_step`` here, the prefill in the engine.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import (Attention, attention_block, init_attention,
                         init_self_attn_cache)
@@ -109,10 +119,12 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
-def init_params(cfg: ModelConfig, seed: Optional[int] = 0, device=None) -> LM:
+def init_params(cfg: ModelConfig, seed: Optional[int] = 0, device=None,
+                trainable: bool = False) -> LM:
     """The model with weights drawn from a ``torch.Generator`` seeded with
     ``seed`` (``None`` leaves them uninitialised for the converter). Runs on
-    the card unless ``device`` names another."""
+    the card unless ``device`` names another. Parameters are frozen for
+    serving unless ``trainable``."""
     check_ported(cfg)
     device = resolve_device(device)
     gen = None
@@ -124,7 +136,7 @@ def init_params(cfg: ModelConfig, seed: Optional[int] = 0, device=None) -> LM:
     head = (None if cfg.tie_embeddings else
             dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype=dt, device=device))
     blocks = [init_block(gen, cfg, device, kind) for kind in layer_kinds(cfg)]
-    return LM(embed, head, init_norm(cfg, device), blocks)
+    return LM(embed, head, init_norm(cfg, device), blocks).requires_grad_(trainable)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -160,6 +172,40 @@ def _apply_block(blk: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
     return x, cache
 
 
+# The matrix products that ``remat="dots"`` keeps, as the reference's
+# ``dots_with_no_batch_dims_saveable`` does: einsum lowers a product with no
+# batch dimension to a bmm of batch 1 (or an mm).
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op == aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` as ``cfg.remat`` says: ``none`` keeps every activation;
+    ``full`` keeps the block's inputs and recomputes the rest in the
+    backward; ``dots`` also keeps the matrix products' outputs."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
+
+
+def _check_trainable(blk: nn.Module) -> None:
+    if not isinstance(blk, Block) and any(p.requires_grad for p in blk.parameters()):
+        raise NotImplementedError(
+            f"{type(blk).__name__} has no gradient yet: xLSTM training needs "
+            "an mLSTM backward kernel (ROADMAP.md Queue 2 item 2b)")
+
+
 def _logits(cfg: ModelConfig, model: LM, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.head
@@ -171,7 +217,6 @@ def _embed(cfg: ModelConfig, model: LM, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens] * (cfg.d_model ** 0.5)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
             want_caches: bool = False, max_len: Optional[int] = None,
             attn_impl: Optional[str] = None, mlstm_impl: Optional[str] = None):
@@ -180,16 +225,25 @@ def forward(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
     ``want_caches`` the caches are those ``decode_step`` continues from, with
     room for ``max_len`` positions (default S) in attention layers.
     ``attn_impl="plain"`` and ``mlstm_impl="plain"`` run attention and the
-    mLSTM scan through their kernels' plain versions."""
+    mLSTM scan through their kernels' plain versions. Where grad is enabled
+    it builds a graph, each block rematerialised as ``cfg.remat`` says."""
     tokens = batch["tokens"]
     x = _embed(cfg, model, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     caches = [] if want_caches else None
+    grad = torch.is_grad_enabled()
     for blk in model.blocks:
-        x, c = _apply_block(blk, x, cfg, causal=True, positions=positions,
-                            want_cache=want_caches, max_len=max_len,
-                            impl=attn_impl, mlstm_impl=mlstm_impl)
+        kw = dict(causal=True, positions=positions, want_cache=want_caches,
+                  max_len=max_len, impl=attn_impl, mlstm_impl=mlstm_impl)
+        if grad:
+            _check_trainable(blk)
+        if grad and x.requires_grad and not want_caches:
+            x = _remat(lambda x, blk=blk, kw=kw: _apply_block(blk, x, cfg, **kw)[0],
+                       cfg)(x)
+            c = None
+        else:
+            x, c = _apply_block(blk, x, cfg, **kw)
         if want_caches:
             caches.append(c)
     logits = _logits(cfg, model, x)
@@ -197,10 +251,11 @@ def forward(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
     return logits, aux, ({"layers": caches} if want_caches else None), 0
 
 
-@torch.no_grad()
-def loss_fn(cfg: ModelConfig, model: LM,
-            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
-    logits, aux, _, _ = forward(cfg, model, batch)
+def loss_fn(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
+            attn_impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
+    """Mean next-token NLL over ``batch["labels"]`` (plus the forward's aux
+    loss), with the vocabulary padding masked; ``(loss, {"nll", "aux"})``."""
+    logits, aux, _, _ = forward(cfg, model, batch, attn_impl=attn_impl)
     labels = batch["labels"]
     logits = logits[:, :labels.shape[1]].float()
     # mask vocab padding out of the partition function

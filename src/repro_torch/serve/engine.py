@@ -44,6 +44,7 @@ class _Stepper:
     def _greedy(self, logits: torch.Tensor) -> int:
         return int(torch.argmax(logits[0, -1, :self.cfg.vocab_size]))
 
+    @torch.no_grad()
     def _run(self, tokens: List[int], extra: int) -> tuple:
         """Prefill ``tokens``; returns (logits, caches) with cache room for
         ``extra`` more positions."""
@@ -110,6 +111,7 @@ class ServeEngine:
     def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
         return torch.argmax(logits[:, -1, :self.cfg.vocab_size], dim=-1)
 
+    @torch.no_grad()
     def poll_and_serve(self, gen_tokens: int = 16) -> int:
         """Serve one batch of requests from the subscription; returns
         #served. Response tokens are appended as ``(id, seq)`` records plus

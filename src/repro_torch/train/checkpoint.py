@@ -1,0 +1,350 @@
+"""Checkpoint-as-fork: training state as log lineage (DESIGN.md §17).
+
+Port of ``src/repro/train/checkpoint.py`` onto the port's own copy of the
+log. Every behaviour below is the reference's; only the leaves differ. A
+leaf is a tensor (or numpy array) of a nested dict of the model's
+parameters (an ``nn.Module`` is taken by ``named_parameters()``) and the
+optimizer state, named by its path (``params/embed``, ``opt/m/blocks.0.attn.wq``,
+``opt/step``). The record's ``treedef`` holds those names as JSON where the
+reference holds a JAX PyTreeDef proto, and restoring a record the JAX
+package wrote raises. bf16 leaves travel through their uint16 view, so the
+``.npy`` bytes are the reference's.
+
+Checkpoints are log-native, so every checkpoint byte flows through the same
+GC/compaction/tiering machinery as stream data:
+
+* ``{prefix}``        — the **catalog**: a root log of JSON manifest records
+  (``save`` / ``prune`` ops). Appending the save record IS the atomic commit
+  point; replaying the catalog yields the checkpoint index, so the catalog is
+  also the audit trail.
+* ``{prefix}/data``   — an empty root whose **cForks hold the bytes**: one
+  non-promotable fork per checkpoint, leaf ``.npy`` bytes chunked into
+  records. Pruning a checkpoint = ``squash`` its fork — the records die in
+  metadata, §13 hands the segments to the reaper, §14 compaction squeezes
+  survivors. No direct store deletes anywhere.
+* **fork-per-experiment**: ``experiment(name)`` opens a *promotable* cFork of
+  the catalog. Its saves are manifest records on the fork (visible to the
+  experiment, withheld from the trunk per §4.1 — an open experiment holds the
+  trunk catalog). ``merge()`` promotes the fork — squash-on-merge lands the
+  experiment's manifests in the trunk atomically; ``abandon()`` squashes the
+  fork and the experiment's data forks, and chain-GC reclaims every byte.
+* **crash orphans**: a crash between the data-fork flush and the catalog
+  append leaves a live, unreferenced data fork. ``recover()`` squashes every
+  data fork no visible save record references — the §13 reaper path, covered
+  by the oracle.
+
+Restore returns the leaves as tensors on the device asked for, and the
+data-pipeline cursor still rides ``extra``.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.api import AgileLog, BoltSystem
+from ..core.errors import AgileLogError
+from ..models.layers import resolve_device
+from ..streams.records import decode_record, encode_record
+
+
+def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs of nested dicts in insertion order; a module is
+    its ``named_parameters()``."""
+    if isinstance(tree, nn.Module):
+        tree = dict(tree.named_parameters())
+    if isinstance(tree, Mapping):
+        out: List[Tuple[str, Any]] = []
+        for key, sub in tree.items():
+            out.extend(_flatten(sub, f"{prefix}/{key}" if prefix else str(key)))
+        return out
+    return [(prefix, tree)]
+
+
+def _unflatten(paths: List[str], leaves: List[Any]) -> Dict:
+    tree: Dict = {}
+    for path, leaf in zip(paths, leaves):
+        head, _, name = path.rpartition("/")
+        node = tree
+        for key in head.split("/") if head else []:
+            node = node.setdefault(key, {})
+        node[name] = leaf
+    return tree
+
+
+def _leaf_bytes(leaf: Any) -> Tuple[bytes, str]:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:  # numpy can't serialize bf16
+            arr, dt = t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        else:
+            arr = t.numpy()
+            dt = str(arr.dtype)
+    else:
+        arr = np.asarray(leaf)
+        dt = str(arr.dtype)
+    buf = io.BytesIO()
+    np.save(buf, arr, allow_pickle=False)
+    return buf.getvalue(), dt
+
+
+def _leaf_restore(raw: bytes, dt: str, device) -> torch.Tensor:
+    arr = np.load(io.BytesIO(raw), allow_pickle=False)
+    if dt == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def _leaf_paths(rec: Dict) -> List[str]:
+    """The leaf names of a save record; a record the JAX package wrote
+    holds a PyTreeDef proto instead, which the port cannot read."""
+    try:
+        paths = json.loads(rec["treedef"])
+    except ValueError:
+        paths = None
+    if not (isinstance(paths, list) and all(isinstance(p, str) for p in paths)):
+        raise ValueError(
+            f"the checkpoint at step {rec['step']} was written by the JAX "
+            "package (its treedef is a JAX PyTreeDef proto); restoring it into "
+            "the PyTorch port is not supported yet (ROADMAP.md Queue 1 item 7)")
+    return paths
+
+
+class CheckpointManager:
+    """Checkpoints as forks of a shared log (see module docstring).
+
+    ``catalog=None`` opens (or creates) the trunk catalog; experiments pass
+    their catalog fork explicitly via :meth:`experiment`. ``exp`` tags this
+    manager's save records — pruning and abandon only ever squash data forks
+    tagged with the manager's own lineage, so an experiment can never
+    destroy trunk checkpoints (squash is irreversible even if the catalog
+    fork is later abandoned)."""
+
+    def __init__(self, system: BoltSystem, prefix: str = "ckpt",
+                 keep: int = 3, chunk_bytes: int = 1 << 20,
+                 catalog: Optional[AgileLog] = None, exp: str = "") -> None:
+        if isinstance(system, BoltSystem):
+            self.system = system
+        else:   # the seed signature took a bare ObjectStore — fail loudly
+            raise TypeError(
+                "CheckpointManager now checkpoints onto the log (DESIGN.md "
+                "§17) and needs the BoltSystem, not a bare ObjectStore")
+        self.prefix = prefix
+        self.keep = keep
+        self.chunk_bytes = max(1, chunk_bytes)
+        self.exp = exp
+        self.catalog = catalog if catalog is not None else self._open(prefix)
+        self.data_root = self._open(f"{prefix}/data")
+
+    def _open(self, name: str) -> AgileLog:
+        log = self.system.find_log(name)
+        return log if log is not None else self.system.create_log(name)
+
+    # ------------------------------------------------------------- catalog
+    def _replay(self) -> Dict[int, Dict]:
+        """Visible checkpoint index: replay the catalog's save/prune records
+        in position order. Under an open experiment the trunk's view caps at
+        the fork point (§4.1) — trunk saves sequenced during the experiment
+        become visible when it merges or abandons."""
+        index: Dict[int, Dict] = {}
+        for raw in self.catalog.scan():
+            rec = decode_record(raw)
+            if rec.get("op") == "save":
+                index[rec["step"]] = rec
+            elif rec.get("op") == "prune":
+                for s in rec["steps"]:
+                    index.pop(s, None)
+        return index
+
+    # ---------------------------------------------------------------- save
+    def save(self, step: int, params: Any, opt_state: Any,
+             extra: Optional[Dict] = None) -> int:
+        """Write one checkpoint; returns the data fork's log id.
+
+        Leaf bytes go to a fresh cFork of the data root first; the catalog
+        append is the linearization point (a crash before it leaves only an
+        unreferenced fork for :meth:`recover`)."""
+        state = {"params": params, "opt": opt_state}
+        paths, leaves = zip(*_flatten(state))
+        fork = self.data_root.cfork(promotable=False)
+        spans: List[List[int]] = []
+        dtypes: List[str] = []
+        pos = 0
+        for leaf in leaves:
+            raw, dt = _leaf_bytes(leaf)
+            chunks = [raw[o:o + self.chunk_bytes]
+                      for o in range(0, len(raw), self.chunk_bytes)] or [b""]
+            fork.append_batch(chunks).wait()
+            spans.append([pos, pos + len(chunks)])
+            dtypes.append(dt)
+            pos += len(chunks)
+        fork.flush()
+        manifest = {
+            "op": "save",
+            "step": step,
+            "data_log": fork.log_id,
+            "exp": self.exp,
+            "spans": spans,
+            "dtypes": dtypes,
+            "treedef": json.dumps(list(paths)),
+            "extra": extra or {},
+        }
+        # atomic commit: this catalog append is the linearization point
+        # (withheld-but-sequenced under an open experiment's hold, §4.1)
+        self.catalog.append(encode_record(manifest)).wait()
+        self._prune()
+        return fork.log_id
+
+    def _prune(self) -> List[int]:
+        """Keep the newest ``keep`` checkpoints OF THIS LINEAGE: squash the
+        data forks of the rest (§13 chain-GC — the reaper deletes, not us)
+        and record the retirement in the catalog."""
+        if self.keep is None or self.keep <= 0:
+            return []
+        index = self._replay()
+        mine = sorted(s for s, rec in index.items()
+                      if rec.get("exp", "") == self.exp)
+        victims = mine[:-self.keep]
+        if not victims:
+            return []
+        for s in victims:
+            self._squash_data(index[s]["data_log"])
+        self.catalog.append(
+            encode_record({"op": "prune", "steps": victims})).wait()
+        self.system._gc_nudge()
+        return victims
+
+    def _squash_data(self, log_id: int) -> None:
+        try:
+            self.system.open_log(log_id).squash()
+        except AgileLogError:
+            pass                     # already squashed (re-entrant recover)
+
+    # -------------------------------------------------------------- restore
+    def steps(self) -> List[int]:
+        return sorted(self._replay())
+
+    def latest_step(self) -> Optional[int]:
+        index = self._replay()
+        return max(index) if index else None
+
+    def restore(self, step: Optional[int] = None,
+                device=None) -> Tuple[int, Any, Any, Dict]:
+        """``(step, params, opt_state, extra)`` of the checkpoint at ``step``
+        (default the latest), the leaves as tensors on ``device`` (the card
+        unless it names another): params and opt_state as the nested dicts
+        that were saved, a module's parameters by name."""
+        step = step if step is not None else self.latest_step()
+        assert step is not None, "no checkpoint found"
+        rec = self._replay().get(step)
+        assert rec is not None, f"no checkpoint at step {step}"
+        paths = _leaf_paths(rec)
+        device = resolve_device(device)
+        fork = self.system.open_log(rec["data_log"])
+        records = list(fork.scan())
+        leaves = []
+        for (lo, hi), dt in zip(rec["spans"], rec["dtypes"]):
+            leaves.append(_leaf_restore(b"".join(records[lo:hi]), dt, device))
+        state = _unflatten(paths, leaves)
+        return step, state.get("params", {}), state.get("opt", {}), rec["extra"]
+
+    # ---------------------------------------------------------- experiments
+    def experiment(self, name: str) -> "ExperimentCheckpoints":
+        """Open a fork-per-experiment (promotable cFork of the catalog).
+        While open it holds the trunk catalog (§4.1): trunk saves stay
+        sequenced-but-withheld until the experiment merges or abandons."""
+        fork = self.catalog.cfork(promotable=True)
+        return ExperimentCheckpoints(self, name, fork)
+
+    # -------------------------------------------------------------- recover
+    def recover(self) -> List[int]:
+        """Squash every live data fork that no visible save record —
+        in the trunk catalog or any live experiment fork of it — references:
+        the crash-orphan path (a save that died before its catalog append).
+        Returns the squashed fork ids; the §13 reaper reclaims the bytes."""
+        referenced = {rec["data_log"] for rec in self._replay().values()}
+        logs = self.system.metadata.state.logs
+        for log_id, meta in logs.items():
+            if meta.parent == self.catalog.log_id and meta.alive:
+                exp_cat = self.system.open_log(log_id)
+                for raw in exp_cat.scan():
+                    rec = decode_record(raw)
+                    if rec.get("op") == "save":
+                        referenced.add(rec["data_log"])
+        orphans = [log_id for log_id, meta in logs.items()
+                   if meta.parent == self.data_root.log_id and meta.alive
+                   and log_id not in referenced]
+        for log_id in orphans:
+            self._squash_data(log_id)
+        if orphans:
+            self.system._gc_nudge()
+        return orphans
+
+
+class ExperimentCheckpoints(CheckpointManager):
+    """A CheckpointManager whose catalog is a promotable experiment fork.
+
+    Saves land on the fork (trunk checkpoints remain visible through the
+    fork's flattened view, so an experiment restores from trunk state and
+    checkpoints its own). ``merge()`` promotes — the experiment's manifest
+    records join the trunk catalog atomically and the fork squashes
+    (squash-on-merge). ``abandon()`` squashes the fork AND the experiment's
+    own data forks, handing the whole lineage to chain-GC."""
+
+    def __init__(self, trunk: CheckpointManager, name: str,
+                 fork: AgileLog) -> None:
+        super().__init__(trunk.system, prefix=trunk.prefix, keep=trunk.keep,
+                         chunk_bytes=trunk.chunk_bytes, catalog=fork,
+                         exp=name)
+        self.trunk = trunk
+        self.name = name
+        self._state = "open"          # open | merged | abandoned
+
+    def _require_open(self) -> None:
+        if self._state != "open":
+            raise AgileLogError(f"experiment {self.name!r} already "
+                                f"{self._state}")
+
+    def save(self, step: int, params: Any, opt_state: Any,
+             extra: Optional[Dict] = None) -> int:
+        self._require_open()
+        return super().save(step, params, opt_state, extra)
+
+    def merge(self) -> None:
+        """Squash-on-merge: promote the catalog fork into the trunk —
+        every save/prune record this experiment wrote becomes trunk-visible
+        in one atomic restructure; the data forks are already shared (they
+        hang off the data root), so no bytes move."""
+        self._require_open()
+        self.catalog.promote()
+        self._state = "merged"
+
+    def abandon(self) -> None:
+        """Drop the experiment: squash its catalog fork and its own data
+        forks — abandon = chain-GC (§13/§17). Trunk checkpoints it could
+        see through the fork view are untouched (the ``exp`` tag scopes the
+        squash to this lineage)."""
+        self._require_open()
+        index = self._replay()
+        for s, rec in index.items():
+            if rec.get("exp", "") == self.exp:
+                self._squash_data(rec["data_log"])
+        self.catalog.squash()
+        self._state = "abandoned"
+        self.system._gc_nudge()
+
+    # an experiment left open at block exit held the trunk — resolve it
+    def __enter__(self) -> "ExperimentCheckpoints":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self._state == "open":
+            if exc_type is None:
+                self.merge()
+            else:
+                self.abandon()

@@ -1,0 +1,361 @@
+"""Checkpoint-as-fork (DESIGN.md §17) in the PyTorch port: the cases of
+``tests/test_checkpoint_fork_gc.py`` against the port's ``CheckpointManager``
+on the port's own log, with torch tensors for leaves.
+
+Covers: save/restore roundtrip (incl. bf16 leaves and a model's named
+parameters), keep-prune through chain-GC, fork-per-experiment (merge =
+promote, abandon = squash + GC), crash-orphan recovery, §4.1 hold interplay,
+the churn property bounding byte amplification at 1.2x, a record written by
+the JAX package refused with a clear error, and the training launcher's
+crash/resume on the CPU: the losses after the resume equal an uninterrupted
+run's exactly. The byte-liveness oracle is the JAX package's JAX-free
+``repro.core.oracle``, applied to the port's system (the same code, copied).
+"""
+
+import json
+
+import numpy as np
+import pytest
+from hypothesis import given, settings, strategies as st
+
+torch = pytest.importorskip("torch")
+
+from repro.core.oracle import (check_manifest_audit, check_storage_liveness,  # noqa: E402
+                               check_storage_safety)
+import repro_torch as rt  # noqa: E402
+from repro_torch.core import BoltSystem  # noqa: E402
+from repro_torch.core.errors import AgileLogError  # noqa: E402
+from repro_torch.streams.records import encode_record  # noqa: E402
+from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
+
+
+def _params(seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return {"w": torch.from_numpy(rng.normal(size=(8, 8)).astype(np.float32)).to(dtype),
+            "b": torch.from_numpy(rng.normal(size=(8,)).astype(np.float32))}
+
+
+def _opt(seed):
+    return {"m": torch.zeros((8, 8)), "v": torch.full((8,), float(seed)),
+            "step": torch.tensor(seed, dtype=torch.int32)}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for key in tree for x in _leaves(tree[key])]
+    return [tree]
+
+
+def _assert_trees_equal(a, b):
+    assert list(a) == list(b)
+    for x, y in zip(_leaves(a), _leaves(b)):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x, y)
+
+
+def _drain(system):
+    system.flush()
+    for _ in range(32):
+        if not system.gc_quantum():
+            break
+
+
+def _dead(system, log_id):
+    meta = system.metadata.state.logs.get(log_id)
+    return meta is None or not meta.alive
+
+
+# ---------------------------------------------------------------------------
+# roundtrip + atomicity
+# ---------------------------------------------------------------------------
+
+def test_save_restore_roundtrip():
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system, keep=3)
+    p, o = _params(0), _opt(0)
+    ckpt.save(10, p, o, extra={"cursor": [10, 0]})
+    step, p2, o2, extra = ckpt.restore(device="cpu")
+    assert step == 10 and extra["cursor"] == [10, 0]
+    _assert_trees_equal(p, p2)
+    _assert_trees_equal(o, o2)
+    check_manifest_audit(system.metadata.state)
+
+
+def test_bf16_leaves_roundtrip():
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system)
+    p = _params(1, dtype=torch.bfloat16)
+    ckpt.save(5, p, _opt(1))
+    _, p2, _, _ = ckpt.restore(5, device="cpu")
+    _assert_trees_equal(p, p2)
+
+
+def test_chunked_leaves_roundtrip():
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system, chunk_bytes=64)   # force many chunks
+    p, o = _params(2), _opt(2)
+    ckpt.save(1, p, o)
+    rec = ckpt._replay()[1]
+    assert max(hi - lo for lo, hi in rec["spans"]) > 1
+    _, p2, o2, _ = ckpt.restore(device="cpu")
+    _assert_trees_equal(p, p2)
+    _assert_trees_equal(o, o2)
+
+
+def test_seed_signature_fails_loudly():
+    system = BoltSystem(n_brokers=2)
+    with pytest.raises(TypeError):
+        CheckpointManager(system.store)
+
+
+def test_reattach_sees_existing_checkpoints():
+    """Checkpoint lineage lives in the log, so a fresh manager (new client
+    process, same shared-log service) finds everything by name."""
+    system = BoltSystem(n_brokers=2)
+    p, o = _params(3), _opt(3)
+    CheckpointManager(system).save(7, p, o)
+    again = CheckpointManager(system)
+    assert again.steps() == [7]
+    _, p2, _, _ = again.restore(device="cpu")
+    _assert_trees_equal(p, p2)
+
+
+# ---------------------------------------------------------------------------
+# prune == squash == chain-GC (the seed's leak, fixed)
+# ---------------------------------------------------------------------------
+
+def test_prune_hands_bytes_to_reaper():
+    system = BoltSystem(n_brokers=2, gc=True)
+    ckpt = CheckpointManager(system, keep=2)
+    forks = {s: ckpt.save(s, _params(s), _opt(s)) for s in (10, 20, 30)}
+    assert ckpt.steps() == [20, 30]               # 10 pruned
+    assert _dead(system, forks[10])               # its data fork is squashed
+    assert not _dead(system, forks[20]) and not _dead(system, forks[30])
+    _drain(system)
+    # every byte the store still holds is referenced by a live manifest
+    check_manifest_audit(system.metadata.state)
+    check_storage_safety(system)
+    check_storage_liveness(system)
+    # restorable checkpoints actually restore after the reaper ran
+    _, p2, _, _ = ckpt.restore(20, device="cpu")
+    _assert_trees_equal(_params(20), p2)
+
+
+def test_prune_is_recorded_in_catalog():
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system, keep=1)
+    for s in (1, 2, 3):
+        ckpt.save(s, _params(s), _opt(s))
+    # a second manager replays the same catalog to the same index
+    assert CheckpointManager(system, keep=1).steps() == [3]
+
+
+# ---------------------------------------------------------------------------
+# crash orphans: the §13 reaper path replaces the seed's leak
+# ---------------------------------------------------------------------------
+
+def _crashed_save(ckpt, nbytes=4096):
+    """Simulate a save that died between the data-fork flush and the catalog
+    append: a live fork full of bytes that no manifest references."""
+    fork = ckpt.data_root.cfork(promotable=False)
+    fork.append_batch([b"x" * 512 for _ in range(nbytes // 512)]).wait()
+    fork.flush()
+    return fork.log_id
+
+
+def test_recover_squashes_crash_orphans():
+    system = BoltSystem(n_brokers=2, gc=True)
+    ckpt = CheckpointManager(system, keep=3)
+    ckpt.save(1, _params(1), _opt(1))
+    orphan = _crashed_save(ckpt)
+    assert not _dead(system, orphan)
+    recovered = ckpt.recover()
+    assert recovered == [orphan]
+    assert _dead(system, orphan)
+    _drain(system)
+    check_storage_liveness(system)
+    assert ckpt.steps() == [1]                    # real checkpoint untouched
+    assert ckpt.recover() == []                   # idempotent
+
+
+def test_recover_keeps_experiment_referenced_forks():
+    """A fork referenced only by a live experiment catalog is NOT an orphan:
+    recover() must scan experiment forks too, or a concurrent experiment's
+    checkpoint gets destroyed."""
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system, keep=3)
+    exp = ckpt.experiment("sweep")
+    fid = exp.save(100, _params(9), _opt(9))
+    assert ckpt.recover() == []                   # trunk can't see the save,
+    assert not _dead(system, fid)                 # but must not reap it
+    exp.merge()
+    assert ckpt.steps() == [100]
+
+
+# ---------------------------------------------------------------------------
+# fork-per-experiment: merge = promote, abandon = squash + chain-GC
+# ---------------------------------------------------------------------------
+
+def test_experiment_merge_lands_saves_atomically():
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system, keep=5)
+    ckpt.save(10, _params(0), _opt(0))
+    with ckpt.experiment("lr-sweep") as exp:
+        assert exp.steps() == [10]                # trunk state visible (ltt)
+        exp.save(20, _params(1), _opt(1))
+        exp.save(30, _params(2), _opt(2))
+        assert ckpt.steps() == [10]               # withheld from trunk (§4.1)
+    assert ckpt.steps() == [10, 20, 30]           # squash-on-merge landed
+    _, p2, _, _ = ckpt.restore(30, device="cpu")
+    _assert_trees_equal(_params(2), p2)
+    check_manifest_audit(system.metadata.state)
+
+
+def test_experiment_abandon_reclaims_every_byte():
+    system = BoltSystem(n_brokers=2, gc=True)
+    ckpt = CheckpointManager(system, keep=5)
+    ckpt.save(10, _params(0), _opt(0))
+    exp = ckpt.experiment("doomed")
+    fid = exp.save(20, _params(1), _opt(1))
+    exp.abandon()
+    assert ckpt.steps() == [10]                   # trunk untouched
+    assert _dead(system, fid)
+    _drain(system)
+    check_storage_safety(system)
+    check_storage_liveness(system)
+    _, p2, _, _ = ckpt.restore(10, device="cpu")
+    _assert_trees_equal(_params(0), p2)
+
+
+def test_experiment_abandons_on_exception():
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system, keep=5)
+    with pytest.raises(RuntimeError):
+        with ckpt.experiment("boom") as exp:
+            exp.save(1, _params(0), _opt(0))
+            raise RuntimeError("training diverged")
+    assert ckpt.steps() == []
+    with pytest.raises(AgileLogError):
+        exp.save(2, _params(1), _opt(1))          # closed experiments refuse
+
+
+def test_trunk_saves_during_experiment_are_withheld_not_lost():
+    """§4.1: an open (promotable) experiment holds the trunk catalog — a
+    trunk save during the experiment is sequenced but withheld, and becomes
+    visible once the experiment resolves."""
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system, keep=5)
+    exp = ckpt.experiment("hold")
+    ckpt.save(10, _params(0), _opt(0))            # sequenced-but-withheld
+    assert ckpt.steps() == []                     # trunk reader capped
+    exp.abandon()
+    assert ckpt.steps() == [10]                   # released by the resolve
+    _, p2, _, _ = ckpt.restore(10, device="cpu")
+    _assert_trees_equal(_params(0), p2)
+
+
+# ---------------------------------------------------------------------------
+# the real training loop: crash/resume trace audits clean
+# ---------------------------------------------------------------------------
+
+def test_train_checkpoint_restore_trace_audits_clean():
+    """Drive the port's launch driver through a crash/resume cycle on ONE
+    shared-log service: checkpoint bytes audit against the §13 manifests
+    over the whole trace, the resume picks up where the crashed client
+    stopped, and its losses equal an uninterrupted run's bit for bit."""
+    from repro_torch.launch.train import run
+
+    kw = dict(d_model=32, n_layers=2, batch=2, seq=32, vocab=256, log_every=10,
+              device="cpu")
+    straight, _, _, _ = run(steps=30, system=BoltSystem(n_brokers=2), ckpt_every=100, **kw)
+    system = BoltSystem(n_brokers=2, gc=True)
+    first, _, _, _ = run(steps=20, system=system, ckpt_every=10, **kw)
+    assert first == straight[:20]
+    check_manifest_audit(system.metadata.state)
+    losses, model, _, _ = run(steps=30, system=system, ckpt_every=10, resume=True, **kw)
+    assert len(losses) == 10                      # resumed at step 20
+    assert losses == straight[20:]                # exactly: same bits
+    assert all(p.requires_grad for p in model.parameters())
+    ckpt = CheckpointManager(system)
+    assert ckpt.latest_step() == 30
+    _drain(system)
+    check_manifest_audit(system.metadata.state)
+    check_storage_safety(system)
+    check_storage_liveness(system, max_byte_amplification=1.2)
+
+
+def test_model_and_optimizer_roundtrip():
+    """A module is saved by its named parameters, the AdamW state as its
+    dicts; both come back bit for bit, bf16 included, as the record's
+    treedef names them."""
+    from repro_torch.train import AdamWConfig, adamw_init
+    cfg = rt.get_smoke_config("qwen3-8b")
+    model = rt.init_params(cfg, 3, device="cpu", trainable=True)
+    state = adamw_init(model, AdamWConfig(moments_dtype="bfloat16"))
+    state["m"]["embed"].add_(1.5)
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system, chunk_bytes=4096)
+    ckpt.save(4, model, state, extra={"cursor": [3, 1]})
+    rec = ckpt._replay()[4]
+    names = json.loads(rec["treedef"])
+    assert names[0] == "params/embed" and "opt/m/blocks.0.attn.wq" in names
+    assert "opt/step" in names and len(names) == len(rec["dtypes"])
+    step, params, opt, extra = ckpt.restore(device="cpu")
+    assert step == 4 and extra == {"cursor": [3, 1]}
+    _assert_trees_equal(dict(model.named_parameters()), params)
+    _assert_trees_equal(state, opt)
+
+
+def test_jax_written_record_is_refused():
+    """A save record the JAX package wrote holds a PyTreeDef proto as its
+    treedef; restoring it into the port raises, naming the cause."""
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system)
+    fork = ckpt.data_root.cfork(promotable=False)
+    fork.append_batch([b"x"]).wait()
+    ckpt.catalog.append(encode_record({
+        "op": "save", "step": 9, "data_log": fork.log_id, "exp": "",
+        "spans": [[0, 1]], "dtypes": ["float32"], "treedef": "0a0208011202",
+        "extra": {}})).wait()
+    assert ckpt.steps() == [9]
+    with pytest.raises(ValueError, match="written by the JAX package"):
+        ckpt.restore(9, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# churn property: byte amplification stays bounded
+# ---------------------------------------------------------------------------
+
+@settings(max_examples=12, deadline=None)
+@given(st.lists(st.tuples(st.integers(0, 3), st.booleans()),
+                min_size=4, max_size=14))
+def test_checkpoint_churn_bounds_amplification(ops):
+    """Random save / crashed-save / experiment(merge|abandon) / recover
+    churn, then drain GC: the §13 manifests must audit clean and the store
+    must hold at most 1.2x the live checkpoint bytes (the seed's leaked
+    orphans and pruned leaves would fail this immediately)."""
+    system = BoltSystem(n_brokers=2, gc=True)
+    ckpt = CheckpointManager(system, keep=2)
+    step = 0
+    for op, flag in ops:
+        step += 1
+        if op == 0:
+            ckpt.save(step, _params(step), _opt(step))
+        elif op == 1:
+            _crashed_save(ckpt)
+        elif op == 2:
+            exp = ckpt.experiment(f"e{step}")
+            exp.save(step * 1000, _params(step), _opt(step))
+            if flag:
+                exp.merge()
+            else:
+                exp.abandon()
+        else:
+            ckpt.recover()
+    ckpt.recover()
+    _drain(system)
+    check_manifest_audit(system.metadata.state)
+    check_storage_safety(system)
+    check_storage_liveness(system, max_byte_amplification=1.2)
+    for s in ckpt.steps():                        # survivors all restore
+        ckpt.restore(s, device="cpu")

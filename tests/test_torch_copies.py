@@ -28,6 +28,7 @@ COPIES = (
                               "metadata", "objectstore", "raft", "sim")]
     + [f"streams/{m}.py" for m in ("__init__", "records", "topics")]
     + ["serve/speculative.py", "models/config.py"]
+    + [f"data/{m}.py" for m in ("__init__", "pipeline")]
     + sorted(f"configs/{p.name}" for p in (SRC / "configs").glob("*.py")))
 
 

@@ -12,7 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.flash_attention import _check, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (_check, backward_errors,  # noqa: E402
+                                                 flash_attention)
 from repro_torch.kernels.mlstm_chunk import _check as mlstm_check  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk  # noqa: E402
 
@@ -117,6 +118,7 @@ def test_flash_wrapper_rejects_negative_offset():
         _check(*_qkv(), -1)
 
 
+
 # mLSTM, fp32 in both: the kernel's scans and products sum in another order
 # than the plain version's (tests/test_kernels.py's chunkwise tolerance)
 MLSTM_TOL = 3e-4
@@ -216,3 +218,74 @@ def test_mlstm_wrapper_checks(make, error, match):
     else:
         with pytest.raises(error, match=match):
             mlstm_check(*args, 8, None)
+
+
+# ------------------------------------------------------- flash backward
+# The backward kernel against autograd through the plain version on the
+# same inputs, at the wrapper's BWD_TOL (see kernels/flash_attention.py).
+def _grads_close(got, ref):
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+    for name, (err, scaled) in zip(("dq", "dk", "dv"), backward_errors(got, ref)):
+        assert scaled <= 1, (name, err)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,Dh,q_offset,causal", [
+    (1, 2, 2, 128, 128, 64, 0, True),       # tests/test_kernels.py FLASH_CASES
+    (1, 3, 1, 384, 384, 64, 0, True),
+    (2, 4, 4, 256, 256, 64, 0, False),
+    (1, 2, 1, 512, 512, 32, 0, True),
+    *[(1, 4, 2, n, n, 128, 0, True) for n in (1, 63, 65, 129)],
+    (2, 8, 2, 129, 300, 128, 171, True),    # q_offset, Sq < Sk
+    (2, 4, 2, 129, 63, 64, 0, False),       # non-causal Sk < Sq
+    (2, 16, 2, 200, 200, 128, 0, True),     # G = 8
+    (2, 16, 4, 129, 129, 64, 0, True),      # G = 4
+    (4, 9, 3, 1024, 1024, 64, 0, True),     # smollm-135m training: G = 3, Dh = 64
+])
+def test_flash_backward_matches_plain(B, H, KH, Sq, Sk, Dh, q_offset, causal, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention_backward_plain
+    rng = np.random.default_rng(Sq + Sk + Dh)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to("cuda", getattr(torch, dtype))
+                   for s in ((B, H, Sq, Dh), (B, KH, Sk, Dh), (B, KH, Sk, Dh), (B, H, Sq, Dh)))
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = flash_attention.launches, flash_attention.backward_launches
+    out = flash_attention(*qkv, causal=causal, q_offset=q_offset)
+    got = torch.autograd.grad(out, qkv, do)
+    again = torch.autograd.grad(flash_attention(*qkv, causal=causal, q_offset=q_offset),
+                                qkv, do)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 2
+    assert flash_attention.backward_launches == bwd + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))      # no atomics
+    ref = flash_attention_backward_plain(q, k, v, do, causal=causal, q_offset=q_offset)
+    _grads_close(got, ref)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_lse_and_no_grad_path(dtype):
+    """The forward's log-sum-exp against the plain one; under no_grad the
+    kernel runs without it and gives the same output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import _forward_kernel
+    rng = np.random.default_rng(3)
+    B, H, KH, Sq, Sk, Dh = 2, 8, 2, 129, 300, 128
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to("cuda", getattr(torch, dtype))
+               for s in ((B, H, Sq, Dh), (B, KH, Sk, Dh), (B, KH, Sk, Dh)))
+    out, lse = _forward_kernel(q, k, v, True, 171, with_lse=True)
+    with torch.no_grad():
+        plain = flash_attention(q, k, v, causal=True, q_offset=171)
+    assert torch.equal(out, plain)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.float().reshape(B, KH, H // KH, Sq, Dh),
+                     k.float()) * Dh ** -0.5
+    pos = torch.arange(Sq, device="cuda") + 171
+    s = s.masked_fill(pos[:, None] < torch.arange(Sk, device="cuda")[None], float("-inf"))
+    want = torch.logsumexp(s, -1).reshape(B, H, Sq)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)

@@ -16,7 +16,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
 from repro.models.attention import flash_attention as xla_flash  # noqa: E402
-from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+from repro_torch.kernels.flash_attention import (_check_backward,  # noqa: E402
+                                                 flash_attention,
+                                                 flash_attention_backward,
                                                  flash_attention_plain)
 
 # fp32: the two differ only in summation order (tests/test_kernels.py's
@@ -100,3 +102,48 @@ def test_wrapper_dispatch_on_cpu():
         flash_attention(q, k, v, causal=True, impl="plain"), out, rtol=0, atol=0)
     with pytest.raises(ValueError):
         flash_attention(q, k, v, causal=True, impl="fast")
+
+
+def _bwd_args(**change):
+    q, k, v = (torch.zeros(s, dtype=torch.bfloat16) for s in ((1, 4, 8, 64), (1, 2, 8, 64),
+                                                              (1, 2, 8, 64)))
+    args = {"q": q, "k": k, "v": v, "o": torch.zeros_like(q), "dout": torch.zeros_like(q),
+            "lse": torch.zeros(q.shape[:3])}
+    args.update({key: fn(args) for key, fn in change.items()})
+    return args
+
+
+# The backward wrapper's argument checks, on CPU tensors
+@pytest.mark.parametrize("change,match", [
+    ({}, None),
+    ({"o": lambda a: a["o"][:, :, :4].contiguous()}, "o must match q"),
+    ({"dout": lambda a: a["dout"].float()}, "dout must match q"),
+    ({"dout": lambda a: torch.zeros(1, 4, 64, 8, dtype=torch.bfloat16).transpose(2, 3)},
+     "dout must be contiguous"),
+    ({"lse": lambda a: a["lse"].double()}, "lse must be"),
+    ({"lse": lambda a: a["lse"][..., :3]}, "lse must be"),
+    ({"q": lambda a: a["q"].half()}, "dtype"),
+], ids=["ok", "o-shape", "dout-dtype", "dout-non-contiguous", "lse-dtype", "lse-shape",
+        "fp16"])
+def test_flash_backward_wrapper_checks(change, match):
+    a = _bwd_args(**change)
+    args = (a["q"], a["k"], a["v"], a["o"], a["dout"], a["lse"], 0)
+    if match is None:
+        _check_backward(*args)
+    else:
+        with pytest.raises((ValueError, TypeError), match=match):
+            _check_backward(*args)
+
+
+def test_backward_wrapper_on_cpu_is_the_plain_gradient():
+    """A CPU tensor takes autograd through the plain version (o and lse are
+    not read) and launches nothing."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(6, 1, 4, 2, 24, 40, 32))
+    do = torch.from_numpy(_qkv(7, 1, 4, 2, 24, 24, 32)[0])
+    before = flash_attention.backward_launches
+    got = flash_attention_backward(q, k, v, None, do, None, causal=True, q_offset=16)
+    assert flash_attention.backward_launches == before
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*qkv, causal=True, q_offset=16)
+    for g, r in zip(got, torch.autograd.grad(out, qkv, do)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
