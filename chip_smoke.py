@@ -46,8 +46,10 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
   9. train: (a) the flash backward kernel against autograd through the plain
      version on the phase-2 cases and edges and at the shape (d) gives it,
      in fp32 and bf16, a second call equal bit for bit, then timed at the
-     qwen3-8b training shape beside the plain version, SDPA's backward and
-     the bound; (b) qwen3-8b at full width with 8 of its 36 layers trained 6
+     qwen3-8b training shape beside the plain version, SDPA's backward, the
+     bound and the two-pass design bound, pass by pass (delta, dK/dV, dQ,
+     by torch.profiler) beside each pass's share of the bound, and at
+     smollm-135m's shape beside SDPA's backward; (b) qwen3-8b at full width with 8 of its 36 layers trained 6
      steps by the launcher (repro_torch.launch.train.run: the token topic on
      the port's log, bf16, AdamW with fp32 master and moments, remat full,
      batch 2 x 4096 in 2 microbatches), with step time, tokens/s, peak
@@ -170,6 +172,10 @@ XLSTM_SERVE_PROMPTS = (37, 100, 190, 256)
 # shape phase 9d's training gives the kernels (smollm-135m: G = 3, Dh = 64)
 RESUME_CASES = [(4, 9, 3, 1024, 1024, 64, True, 0)]
 TRAIN_SHAPE = (1, 32, 8, 4096, 128)            # qwen3-8b training: B, H, KH, S, Dh
+SMOLLM_SHAPE = (4, 9, 3, 1024, 64)             # smollm-135m training, phase 9d's: G = 3
+# the bf16 backward's two passes do seven products against the five of the
+# bound: the dQ pass recomputes S and dP (dK/dV: 4 products, dQ: 3)
+BWD_PASSES = {"dkdv": 4, "dq": 3}
 # phase 9b: qwen3-8b at full width, depth cut to 8 of 36 layers (AdamW's fp32
 # master and moments for 36 layers, 8.2 B x 16 bytes = 131 GB, do not fit one
 # card; 8 layers, 2.8 B parameters, take ~45 GB); remat is the config's, full
@@ -734,9 +740,40 @@ def phase_xlstm() -> int:
     return launches
 
 
+def backward_bounds(B, H, KH, S, Dh) -> tuple:
+    """(operations, bytes) bounds in ms of the causal backward: five products
+    of 2 S^2 Dh a head, halved by the mask, against q o do dq, k v dk dv in
+    bf16 and lse."""
+    flops = 5 * B * H * S * S * Dh
+    nbytes = 2 * 4 * (B * H + B * KH) * S * Dh + 4 * B * H * S
+    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def sdpa_backward_ms(q, k, v, do, iters: int) -> float:
+    """SDPA's backward (``enable_gqa``) through ``torch.autograd.grad``."""
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True),
+                   iters=iters)
+
+
+def backward_passes(fn, calls: int = 3) -> dict:
+    """Mean device ms of each pass (delta, dkdv, dq) of the backward kernel
+    over ``calls`` calls of ``fn`` under torch.profiler; empty where the
+    profiler sees no device time."""
+    sums = {}
+    for name, t in device_kernels(lambda: [fn() for _ in range(calls)]):
+        if "flash_bwd_" in name:
+            key = name.split("flash_bwd_")[1].split("<")[0].removesuffix("_bf16")
+            n, total = sums.get(key, (0, 0.0))
+            sums[key] = (n + 1, total + t)
+    return {key: total / n for key, (n, total) in sums.items()}
+
+
 def check_backward() -> dict:
     """(a): the backward kernel against autograd through the plain version on
-    every case, repeatable bit for bit; then timed at the training shape."""
+    every case, repeatable bit for bit; then timed at the training shape, as
+    a whole and pass by pass, and at smollm-135m's shape."""
     from repro_torch.kernels.flash_attention import (BWD_TOL, _forward_kernel,
                                                      backward_errors, flash_attention,
                                                      flash_attention_backward,
@@ -784,19 +821,46 @@ def check_backward() -> dict:
     ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, do, lse, causal=True), iters=10)
     plain_ms = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, do, causal=True),
                        iters=3, warmup=1)
-    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True),
-                         iters=10)
-    flops = 5 * B * H * S * S * Dh        # five products of 2 S^2 Dh, halved by the mask
-    nbytes = 2 * 4 * (B * H + B * KH) * S * Dh + 4 * B * H * S   # q o do dq, k v dk dv, lse
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    library_ms = sdpa_backward_ms(q, k, v, do, iters=10)
+    t_ops, t_bytes = backward_bounds(B, H, KH, S, Dh)
+    flops = t_ops * PEAK_BF16_FLOPS / 1e3
+    design = t_ops * sum(BWD_PASSES.values()) / 5
     say(f"[train] backward held on {n} cases; training shape B={B} H={H} KH={KH} S={S} "
         f"Dh={Dh} bf16 causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
         f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
-        f"bound {max(t_ops, t_bytes):.4f} ms (ops {t_ops:.4f}, bytes {t_bytes:.4f}); "
-        f"rel_rms {err:.3e}, max_abs_err {max_abs:.3e}; two calls equal bit for bit")
-    del q, k, v, do, o, lse, qs, ks, vs, out
+        f"bound {max(t_ops, t_bytes):.4f} ms (ops {t_ops:.4f}, bytes {t_bytes:.4f}), "
+        f"two-pass design bound {design:.4f} ms (seven products); kernel/sdpa "
+        f"{ms / library_ms:.3f}; rel_rms {err:.3e}, max_abs_err {max_abs:.3e}; two calls "
+        f"equal bit for bit")
+    passes = backward_passes(lambda: flash_attention_backward(q, k, v, o, do, lse, causal=True))
+    delta_bound = (4 * B * H * S * Dh + 4 * B * H * S) / PEAK_BYTES * 1e3   # o, do; delta
+    shares = {key: t_ops * n_products / 5 for key, n_products in BWD_PASSES.items()}
+    say("[train] backward by pass at the training shape (torch.profiler, mean of 3 calls): "
+        + ("device time not measured" if not passes else
+           f"delta {passes.get('delta', float('nan')):.4f} ms (bytes bound {delta_bound:.4f}), "
+           + ", ".join(f"{key} {passes.get(key, float('nan')):.4f} ms (its {n}/5 of the "
+                       f"bound {shares[key]:.4f}, {shares[key] / passes.get(key, float('nan')):.3f} "
+                       f"of it)" for key, n in BWD_PASSES.items())
+           + f"; sum {sum(passes.values()):.4f} ms"))
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+    B, H, KH, S, Dh = SMOLLM_SHAPE
+    q = randn(gen, (B, H, S, Dh), torch.bfloat16)
+    k, v = randn(gen, (B, KH, S, Dh), torch.bfloat16), randn(gen, (B, KH, S, Dh), torch.bfloat16)
+    do = randn(gen, (B, H, S, Dh), torch.bfloat16)
+    o, lse = _forward_kernel(q, k, v, True, 0, with_lse=True)
+    s_ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, do, lse, causal=True), iters=50)
+    s_lib = sdpa_backward_ms(q, k, v, do, iters=50)
+    s_ops, s_bytes = backward_bounds(B, H, KH, S, Dh)
+    s_passes = backward_passes(lambda: flash_attention_backward(q, k, v, o, do, lse,
+                                                                causal=True))
+    say(f"[train] backward at smollm-135m's shape B={B} H={H} KH={KH} S={S} Dh={Dh} bf16 "
+        f"causal: kernel {s_ms:.4f} ms, sdpa backward {s_lib:.4f} ms, kernel/sdpa "
+        f"{s_ms / s_lib:.3f}, bound {max(s_ops, s_bytes):.4f} ms (ops {s_ops:.4f}, bytes "
+        f"{s_bytes:.4f}); by pass "
+        + (", ".join(f"{key} {t:.4f}" for key, t in s_passes.items()) or "not measured"))
+    del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     return {"name": "flash_attention_backward", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",

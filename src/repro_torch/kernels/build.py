@@ -2,8 +2,8 @@
 
 Each library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) at first use,
 into ``build/kernels/`` at the root of the checkout, under a name keyed by a
-hash of its sources and flags: an edited source builds anew, an unchanged one
-loads what is there. The library has a plain C interface and is loaded with
+hash of its sources, of every header in ``csrc/`` and of the flags: an edited
+source or header builds anew, an unchanged one loads what is there. The library has a plain C interface and is loaded with
 ``ctypes``; nothing includes PyTorch's headers, so a build takes seconds.
 """
 
@@ -37,7 +37,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str, sources: Sequence[str]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cuh", ".h"))
+    for src in (*sources, *headers):      # a source may include any header
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

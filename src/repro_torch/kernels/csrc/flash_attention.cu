@@ -70,11 +70,9 @@
 // recompute P. With lse == nullptr nothing is written and the kernels do what
 // they did without it.
 
-#include <cuda.h>               // CUtensorMap and its enums (header only)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"           // mbarriers, TMA, wgmma, tensor maps
 
 namespace {
 
@@ -104,7 +102,6 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int col) {
 
 // ------------------------------------------------------------------ bf16
 
-constexpr int WG = 128;      // threads in a warpgroup
 constexpr int BM = 128;      // q rows per CTA: two consumer warpgroups of 64
 constexpr int BN = 128;      // kv rows per tile
 constexpr int THREADS = 3 * WG;
@@ -113,15 +110,14 @@ constexpr int CONSUMER_REGS = 232;
 
 template <int DH>
 struct Tile {
-  static constexpr int SW = DH >= 64 ? 128 : 64;     // swizzle span, bytes
-  static constexpr int ATOM = SW / 2;                // bf16 columns per span
+  static constexpr int SW = Swizzle<DH>::SW;         // swizzle span, bytes
+  static constexpr int ATOM = Swizzle<DH>::ATOM;     // bf16 columns per span
   static constexpr int STAGES = 3;                   // K/V ring depth
   static constexpr int Q_BYTES = BM * DH * 2;
   static constexpr int KV_BYTES = BN * DH * 2;       // one K or V tile
   static constexpr int BAR_BYTES = 1024;             // barriers, then 1 KiB-aligned tiles
   // 1 KiB of slack to align the dynamic shared memory, then barriers and tiles
   static constexpr int SMEM = 1024 + BAR_BYTES + Q_BYTES + 2 * STAGES * KV_BYTES;
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;   // wgmma descriptor swizzle
   static_assert(SMEM <= 232448, "over the 227 KiB a CTA may use");
 };
 
@@ -131,197 +127,6 @@ struct BfArgs {
   int B, H, KH, Sq, Sk, q_offset, causal;
   float scale_log2;          // Dh^-0.5 * log2(e)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete. The spin is inside the
-// PTX, so the compiler sees no divergent branch around the wgmma that
-// follow. A wrong transaction count or phase would spin forever; after 2^32
-// clocks (seconds) the kernel traps instead, so the launch fails rather
-// than hangs the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "mov.u64 t0, %%clock64;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "mov.u64 t1, %%clock64;\n"
-      "sub.u64 t1, t1, t0;\n"
-      "setp.gt.u64 p, t1, 4294967296;\n"
-      "@p trap;\n"
-      "bra WAIT;\n"
-      "DONE:\n}\n"
-      :: "r"(bar), "r"(parity) : "memory");
-}
-
-// Arrive on `bar` from the threads where `pred` holds, without a branch.
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
-      :: "r"(bar), "r"((int)pred) : "memory");
-}
-
-// Named barriers 1 and 2 order the two consumers' wgmma issues.
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-// One TMA box of a 3-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-         "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle mode.
-template <int DH>
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | Tile<DH>::LAYOUT << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Pin registers that an asynchronous wgmma reads or writes at this point
-// of the instruction order.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {        // 2^x; ex2(-inf) = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d (64 x 128, fp32) = A (64 x 16) * B (16 x 128), A and B from shared memory
-// (both K-major, per their descriptors); scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x 32, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 32),
-// B from shared memory, MN-major (imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 64),
-// B from shared memory, MN-major (imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 128, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 128),
-// B from shared memory, MN-major (imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
 
 // Online softmax of one 64 x BN score tile in the wgmma accumulator layout:
 // this thread holds rows r (s[4j], s[4j+1]) and r + 8 (s[4j+2], s[4j+3]) at
@@ -368,26 +173,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2],
   }
 }
 
-// The probabilities of a score tile as the A fragments of P V, rounded to
-// bf16: k-step kk covers columns [16kk, 16kk + 16), i.e. accumulator
-// blocks 2kk and 2kk + 1.
-__device__ __forceinline__ void to_fragments(const float (&s)[BN / 2],
-                                             uint32_t (&p)[BN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-  }
-}
-
-template <int DH>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  if constexpr (DH == 128) wgmma_rs_n128(o, a, desc_b);
-  else if constexpr (DH == 64) wgmma_rs_n64(o, a, desc_b);
-  else wgmma_rs_n32(o, a, desc_b);
-}
-
 // The work of a CTA: one (b*h, 128-row q tile) after another. Items are
 // numbered heaviest causal q tile first, every head of a q tile before the
 // next; CTA c of G takes item r*G + c in even rounds r and r*G + G-1-c in
@@ -397,9 +182,8 @@ struct Item {
 };
 
 __device__ __forceinline__ bool next_item(int r, int n_qt, int BH, Item& it) {
-  const int G = gridDim.x, c = blockIdx.x;
-  const int i = r * G + ((r & 1) ? G - 1 - c : c);
-  if (i >= n_qt * BH) return false;
+  const int i = zigzag_item(r, n_qt * BH);
+  if (i < 0) return false;
   it.bh = i % BH;
   it.q0 = (n_qt - 1 - i / BH) * BM;
   return true;
@@ -484,17 +268,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
 
     // descriptors: Q and K K-major (8-row groups SW * 8 bytes apart); V
     // MN-major (column blocks BN * SW bytes apart, 8-row groups SW * 8)
-    auto desc_q = [&](int kk) {
-      return desc<DH>(sq + (kk * 16 / ATOM) * BM * SW + w * 64 * SW + (kk * 16 % ATOM) * 2,
-                      16, 8 * SW);
-    };
-    auto desc_k = [&](int s, int kk) {
-      return desc<DH>(sk + s * T::KV_BYTES + (kk * 16 / ATOM) * BN * SW + (kk * 16 % ATOM) * 2,
-                      16, 8 * SW);
-    };
-    auto desc_v = [&](int s, int kk) {
-      return desc<DH>(sv + s * T::KV_BYTES + kk * 16 * SW, BN * SW, 8 * SW);
-    };
+    auto desc_q = [&](int kk) { return desc_kmajor<DH>(sq, BM, w * 64, kk); };
+    auto desc_k = [&](int s, int kk) { return desc_kmajor<DH>(sk + s * T::KV_BYTES, BN, 0, kk); };
+    auto desc_v = [&](int s, int kk) { return desc_mnmajor<DH>(sv + s * T::KV_BYTES, BN, kk); };
     auto release = [&](uint32_t bar) { mbar_arrive_if(bar, lane == 0); };
     // Ping-pong: the consumers take turns to issue their wgmma (one turn is
     // a tile's Q K^T and the previous tile's P V), so one's softmax runs
@@ -515,7 +291,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     };
     auto issue_pv = [&](int st) {
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) wgmma_pv<DH>(o, p[kk], desc_v(st, kk));
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<DH>(o, p[kk], desc_v(st, kk));
       wgmma_commit();
     };
 
@@ -550,7 +326,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       pin(s);
       if (n_mine == 1) release(bar_qe);                 // Q read for the last time
       softmax(0);
-      to_fragments(s, p);
+      to_fragments<BN>(s, p);
       for (int j = 1; j < n_mine; ++j) {
         const int st = (t + j) % STAGES, prev = (t + j - 1) % STAGES;
         // S_j = Q K_j^T is issued first and P_{j-1} V_{j-1} behind it: the
@@ -580,7 +356,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
           o[4 * n + 2] *= corr[1];
           o[4 * n + 3] *= corr[1];
         }
-        to_fragments(s, p);
+        to_fragments<BN>(s, p);
       }
       {
         const int last = (t + n_mine - 1) % STAGES;
@@ -745,52 +521,6 @@ cudaError_t launch(Kernel kernel, const Params& p, int B, int threads,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled is a driver-API function: reached through the
-// runtime's entry-point query, so the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                                  cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
-  }();
-  return fn;
-}
-
-// The tensor map of a contiguous (slabs, rows, DH) bf16 array, boxes of
-// (ATOM columns, box_rows rows, one slab). Three dimensions, so a box that
-// overhangs `rows` is zero-filled instead of reading the next slab. TMA needs
-// a 16-byte aligned base and outer strides of a multiple of 16 bytes: the
-// wrapper takes only contiguous, 16-byte aligned tensors with DH in {32, 64,
-// 128}, so the strides are multiples of DH * 2 >= 64 bytes.
-template <int DH>
-bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int slabs, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)rows, (cuuint64_t)slabs};
-  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2, (cuuint64_t)rows * DH * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)Tile<DH>::ATOM, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Tile<DH>::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DH>
 cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   if (p.Sk == 0) {                        // every score masked: O = 0
@@ -810,9 +540,8 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   static const cudaError_t set = cudaFuncSetAttribute(
       flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<DH>::SMEM);
   if (set != cudaSuccess) return set;
-  int dev, n_sm;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  int n_sm;
+  const cudaError_t e = sm_count(&n_sm);
   if (e != cudaSuccess) return e;
   const BfArgs a{static_cast<__nv_bfloat16*>(p.o), p.lse, B, p.H, p.KH, p.Sq, p.Sk, p.q_offset,
                  p.causal, p.scale * 1.4426950408889634f};

@@ -29,15 +29,45 @@
 // 2*Sq*Sk*Dh operations per head, halved by a causal mask: at the qwen3-8b
 // training shape (B=1, H=32, KH=8, S=4096, Dh=128) 343.6 GFLOP, 0.347 ms,
 // against ~168 MB of inputs and outputs, 0.05 ms: bound by the operations.
-// This first kernel is simple and right rather than fast: bf16 products run
-// on mma.sync m16n8k16 (fragments loaded from padded shared memory with
-// plain loads, the transposed operands element by element), fp32 on CUDA
-// cores; no TMA, no wgmma, no pipelining of the tile loads.
+// The two passes do seven products, since the dQ pass recomputes S and dP:
+// 0.486 ms is the bound of this design. A single pass that adds dQ with
+// fp32 atomics would do five, but no longer repeat bit for bit.
+//
+// The bf16 passes are built for the tensor cores' rate, after the
+// FlashAttention-3 backward made deterministic:
+//
+//   * Warp specialisation, as in the forward: a producer warpgroup
+//     (setmaxnreg down to 24 registers) starts TMA loads into an mbarrier
+//     ring; two consumer warpgroups of 64 rows each (up to 240 registers)
+//     run every product on wgmma. A CTA an SM walks work items heaviest
+//     causal tile first in the forward's zigzag, and the producer loads the
+//     next item's tiles while the consumers finish this item's products and
+//     write its outputs.
+//   * dK/dV pass, keys as rows: an item is a 128-key tile of one (b, kv
+//     head); K and V stay in shared memory, and the producer streams the
+//     visible 64-row query steps of all G q heads of the group (Q and dO by
+//     TMA, lse and delta by one warp's plain loads) through a 3-stage ring.
+//     S^T = K Q^T and dP^T = V dO^T take both operands K-major as they lie;
+//     P^T and dS^T are formed in the accumulators and rounded to bf16 in
+//     place as the A fragments of dV += P^T dO and dK += dS^T Q, which read dO
+//     and Q MN-major through the descriptor's transpose.
+//   * dQ pass, the forward's structure plus one product: an item is a
+//     128-row query tile of one (b, q head) with Q and dO resident and lse
+//     and delta in registers; K and V stream in 64-key tiles through a
+//     3-stage ring; S = Q K^T and dP = dO V^T, then dQ += dS K with K read
+//     MN-major.
+//   * One layout for TMA and wgmma (hopper.cuh): 128-byte swizzle (64-byte
+//     at Dh = 32), 1 KiB-aligned tiles, 3-D tensor maps (Dh, S, B*heads), so
+//     a tile that overhangs Sq or Sk is zero-filled and never reads the next
+//     head's rows. A zero-filled query row (lse = delta = 0) adds exactly 0 to
+//     dK and dV, and a zero-filled key row adds 0 to dQ; the causal mask,
+//     q_offset and the Sk edge of the dQ pass are masked explicitly.
+//   * fp32: no tensor-core path keeps fp32 exact, so both passes run on CUDA
+//     cores, 256 threads, 8 to a row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"           // mbarriers, TMA, wgmma, tensor maps
 
 namespace {
 
@@ -262,303 +292,423 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_f32(const Args a) {
 
 // ------------------------------------------------------------------ bf16
 //
-// mma.sync m16n8k16, bf16 operands, fp32 sums. With lane = 4 g + t, a warp
-// holds A (16 x 16) as a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 =
-// A[g][2t+8..], a3 = A[g+8][2t+8..]; B (16 x 8, k x n) as b0 = B[2t..2t+1][g],
-// b1 = B[2t+8..2t+9][g]; C (16 x 8) as c0, c1 = C[g][2t..2t+1], c2, c3 =
-// C[g+8][2t..2t+1]. So the C fragments of two neighbouring 8-column blocks
-// are the A fragment of one 16-deep step: P and dS go from the score
-// products into the next products without leaving registers.
+// Two passes, each a persistent kernel of three warpgroups: a producer
+// (setmaxnreg down to PRODUCER_REGS) whose first warp loads tiles by TMA into
+// mbarrier rings, and two consumers of 64 rows each (up to CONSUMER_REGS)
+// that run every product on wgmma. Tiles land 128-byte swizzled (64-byte at
+// Dh = 32) through 3-D tensor maps (Dh, S, B*heads), so a box that overhangs
+// Sq or Sk is zero-filled and never reads the next head's rows; the masks
+// decide what counts. The fp32 accumulator of a product is the A-fragment
+// layout of the next one, so P and dS are rounded to bf16 in registers and
+// never touch shared memory; the second operand of dV += P^T dO, dK += dS^T Q
+// and dQ += dS K is read MN-major through the descriptor's transpose.
 
-constexpr int WARPS = 4;
-constexpr int B_BN = 64;     // dkdv: key rows of a CTA, 16 a warp
-constexpr int B_BQ = 32;     // dkdv: query rows of a step
-constexpr int D_BQ = 64;     // dq: query rows of a CTA, 16 a warp
-constexpr int D_BN = 64;     // dq: key rows of a step
-constexpr int PAD = 8;       // bf16 padding of a shared-memory row
+constexpr int THREADS = 3 * WG;
+constexpr int PRODUCER_REGS = 24;   // setmaxnreg: 128 x 24 + 256 x 240 <= 64K
+constexpr int CONSUMER_REGS = 240;
+
+// dK/dV pass: an item is (b, kv head, BK-key tile); each consumer holds the
+// dK and dV of its 64 keys in registers and steps over BQ query rows at a
+// time through every q head of the group. The producer streams each step's
+// Q and dO tiles by TMA, and its lse (times log2 e) and delta rows by plain
+// loads, into a ring of STAGES stages; the key tile's K and V stay resident.
+template <int DH>
+struct KvTile {
+  static constexpr int SW = Swizzle<DH>::SW, ATOM = Swizzle<DH>::ATOM;
+  static constexpr int BK = 128;                 // keys of an item: two consumers of 64
+  static constexpr int BQ = 64;                  // query rows of a step
+  static constexpr int STAGES = 3;               // Q/dO ring depth
+  static constexpr int K_BYTES = BK * DH * 2;    // one K or V tile
+  static constexpr int Q_BYTES = BQ * DH * 2;    // one Q or dO tile
+  static constexpr int ROWS = 2 * BQ;            // floats of a stage: lse * log2(e), delta
+  // barriers (256 bytes) and the rows, then 1 KiB-aligned tiles
+  static constexpr int HEAD = 1024 * ((256 + STAGES * ROWS * 4 + 1023) / 1024);
+  static constexpr int SMEM = 1024 + HEAD + 2 * K_BYTES + 2 * STAGES * Q_BYTES;
+  static_assert(SMEM <= 232448, "over the 227 KiB a CTA may use");
+  static_assert(BQ == 64, "a producer lane loads rows lane and lane + 32 of a step");
+};
+
+// dQ pass: an item is (b, q head, BM-row tile), heaviest causal tile first;
+// Q and dO stay resident, each consumer holds the dQ of its 64 rows, and the
+// producer streams K and V in BN-key tiles through a ring of STAGES stages.
+template <int DH>
+struct QTile {
+  static constexpr int SW = Swizzle<DH>::SW, ATOM = Swizzle<DH>::ATOM;
+  static constexpr int BM = 128;                 // q rows of an item: two consumers of 64
+  static constexpr int BN = 64;                  // keys of a step
+  static constexpr int STAGES = 3;               // K/V ring depth
+  static constexpr int Q_BYTES = BM * DH * 2;    // one Q or dO tile
+  static constexpr int K_BYTES = BN * DH * 2;    // one K or V tile
+  static constexpr int HEAD = 1024;              // barriers, then 1 KiB-aligned tiles
+  static constexpr int SMEM = 1024 + HEAD + 2 * Q_BYTES + 2 * STAGES * K_BYTES;
+  static_assert(SMEM <= 232448, "over the 227 KiB a CTA may use");
+};
 
 template <int DH>
-constexpr int smem_dkdv_bf16() { return (2 * B_BN + 2 * B_BQ) * (DH + PAD) * 2 + 2 * B_BQ * 4; }
-template <int DH>
-constexpr int smem_dq_bf16() { return (2 * D_BQ + 2 * D_BN) * (DH + PAD) * 2; }
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int DH>
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* s, int row, int col) {
-  return *reinterpret_cast<const uint32_t*>(s + row * (DH + PAD) + col);
-}
-
-// A fragment of rows [r0, r0 + 16), columns [c0, c0 + 16) of a tile.
-template <int DH>
-__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const __nv_bfloat16* s, int r0,
-                                       int c0, int g, int t) {
-  f[0] = ld32<DH>(s, r0 + g, c0 + 2 * t);
-  f[1] = ld32<DH>(s, r0 + g + 8, c0 + 2 * t);
-  f[2] = ld32<DH>(s, r0 + g, c0 + 2 * t + 8);
-  f[3] = ld32<DH>(s, r0 + g + 8, c0 + 2 * t + 8);
-}
-
-// B fragment with B[k][n] = tile[n0 + n][k0 + k] (rows of the tile are n).
-template <int DH>
-__device__ __forceinline__ void frag_b_rows(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* s,
-                                            int n0, int k0, int g, int t) {
-  b0 = ld32<DH>(s, n0 + g, k0 + 2 * t);
-  b1 = ld32<DH>(s, n0 + g, k0 + 2 * t + 8);
-}
-
-// B fragment with B[k][n] = tile[k0 + k][n0 + n] (rows of the tile are k).
-template <int DH>
-__device__ __forceinline__ void frag_b_cols(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* s,
-                                            int k0, int n0, int g, int t) {
-  const __nv_bfloat16* p = s + (k0 + 2 * t) * (DH + PAD) + n0 + g;
-  b0 = pack_raw(p[0], p[DH + PAD]);
-  b1 = pack_raw(p[8 * (DH + PAD)], p[9 * (DH + PAD)]);
-}
-
-// The A fragment of columns [16 kk, 16 kk + 16) of a 16-row C tile.
-__device__ __forceinline__ void c_to_a(uint32_t (&f)[4], const float (&lo)[4],
-                                       const float (&hi)[4]) {
-  f[0] = pack_bf16(lo[0], lo[1]);
-  f[1] = pack_bf16(lo[2], lo[3]);
-  f[2] = pack_bf16(hi[0], hi[1]);
-  f[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// Rows [r0, r0 + n) of a (rows, DH) bf16 slab into a padded tile, zero past
-// `rows`; 16-byte copies.
-template <int DH>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g, int r0,
-                                          int n, int rows) {
-  constexpr int V = DH / 8;                  // 16-byte vectors a row
-  for (int i = threadIdx.x; i < n * V; i += WARPS * 32) {
-    const int rr = i / V, c = (i % V) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + rr < rows) x = *reinterpret_cast<const uint4*>(g + (size_t)(r0 + rr) * DH + c);
-    *reinterpret_cast<uint4*>(s + rr * (DH + PAD) + c) = x;
-  }
-}
-
-// dK and dV of B_BN keys of one (b, kv head); warp w holds keys
-// [16 w, 16 w + 16) of the tile: S^T = K Q^T and dP^T = V dO^T per step of
-// B_BQ queries, then dV += P^T dO and dK += dS^T Q.
-template <int DH>
-__global__ void __launch_bounds__(WARPS * 32) flash_bwd_dkdv_bf16(const Args a) {
-  constexpr int NQ = B_BQ / 8, ND = DH / 8;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const Args a) {
+  using T = KvTile<DH>;
+  constexpr int BK = T::BK, BQ = T::BQ, STAGES = T::STAGES, SW = T::SW, ATOM = T::ATOM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + B_BN * (DH + PAD);
-  __nv_bfloat16* Qs = Vs + B_BN * (DH + PAD);
-  __nv_bfloat16* Ds = Qs + B_BQ * (DH + PAD);
-  float* Ls = reinterpret_cast<float*>(Ds + B_BQ * (DH + PAD));   // lse * log2(e)
-  float* Es = Ls + B_BQ;                                           // delta
+  // 1 KiB alignment: the swizzle pattern repeats every 1024 (512) bytes, and
+  // TMA and wgmma agree on it only from such a boundary
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  const uint32_t bar_kv = base;                         // K and V landed
+  const uint32_t bar_kve = base + 8;                    // K and V free
+  const uint32_t bar_f = base + 16;                     // [STAGES] step landed
+  const uint32_t bar_e = bar_f + 8 * STAGES;            // [STAGES] stage free
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + 256);  // [STAGES][ROWS]
+  const uint32_t sk = base + T::HEAD;                   // K: DH/ATOM blocks of BK x SW bytes
+  const uint32_t sv = sk + T::K_BYTES;                  // V
+  const uint32_t sq = sv + T::K_BYTES;                  // Q stages, BQ x SW-byte blocks
+  const uint32_t sdo = sq + STAGES * T::Q_BYTES;        // dO stages
 
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const int n_kt = (a.Sk + B_BN - 1) / B_BN;
-  const int kt = blockIdx.x % n_kt, bkv = blockIdx.x / n_kt;
-  const int b = bkv / a.KH, kvh = bkv % a.KH, G = a.H / a.KH;
-  const int k0 = kt * B_BN, kw = 16 * w;
-  const size_t kv_off = (size_t)bkv * a.Sk * DH;
-  const float scale_log2 = a.scale * LOG2E;
-  load_tile<DH>(Ks, static_cast<const __nv_bfloat16*>(a.k) + kv_off, k0, B_BN, a.Sk);
-  load_tile<DH>(Vs, static_cast<const __nv_bfloat16*>(a.v) + kv_off, k0, B_BN, a.Sk);
+  const int G = a.H / a.KH, BKV = a.B * a.KH;
+  const int n_items = (a.Sk + BK - 1) / BK * BKV;       // key tile 0 first: the heaviest
+  // the first query tile with a row that sees some key of [k0, k0 + BK)
+  auto q_first = [&](int k0) { return a.causal ? max(0, k0 - a.q_offset) / BQ * BQ : 0; };
 
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    mbar_init(bar_kve, 2 * WG / 32);                    // every consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_f + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, 2 * WG / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int gi = 0; gi < G; ++gi) {
-    const int bh = b * a.H + kvh * G + gi;
-    const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + (size_t)bh * a.Sq * DH;
-    const __nv_bfloat16* dg = static_cast<const __nv_bfloat16*>(a.dout) + (size_t)bh * a.Sq * DH;
-    for (int q0 = first_q_tile(a, k0, B_BQ); q0 < a.Sq; q0 += B_BQ) {
-      __syncthreads();
-      load_tile<DH>(Qs, qg, q0, B_BQ, a.Sq);
-      load_tile<DH>(Ds, dg, q0, B_BQ, a.Sq);
-      if (threadIdx.x < B_BQ) {
-        const bool in = q0 + threadIdx.x < a.Sq;
-        Ls[threadIdx.x] = in ? a.lse[(size_t)bh * a.Sq + q0 + threadIdx.x] * LOG2E : 0.f;
-        Es[threadIdx.x] = in ? a.delta[(size_t)bh * a.Sq + q0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-
-      float s[NQ][4], dp[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        uint32_t fk[4], fv[4];
-        frag_a<DH>(fk, Ks, kw, 16 * kk, g, t);
-        frag_a<DH>(fv, Vs, kw, 16 * kk, g, t);
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          uint32_t b0, b1;
-          frag_b_rows<DH>(b0, b1, Qs, 8 * n, 16 * kk, g, t);
-          mma_bf16_16816(s[n], fk, b0, b1);
-          frag_b_rows<DH>(b0, b1, Ds, 8 * n, 16 * kk, g, t);
-          mma_bf16_16816(dp[n], fv, b0, b1);
+  // the warpgroup, broadcast from lane 0 so the compiler knows it is uniform
+  const int wg = __shfl_sync(0xffffffff, static_cast<int>(threadIdx.x) / WG, 0);
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int t = 0;
+      for (int r = 0, i; (i = zigzag_item(r, n_items)) >= 0; ++r) {
+        const int bkv = i % BKV, k0 = i / BKV * BK;
+        mbar_wait(bar_kve, (r & 1) ^ 1);                // round 0 passes
+        if (lane == 0) {
+          mbar_expect_tx(bar_kv, 2 * T::K_BYTES);
+          for (int c = 0; c < DH / ATOM; ++c) {
+            tma_load_3d(sk + c * BK * SW, &tm_k, c * ATOM, k0, bkv, bar_kv);
+            tma_load_3d(sv + c * BK * SW, &tm_v, c * ATOM, k0, bkv, bar_kv);
+          }
         }
-      }
-      // s becomes P^T and dp becomes dS^T; rows are keys, columns queries
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + kw + g + 8 * (e >> 1), c = 8 * n + 2 * t + (e & 1);
-          const float p = visible(a, q0 + c, key) ? exp2f(s[n][e] * scale_log2 - Ls[c]) : 0.f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - Es[c]);
-        }
-#pragma unroll
-      for (int kk = 0; kk < B_BQ / 16; ++kk) {
-        uint32_t fp[4], fs[4];
-        c_to_a(fp, s[2 * kk], s[2 * kk + 1]);
-        c_to_a(fs, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          uint32_t b0, b1;
-          frag_b_cols<DH>(b0, b1, Ds, 16 * kk, 8 * n, g, t);
-          mma_bf16_16816(dv[n], fp, b0, b1);
-          frag_b_cols<DH>(b0, b1, Qs, 16 * kk, 8 * n, g, t);
-          mma_bf16_16816(dk[n], fs, b0, b1);
+        for (int g = 0; g < G; ++g) {
+          const int bh = (bkv / a.KH) * a.H + (bkv % a.KH) * G + g;
+          const float* lse = a.lse + (size_t)bh * a.Sq;
+          const float* dl = a.delta + (size_t)bh * a.Sq;
+          for (int q0 = q_first(k0); q0 < a.Sq; q0 += BQ, ++t) {
+            const int s = t % STAGES, r0 = q0 + lane, r1 = r0 + 32;
+            // rows past Sq get lse = delta = 0: their Q and dO are zero-filled,
+            // so they add exactly 0 to dK and dV
+            const float l0 = r0 < a.Sq ? lse[r0] * LOG2E : 0.f;
+            const float l1 = r1 < a.Sq ? lse[r1] * LOG2E : 0.f;
+            const float d0 = r0 < a.Sq ? dl[r0] : 0.f;
+            const float d1 = r1 < a.Sq ? dl[r1] : 0.f;
+            mbar_wait(bar_e + 8 * s, ((t / STAGES) & 1) ^ 1);
+            float* row = rows + s * T::ROWS;
+            row[lane] = l0;
+            row[lane + 32] = l1;
+            row[BQ + lane] = d0;
+            row[BQ + lane + 32] = d1;
+            __syncwarp();                               // the rows before lane 0's arrive
+            if (lane == 0) {
+              mbar_expect_tx(bar_f + 8 * s, 2 * T::Q_BYTES);
+              for (int c = 0; c < DH / ATOM; ++c) {
+                tma_load_3d(sq + s * T::Q_BYTES + c * BQ * SW, &tm_q, c * ATOM, q0, bh,
+                            bar_f + 8 * s);
+                tma_load_3d(sdo + s * T::Q_BYTES + c * BQ * SW, &tm_do, c * ATOM, q0, bh,
+                            bar_f + 8 * s);
+              }
+            }
+          }
         }
       }
     }
-  }
-  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk) + kv_off;
-  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv) + kv_off;
+  } else {
+    // ---------------------------------------------------------- consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int w = wg - 1;                               // which 64 keys
+    const int tid = threadIdx.x % WG, lane = tid & 31;
+    const int r0 = w * 64 + (tid >> 5) * 16 + (lane >> 2);   // key rows r0, r0 + 8
+    const int t2 = 2 * (lane & 3);                      // column pair in a block of 8
+    const float scale_log2 = a.scale * LOG2E;
+    auto release = [&](uint32_t bar) { mbar_arrive_if(bar, lane == 0); };
+
+    float dk[DH / 2], dv[DH / 2];
+    float s[BQ / 2], dp[BQ / 2];                        // S^T, then P^T; dP^T, then dS^T
+    uint32_t pf[BQ / 16][4], df[BQ / 16][4];            // P^T and dS^T in bf16
+    int t = 0;
+    for (int r = 0, i; (i = zigzag_item(r, n_items)) >= 0; ++r) {
+      const int bkv = i % BKV, k0 = i / BKV * BK;
+      const int key[2] = {k0 + r0, k0 + r0 + 8};
+      const int key_last = k0 + w * 64 + 63;            // this consumer's last key
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = k0 + kw + g + 8 * half;
-    if (key >= a.Sk) continue;
+      for (int n = 0; n < DH / 2; ++n) dk[n] = dv[n] = 0.f;
+      mbar_wait(bar_kv, r & 1);
+      for (int g = 0; g < G; ++g) {
+        for (int q0 = q_first(k0); q0 < a.Sq; q0 += BQ, ++t) {
+          const int st = t % STAGES;
+          const uint32_t q_t = sq + st * T::Q_BYTES, do_t = sdo + st * T::Q_BYTES;
+          const float* row = rows + st * T::ROWS;
+          mbar_wait(bar_f + 8 * st, (t / STAGES) & 1);
+          // S^T = K Q^T and dP^T = V dO^T, both operands K-major as they lie
+          wgmma_fence();
+          wgmma_ss_n64<true>(s, desc_kmajor<DH>(sk, BK, 64 * w, 0), desc_kmajor<DH>(q_t, BQ, 0, 0));
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const size_t at = (size_t)key * DH + 8 * n + 2 * t;
-      *reinterpret_cast<uint32_t*>(dkg + at) =
-          pack_bf16(dk[n][2 * half] * a.scale, dk[n][2 * half + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvg + at) = pack_bf16(dv[n][2 * half], dv[n][2 * half + 1]);
+          for (int kk = 1; kk < DH / 16; ++kk)
+            wgmma_ss_n64<false>(s, desc_kmajor<DH>(sk, BK, 64 * w, kk),
+                                desc_kmajor<DH>(q_t, BQ, 0, kk));
+          wgmma_commit();
+          wgmma_ss_n64<true>(dp, desc_kmajor<DH>(sv, BK, 64 * w, 0),
+                             desc_kmajor<DH>(do_t, BQ, 0, 0));
+#pragma unroll
+          for (int kk = 1; kk < DH / 16; ++kk)
+            wgmma_ss_n64<false>(dp, desc_kmajor<DH>(sv, BK, 64 * w, kk),
+                                desc_kmajor<DH>(do_t, BQ, 0, kk));
+          wgmma_commit();
+          // P^T = exp2(S^T scale log2 e - lse log2 e), while dP^T is on the
+          // tensor cores; masked only where some query precedes some key
+          const bool masked = a.causal && a.q_offset + q0 < key_last;
+          wgmma_wait<1>();
+          pin(s);
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j) {
+            const float2 l = *reinterpret_cast<const float2*>(row + 8 * j + t2);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float p = ex2(fmaf(s[4 * j + e], scale_log2, -((e & 1) ? l.y : l.x)));
+              const int qpos = a.q_offset + q0 + 8 * j + t2 + (e & 1);
+              s[4 * j + e] = masked && key[e >> 1] > qpos ? 0.f : p;
+            }
+          }
+          wgmma_wait<0>();
+          pin(dp);
+          // dS^T = P^T o (dP^T - delta)
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j) {
+            const float2 d = *reinterpret_cast<const float2*>(row + BQ + 8 * j + t2);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d.y : d.x));
+          }
+          to_fragments<BQ>(s, pf);
+          to_fragments<BQ>(dp, df);
+          // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            wgmma_rs<DH>(dv, pf[kk], desc_mnmajor<DH>(do_t, BQ, kk));
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            wgmma_rs<DH>(dk, df[kk], desc_mnmajor<DH>(q_t, BQ, kk));
+          wgmma_commit();
+          wgmma_wait<0>();
+          pin(dv);
+          pin(dk);
+          pin(pf);
+          pin(df);
+          release(bar_e + 8 * st);
+        }
+      }
+      release(bar_kve);                                 // K and V read for the last time
+      __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk) + (size_t)bkv * a.Sk * DH;
+      __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv) + (size_t)bkv * a.Sk * DH;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (key[h] >= a.Sk) continue;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n) {
+          const size_t at = (size_t)key[h] * DH + 8 * n + t2;
+          *reinterpret_cast<uint32_t*>(dkg + at) =
+              pack_bf16(dk[4 * n + 2 * h] * a.scale, dk[4 * n + 2 * h + 1] * a.scale);
+          *reinterpret_cast<uint32_t*>(dvg + at) = pack_bf16(dv[4 * n + 2 * h], dv[4 * n + 2 * h + 1]);
+        }
+      }
     }
   }
 }
 
-// dQ of D_BQ query rows of one (b, q head); warp w holds rows
-// [16 w, 16 w + 16): S = Q K^T and dP = dO V^T per step of D_BN keys, then
-// dQ += dS K.
 template <int DH>
-__global__ void __launch_bounds__(WARPS * 32) flash_bwd_dq_bf16(const Args a) {
-  constexpr int NK = D_BN / 8, ND = DH / 8;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const Args a) {
+  using T = QTile<DH>;
+  constexpr int BM = T::BM, BN = T::BN, STAGES = T::STAGES, SW = T::SW, ATOM = T::ATOM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ds = Qs + D_BQ * (DH + PAD);
-  __nv_bfloat16* Ks = Ds + D_BQ * (DH + PAD);
-  __nv_bfloat16* Vs = Ks + D_BN * (DH + PAD);
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_q = base;                          // Q and dO landed
+  const uint32_t bar_qe = base + 8;                     // Q and dO free
+  const uint32_t bar_f = base + 16;                     // [STAGES] K and V landed
+  const uint32_t bar_e = bar_f + 8 * STAGES;            // [STAGES] stage free
+  const uint32_t sq = base + T::HEAD;                   // Q: DH/ATOM blocks of BM x SW bytes
+  const uint32_t sdo = sq + T::Q_BYTES;                 // dO
+  const uint32_t sk = sdo + T::Q_BYTES;                 // K stages, BN x SW-byte blocks
+  const uint32_t sv = sk + STAGES * T::K_BYTES;         // V stages
 
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const int n_qt = (a.Sq + D_BQ - 1) / D_BQ;
-  const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt;
-  const int b = bh / a.H, h = bh % a.H;
-  const int q0 = qt * D_BQ, qw = 16 * w;
-  const size_t q_off = (size_t)bh * a.Sq * DH;
-  const size_t kv_off = ((size_t)b * a.KH + h / (a.H / a.KH)) * a.Sk * DH;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + kv_off;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + kv_off;
-  const float scale_log2 = a.scale * LOG2E;
-  load_tile<DH>(Qs, static_cast<const __nv_bfloat16*>(a.q) + q_off, q0, D_BQ, a.Sq);
-  load_tile<DH>(Ds, static_cast<const __nv_bfloat16*>(a.dout) + q_off, q0, D_BQ, a.Sq);
+  const int Sq = a.Sq, Sk = a.Sk, q_offset = a.q_offset, causal = a.causal;
+  const int BH = a.B * a.H, n_qt = (Sq + BM - 1) / BM, n_items = n_qt * BH;
+  // keys that some row of [q0, q_end) can see: [0, extent)
+  auto extent = [&](int q_end) {
+    if (!causal) return Sk;
+    return max(0, min(Sk, q_offset + min(Sq, q_end)));
+  };
+  // item i: every head of a q tile before the next, the last (heaviest) tile first
+  auto item_q0 = [&](int i) { return (n_qt - 1 - i / BH) * BM; };
 
-  float lse2[2], delta[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + qw + g + 8 * half;
-    const bool in = row < a.Sq;
-    lse2[half] = in ? a.lse[(size_t)bh * a.Sq + row] * LOG2E : 0.f;
-    delta[half] = in ? a.delta[(size_t)bh * a.Sq + row] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_qe, 2 * WG / 32);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_f + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, 2 * WG / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float dq[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  __syncthreads();
 
-  const int end = kv_end(a, q0, D_BQ);
-  for (int k0 = 0; k0 < end; k0 += D_BN) {
-    __syncthreads();
-    load_tile<DH>(Ks, kg, k0, D_BN, a.Sk);
-    load_tile<DH>(Vs, vg, k0, D_BN, a.Sk);
-    __syncthreads();
-
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t fq[4], fd[4];
-      frag_a<DH>(fq, Qs, qw, 16 * kk, g, t);
-      frag_a<DH>(fd, Ds, qw, 16 * kk, g, t);
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        uint32_t b0, b1;
-        frag_b_rows<DH>(b0, b1, Ks, 8 * n, 16 * kk, g, t);
-        mma_bf16_16816(s[n], fq, b0, b1);
-        frag_b_rows<DH>(b0, b1, Vs, 8 * n, 16 * kk, g, t);
-        mma_bf16_16816(dp[n], fd, b0, b1);
+  const int wg = __shfl_sync(0xffffffff, static_cast<int>(threadIdx.x) / WG, 0);
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int t = 0;
+      for (int r = 0, i; (i = zigzag_item(r, n_items)) >= 0; ++r) {
+        const int bh = i % BH, q0 = item_q0(i);
+        const int h = bh % a.H;
+        const int kv_slab = (bh / a.H) * a.KH + h / (a.H / a.KH);
+        mbar_wait(bar_qe, (r & 1) ^ 1);                 // round 0 passes
+        mbar_expect_tx(bar_q, 2 * T::Q_BYTES);
+        for (int c = 0; c < DH / ATOM; ++c) {
+          tma_load_3d(sq + c * BM * SW, &tm_q, c * ATOM, q0, bh, bar_q);
+          tma_load_3d(sdo + c * BM * SW, &tm_do, c * ATOM, q0, bh, bar_q);
+        }
+        const int n_tiles = (extent(q0 + BM) + BN - 1) / BN;
+        for (int j = 0; j < n_tiles; ++j, ++t) {
+          const int s = t % STAGES;
+          mbar_wait(bar_e + 8 * s, ((t / STAGES) & 1) ^ 1);
+          mbar_expect_tx(bar_f + 8 * s, 2 * T::K_BYTES);
+          for (int c = 0; c < DH / ATOM; ++c) {
+            tma_load_3d(sk + s * T::K_BYTES + c * BN * SW, &tm_k, c * ATOM, j * BN, kv_slab,
+                        bar_f + 8 * s);
+            tma_load_3d(sv + s * T::K_BYTES + c * BN * SW, &tm_v, c * ATOM, j * BN, kv_slab,
+                        bar_f + 8 * s);
+          }
+        }
       }
     }
-    // dp becomes dS; rows are queries, columns keys
+  } else {
+    // ---------------------------------------------------------- consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int w = wg - 1;                               // which 64 rows
+    const int tid = threadIdx.x % WG, lane = tid & 31;
+    const int r0 = w * 64 + (tid >> 5) * 16 + (lane >> 2);   // rows r0, r0 + 8
+    const int t2 = 2 * (lane & 3);
+    const float scale_log2 = a.scale * LOG2E;
+    auto release = [&](uint32_t bar) { mbar_arrive_if(bar, lane == 0); };
+
+    float dq[DH / 2];
+    float s[BN / 2], dp[BN / 2];                        // S, then P; dP, then dS
+    uint32_t df[BN / 16][4];                            // dS in bf16
+    int t = 0;
+    for (int r = 0, i; (i = zigzag_item(r, n_items)) >= 0; ++r) {
+      const int bh = i % BH, q0 = item_q0(i);
+      float lse2[2], delta[2];
+      int qpos[2];
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = q0 + qw + g + 8 * (e >> 1), key = k0 + 8 * n + 2 * t + (e & 1);
-        const float p = visible(a, row, key) ? exp2f(s[n][e] * scale_log2 - lse2[e >> 1]) : 0.f;
-        dp[n][e] = p * (dp[n][e] - delta[e >> 1]);
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + r0 + 8 * h;
+        lse2[h] = row < Sq ? a.lse[(size_t)bh * Sq + row] * LOG2E : 0.f;
+        delta[h] = row < Sq ? a.delta[(size_t)bh * Sq + row] : 0.f;
+        qpos[h] = q_offset + row;
       }
 #pragma unroll
-    for (int kk = 0; kk < D_BN / 16; ++kk) {
-      uint32_t fs[4];
-      c_to_a(fs, dp[2 * kk], dp[2 * kk + 1]);
+      for (int n = 0; n < DH / 2; ++n) dq[n] = 0.f;
+      const int n_tiles = (extent(q0 + BM) + BN - 1) / BN;
+      // this consumer's tiles (n_mine >= 1 as Sk >= 1), and of them the
+      // leading ones that need no mask
+      const int n_mine = (extent(q0 + 64 * (w + 1)) + BN - 1) / BN;
+      const int first = q_offset + q0 + 64 * w;         // the smallest q position
+      const int n_open = min(n_mine, (causal ? max(0, min(Sk, first + 1)) : Sk) / BN);
+      mbar_wait(bar_q, r & 1);
+      for (int j = 0; j < n_mine; ++j) {
+        const int st = (t + j) % STAGES;
+        const uint32_t k_t = sk + st * T::K_BYTES, v_t = sv + st * T::K_BYTES;
+        mbar_wait(bar_f + 8 * st, ((t + j) / STAGES) & 1);
+        // S = Q K^T and dP = dO V^T, both operands K-major as they lie
+        wgmma_fence();
+        wgmma_ss_n64<true>(s, desc_kmajor<DH>(sq, BM, 64 * w, 0), desc_kmajor<DH>(k_t, BN, 0, 0));
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t b0, b1;
-        frag_b_cols<DH>(b0, b1, Ks, 16 * kk, 8 * n, g, t);
-        mma_bf16_16816(dq[n], fs, b0, b1);
+        for (int kk = 1; kk < DH / 16; ++kk)
+          wgmma_ss_n64<false>(s, desc_kmajor<DH>(sq, BM, 64 * w, kk),
+                              desc_kmajor<DH>(k_t, BN, 0, kk));
+        wgmma_commit();
+        wgmma_ss_n64<true>(dp, desc_kmajor<DH>(sdo, BM, 64 * w, 0), desc_kmajor<DH>(v_t, BN, 0, 0));
+#pragma unroll
+        for (int kk = 1; kk < DH / 16; ++kk)
+          wgmma_ss_n64<false>(dp, desc_kmajor<DH>(sdo, BM, 64 * w, kk),
+                              desc_kmajor<DH>(v_t, BN, 0, kk));
+        wgmma_commit();
+        wgmma_wait<1>();
+        pin(s);
+        const bool masked = j >= n_open;
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(fmaf(s[4 * jj + e], scale_log2, -lse2[e >> 1]));
+            const int col = j * BN + 8 * jj + t2 + (e & 1);
+            s[4 * jj + e] =
+                masked && (col >= Sk || (causal && col > qpos[e >> 1])) ? 0.f : p;
+          }
+        }
+        wgmma_wait<0>();
+        pin(dp);
+        if (j == n_mine - 1) release(bar_qe);           // Q and dO read for the last time
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * jj + e] = s[4 * jj + e] * (dp[4 * jj + e] - delta[e >> 1]);
+        to_fragments<BN>(dp, df);
+        // dQ += dS K, K read MN-major
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_rs<DH>(dq, df[kk], desc_mnmajor<DH>(k_t, BN, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(dq);
+        pin(df);
+        release(bar_e + 8 * st);
+      }
+      // a tile that the other consumer's rows see and these do not: free it
+      for (int j = n_mine; j < n_tiles; ++j) {
+        const int st = (t + j) % STAGES;
+        mbar_wait(bar_f + 8 * st, ((t + j) / STAGES) & 1);
+        release(bar_e + 8 * st);
+      }
+      t += n_tiles;
+      __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(a.dq) + (size_t)bh * Sq * DH;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + r0 + 8 * h;
+        if (row >= Sq) continue;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n)
+          *reinterpret_cast<uint32_t*>(dqg + (size_t)row * DH + 8 * n + t2) =
+              pack_bf16(dq[4 * n + 2 * h] * a.scale, dq[4 * n + 2 * h + 1] * a.scale);
       }
     }
-  }
-  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(a.dq) + q_off;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + qw + g + 8 * half;
-    if (row >= a.Sq) continue;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(dqg + (size_t)row * DH + 8 * n + 2 * t) =
-          pack_bf16(dq[n][2 * half] * a.scale, dq[n][2 * half + 1] * a.scale);
   }
 }
 
@@ -577,24 +727,61 @@ cudaError_t launch(Kernel kernel, const Args& a, long long blocks, int threads, 
   return cudaGetLastError();
 }
 
+cudaError_t zero(void* ptr, size_t bytes, cudaStream_t stream) {
+  return bytes == 0 ? cudaSuccess : cudaMemsetAsync(ptr, 0, bytes, stream);
+}
+
 template <int DH>
-cudaError_t dispatch(const Args& a, int is_bf16, cudaStream_t stream) {
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   const long long rows = (long long)a.B * a.H * a.Sq;
-  cudaError_t e;
-  if (is_bf16) {
-    e = launch(flash_bwd_delta<__nv_bfloat16, DH>, a, (rows + 7) / 8, 256, 0, stream);
-    if (e == cudaSuccess)
-      e = launch(flash_bwd_dkdv_bf16<DH>, a,
-                 (long long)a.B * a.KH * ((a.Sk + B_BN - 1) / B_BN), WARPS * 32,
-                 smem_dkdv_bf16<DH>(), stream);
-    if (e == cudaSuccess)
-      e = launch(flash_bwd_dq_bf16<DH>, a,
-                 (long long)a.B * a.H * ((a.Sq + D_BQ - 1) / D_BQ), WARPS * 32,
-                 smem_dq_bf16<DH>(), stream);
+  cudaError_t e = launch(flash_bwd_delta<__nv_bfloat16, DH>, a, (rows + 7) / 8, 256, 0, stream);
+  if (e != cudaSuccess) return e;
+  if (a.B == 0 || a.Sq == 0 || a.Sk == 0) {  // no score at all: every gradient is 0
+    const size_t kv = (size_t)a.B * a.KH * a.Sk * DH * 2;
+    e = zero(a.dq, (size_t)rows * DH * 2, stream);
+    if (e == cudaSuccess) e = zero(a.dk, kv, stream);
+    if (e == cudaSuccess) e = zero(a.dv, kv, stream);
     return e;
   }
+  const int BH = a.B * a.H, BKV = a.B * a.KH;
+  CUtensorMap kv_q, kv_do, kv_k, kv_v, q_q, q_do, q_k, q_v;
+  if (!tensor_map<DH>(&kv_q, a.q, a.Sq, BH, KvTile<DH>::BQ) ||
+      !tensor_map<DH>(&kv_do, a.dout, a.Sq, BH, KvTile<DH>::BQ) ||
+      !tensor_map<DH>(&kv_k, a.k, a.Sk, BKV, KvTile<DH>::BK) ||
+      !tensor_map<DH>(&kv_v, a.v, a.Sk, BKV, KvTile<DH>::BK) ||
+      !tensor_map<DH>(&q_q, a.q, a.Sq, BH, QTile<DH>::BM) ||
+      !tensor_map<DH>(&q_do, a.dout, a.Sq, BH, QTile<DH>::BM) ||
+      !tensor_map<DH>(&q_k, a.k, a.Sk, BKV, QTile<DH>::BN) ||
+      !tensor_map<DH>(&q_v, a.v, a.Sk, BKV, QTile<DH>::BN))
+    return cudaErrorInvalidValue;
+  static const cudaError_t set = [] {
+    const cudaError_t e1 = cudaFuncSetAttribute(
+        flash_bwd_dkdv_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, KvTile<DH>::SMEM);
+    return e1 != cudaSuccess ? e1 : cudaFuncSetAttribute(
+        flash_bwd_dq_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, QTile<DH>::SMEM);
+  }();
+  if (set != cudaSuccess) return set;
+  int n_sm;
+  e = sm_count(&n_sm);
+  if (e != cudaSuccess) return e;
+  // persistent: at most one CTA an SM, each walking items (zigzag_item)
+  const long long kv_items = (long long)BKV * ((a.Sk + KvTile<DH>::BK - 1) / KvTile<DH>::BK);
+  const long long q_items = (long long)BH * ((a.Sq + QTile<DH>::BM - 1) / QTile<DH>::BM);
+  flash_bwd_dkdv_bf16<DH><<<(unsigned)(kv_items < n_sm ? kv_items : n_sm), THREADS,
+                            KvTile<DH>::SMEM, stream>>>(kv_q, kv_do, kv_k, kv_v, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_bf16<DH><<<(unsigned)(q_items < n_sm ? q_items : n_sm), THREADS,
+                          QTile<DH>::SMEM, stream>>>(q_q, q_do, q_k, q_v, a);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t dispatch(const Args& a, int is_bf16, cudaStream_t stream) {
+  if (is_bf16) return launch_bf16<DH>(a, stream);
+  const long long rows = (long long)a.B * a.H * a.Sq;
   constexpr int LD = DH + 1;
-  e = launch(flash_bwd_delta<float, DH>, a, (rows + 7) / 8, 256, 0, stream);
+  cudaError_t e = launch(flash_bwd_delta<float, DH>, a, (rows + 7) / 8, 256, 0, stream);
   if (e == cudaSuccess)
     e = launch(flash_bwd_dkdv_f32<DH>, a, (long long)a.B * a.KH * ((a.Sk + F_BN - 1) / F_BN),
                256, (int)(((2 * F_BN + 2 * F_BQ) * LD + 2 * F_BN * (F_BQ + 1) + 2 * F_BQ) *

@@ -18,8 +18,9 @@ Its gradient: where q, k or v requires grad on a CUDA tensor,
 ``flash_attention`` runs ``FlashAttentionFunction``, whose forward is the
 kernel with its row log-sum-exp output and whose backward is the
 hand-written kernel of ``csrc/flash_attention_bwd.cu`` (counted in
-``flash_attention.backward_launches``), the gradient the JAX model takes by
-autodiff of its XLA scan (``src/repro/models/attention.py:70``). On a CPU
+``flash_attention.backward_launches``; in bf16 two deterministic TMA and
+``wgmma`` passes, dK/dV and dQ, after a delta pass), the gradient the JAX
+model takes by autodiff of its XLA scan (``src/repro/models/attention.py:70``). On a CPU
 tensor, or with ``impl="plain"``, the gradient is autograd through
 ``flash_attention_plain``. Under ``no_grad`` the forward kernel writes no
 log-sum-exp.

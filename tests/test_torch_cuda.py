@@ -243,6 +243,19 @@ def _grads_close(got, ref):
     (2, 16, 2, 200, 200, 128, 0, True),     # G = 8
     (2, 16, 4, 129, 129, 64, 0, True),      # G = 4
     (4, 9, 3, 1024, 1024, 64, 0, True),     # smollm-135m training: G = 3, Dh = 64
+    # the bf16 passes' edges: 64-row query steps and 128-key tiles (dK/dV),
+    # 128-row query tiles and 64-key steps (dQ), and their TMA boxes
+    *[(1, 4, 2, n, n, 128, 0, True) for n in (64, 127, 128, 4097)],
+    *[(1, 4, 2, 129, n, 128, 0, False) for n in (63, 64, 65, 127, 128, 4097)],
+    *[(1, 4, 2, n, 129, 64, 0, False) for n in (63, 64, 65, 127, 128)],
+    (1, 6, 2, 129, 129, 64, 0, True),       # G = 3, Dh = 64, ragged
+    (2, 3, 1, 65, 200, 64, 7, True),        # G = 3, q_offset, Sq != Sk
+    (2, 4, 4, 127, 129, 32, 2, True),       # Dh = 32, G = 1, q_offset
+    (1, 4, 2, 129, 4097, 32, 0, False),     # Dh = 32, non-causal, long Sk
+    (3, 8, 2, 65, 127, 128, 0, False),      # non-causal Sq != Sk, B = 3
+    (1, 8, 2, 63, 1000, 128, 937, True),    # q_offset: the last 63 rows
+    (1, 8, 2, 65, 4097, 128, 100, True),    # q_offset: keys past the last row unseen
+    (1, 2, 1, 1, 129, 64, 128, True),       # one query at the end
 ])
 def test_flash_backward_matches_plain(B, H, KH, Sq, Sk, Dh, q_offset, causal, dtype):
     if not torch.cuda.is_available():
@@ -264,6 +277,48 @@ def test_flash_backward_matches_plain(B, H, KH, Sq, Sk, Dh, q_offset, causal, dt
     assert all(torch.equal(a, b) for a, b in zip(got, again))      # no atomics
     ref = flash_attention_backward_plain(q, k, v, do, causal=causal, q_offset=q_offset)
     _grads_close(got, ref)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_without_keys(dtype, causal):
+    """Sk = 0: no score, so dQ is 0 and dK, dV are empty (the plain version
+    cannot take Sk = 0: its softmax has nothing to reduce)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(5)
+    B, H, KH, Sq, Dh = 2, 4, 2, 65, 64
+    q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to("cuda", getattr(torch, dtype))
+                   for s in ((B, H, Sq, Dh), (B, KH, 0, Dh), (B, KH, 0, Dh), (B, H, Sq, Dh)))
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*qkv, causal=causal)
+    dq, dk, dv = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    assert not out.any() and not dq.any() and dq.shape == q.shape
+    assert dk.shape == k.shape and dv.shape == v.shape
+
+
+@cuda
+def test_flash_backward_repeats_bit_for_bit_at_training_shape():
+    """qwen3-8b's training shape in bf16: two calls give the same bits (no
+    atomics: exact resume needs it) and agree with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import (_forward_kernel, flash_attention_backward,
+                                                     flash_attention_backward_plain)
+    rng = np.random.default_rng(16)
+    B, H, KH, S, Dh = 1, 32, 8, 4096, 128
+    q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to("cuda", torch.bfloat16)
+                   for s in ((B, H, S, Dh), (B, KH, S, Dh), (B, KH, S, Dh), (B, H, S, Dh)))
+    o, lse = _forward_kernel(q, k, v, True, 0, with_lse=True)
+    got = flash_attention_backward(q, k, v, o, do, lse, causal=True)
+    again = flash_attention_backward(q, k, v, o, do, lse, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _grads_close(got, flash_attention_backward_plain(q, k, v, do, causal=True))
 
 
 @cuda

@@ -19,8 +19,14 @@ pytestmark = pytest.mark.slow  # JAX tracing; fast lane: -m 'not slow'
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.15}
 
 
+# Cases beyond a smoke config as it stands: starcoder2-15b's full CONFIG has a
+# 2-matrix GELU MLP (mlp_gated=False) where its SMOKE keeps SwiGLU.
+VARIANTS = {"starcoder2-15b-ungated": ("starcoder2-15b", {"mlp_gated": False})}
+
+
 def _models(arch, dtype, seed=0):
-    cfg = get_smoke_config(arch).with_(dtype=dtype)
+    arch, overrides = VARIANTS.get(arch, (arch, {}))
+    cfg = get_smoke_config(arch).with_(dtype=dtype, **overrides)
     jp = jlm.init_params(cfg, jax.random.key(seed))
     tm = rt.params_from_jax(cfg, jax.device_get(jp), device="cpu")
     return cfg, jp, tm
@@ -32,7 +38,9 @@ def _tokens(cfg, B, S, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-8b",
+                                  "deepseek-67b",        # kv_repeat=2
+                                  "starcoder2-15b", "starcoder2-15b-ungated"])
 def test_forward_and_loss_match_jax(arch, dtype):
     cfg, jp, tm = _models(arch, dtype)
     toks, labels = _tokens(cfg, 2, 24, 1), _tokens(cfg, 2, 24, 2)
