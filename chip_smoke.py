@@ -6,9 +6,9 @@
 
 Phases, each of which fails the run (non-zero exit, no "ok" line):
   1. device: build the flash-attention forward and backward and the mLSTM
-     kernels from src/repro_torch/kernels/csrc into build/kernels/ (one nvcc
-     each, in parallel), print their ptxas reports and the card's name and
-     power limit;
+     forward and backward kernels from src/repro_torch/kernels/csrc into
+     build/kernels/ (one nvcc each, in parallel), print their ptxas reports
+     and the card's name and power limit;
   2. kernel: hold the kernel against its plain PyTorch version on the card
      (the cases of tests/test_kernels.py, ragged S, a query offset, G = 4; fp32
      and bf16), and the bf16 kernel on the edges of its tiles and TMA boxes
@@ -59,7 +59,25 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      steps against a run checkpointed to the log at step k and resumed by a
      fresh run(resume=True) on the same BoltSystem, the losses after k equal
      bit for bit. Every run of the launcher in (b) and (d) is a main path:
-     the forward and backward kernels launched the counted number of times.
+     the forward and backward kernels launched the counted number of times;
+ 10. train xlstm: (a) the mLSTM backward kernel, through MLSTMChunkFunction,
+     against autograd of the plain version on phase 6's cases (carried
+     states with the final state's gradient coming in) and on inputs where
+     the floor exp(-m) wins, near-cancelling denominators against fp64, a
+     second call equal bit for bit; then timed at xlstm-1.3b's training
+     shape (B=2, H=4, S=2048, Dh=1024, chunk 64) beside the plain version
+     and the bound, pass by pass (torch.profiler); (b) xlstm-1.3b at full
+     width and depth (48 layers, 42 mLSTM + 6 sLSTM) trained 2 steps by the
+     launcher (bf16, AdamW with fp32 master and moments, remat full, batch
+     2 x 2048), its first loss against the plain version's on the same
+     weights and batch, with step time, tokens/s, peak memory, the busy and
+     idle shares of one more step, the mLSTM kernels' and the sLSTM blocks'
+     shares of busy time; (c) one step, kernels against plain, at full
+     width with one pattern (8 layers) in fp32 and bf16 under remat none,
+     full and dots, against the floor of two plain steps (chunk 64 and 32);
+     (d) the same 8 layers at batch 2 x 512: 4 steps straight against 2, a
+     checkpoint to the log and 2 resumed, equal bit for bit. Every launcher
+     run counts the mLSTM and flash kernels (flash: 0).
 The line before the last lists the kernels as JSON, each with its launches
 on every main path (launches_by_path) and their sum (launches); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
@@ -198,6 +216,37 @@ NEAR_ZERO_GRAD = 10.0
 STEP_GRAD_TOL = {"float32": 1e-4, "bfloat16": 0.1}
 RESUME_RUN = dict(config="smollm-135m", n_layers=30, batch=4, seq=1024)
 RESUME_K = 3
+# phase 10a: the mLSTM backward against autograd of the plain version at the
+# wrapper's BWD_TOL; the "cancel" inputs (near-cancelling denominators) against
+# an fp64 plain autograd, within BWD_FLOOR_FACTOR of the fp32 plain version's
+# own error (kernels/mlstm_chunk.py). Phase 6's cases, a carried state with
+# the final state's gradient (dC, dn, dm) coming in, and inputs where the
+# floor exp(-m) wins
+MLSTM_BWD_CASES = MLSTM_CASES + [(1, 2, 128, 96, 64, True, "floor")]
+MLSTM_TRAIN_SHAPE = (2, 4, 2048, 1024, 64)     # xlstm-1.3b training: B, H, S, Dh, chunk
+# phase 10b: xlstm-1.3b at full width and depth (1.3 B parameters x 16 bytes
+# of bf16 weights, fp32 master and moments and bf16 gradients, ~21 GB, fit
+# one card); 2 x 2048 tokens (xLSTM's published context for 1.3B), remat full.
+# 2 steps, not 4: a step takes ~48 s on an H100, nearly all of it the eager
+# sLSTM step loop (6 layers x 2048 steps, ~90 kernels a step with its remat
+# and backward). Its tied embeddings start it far above ln V (the residual
+# stream still holds the input token's embedding, whose logit is ~|e| sqrt(d);
+# the JAX reference starts there too, tests/test_torch_xlstm_train.py), so
+# its first loss is held against a forward of the initial weights on the
+# first batch through the plain version, within XLSTM_FLOOR_FACTOR times the
+# floor of two plain forwards (chunk 64 against 32) or BF16_STEP_TOL's loss
+XLSTM_TRAIN_RUN = dict(config="xlstm-1.3b", n_layers=48, batch=2, seq=2048, accum=1, steps=2)
+# phase 10c: one step, kernels against plain, full width with one whole
+# pattern (7 mLSTM + 1 sLSTM), batch 2 x 512 (8 chunks); where random-weight
+# ill-conditioning puts the floor of two plain steps (chunk 64 against 32)
+# above the tolerance, the kernels are held to XLSTM_FLOOR_FACTOR times it
+XLSTM_STEP_LAYERS = 8
+XLSTM_STEP_BATCH = (2, 512)
+# phase 10d: full width, one pattern, batch 2 x 512: 4 steps straight against
+# 2, a checkpoint, and 2 resumed
+XLSTM_RESUME_RUN = dict(config="xlstm-1.3b", n_layers=8, batch=2, seq=512)
+XLSTM_RESUME_K = 2
+MLSTM_FWD_KERNELS = ("mlstm_gates", "mlstm_prep", "mlstm_den", "mlstm_walk", "mlstm_out")
 
 
 def say(*parts) -> None:
@@ -217,15 +266,29 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(fn) -> list:
+def device_kernels(fn, cpu: bool = True) -> list:
     """(name, device ms) of each kernel of one synchronised call of ``fn``
-    under torch.profiler; empty where the profiler sees no device time."""
+    under torch.profiler; empty where the profiler sees no device time.
+    ``cpu=False`` records the device alone and reads the profiler's raw
+    events: for a call of a million kernels torch's event tree takes
+    minutes to build, the raw events seconds."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    if not cpu:
+        return [(e.name(), e.duration_ns() / 1e6)
+                for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
     return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == cuda]
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its namespace, template and arguments."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    return name.removeprefix("void ")
 
 
 def logit_diff(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -243,9 +306,10 @@ def phase_device():
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import BWD_SOURCES as FLASH_BWD_SOURCES
     from repro_torch.kernels.flash_attention import SOURCES as FLASH_SOURCES
+    from repro_torch.kernels.mlstm_chunk import BWD_SOURCES as MLSTM_BWD_SOURCES
     from repro_torch.kernels.mlstm_chunk import SOURCES as MLSTM_SOURCES
     libs = {"flash_attention": FLASH_SOURCES, "flash_attention_bwd": FLASH_BWD_SOURCES,
-            "mlstm_chunk": MLSTM_SOURCES}
+            "mlstm_chunk": MLSTM_SOURCES, "mlstm_chunk_bwd": MLSTM_BWD_SOURCES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:       # one nvcc each, together
         built = dict(zip(libs, pool.map(build.build, libs, libs.values())))
@@ -500,7 +564,8 @@ def phase_speculative() -> None:
 
 def mlstm_inputs(gen: torch.Generator, B, H, S, Dh, kind=None):
     """Random mLSTM inputs. kind "forget": small forget gates (log f ~ -8 a
-    step, so F reaches hundreds within a chunk); "cancel": keys along one
+    step, so F reaches hundreds within a chunk); "floor": small input gates,
+    so the floor exp(-m) is the denominator; "cancel": keys along one
     direction u and queries nearly orthogonal to it, so q . n cancels to a
     few percent of |q| |n| while staying above the floor exp(-m)."""
     q, k, v = (randn(gen, (B, H, S, Dh), torch.float32) for _ in range(3))
@@ -509,6 +574,8 @@ def mlstm_inputs(gen: torch.Generator, B, H, S, Dh, kind=None):
     k = k * Dh ** -0.5
     if kind == "forget":
         lf = 2.0 * F.logsigmoid(randn(gen, (B, H, S), torch.float32) - 4.0)
+    elif kind == "floor":
+        li = li - 8.0                      # exp(-m) ~ e^8 beats |q . n| on most rows
     elif kind == "cancel":
         u = randn(gen, (Dh,), torch.float32)
         u /= u.norm()
@@ -533,9 +600,7 @@ def mlstm_kernel_ms(args, chunk: int, iters: int = 10) -> tuple:
     ms = cuda_ms(fn, iters=iters)
     per = {}
     for name, t in device_kernels(fn):
-        name = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-        name = name.removeprefix("void ")
-        per[name] = per.get(name, 0.0) + t
+        per[short_name(name)] = per.get(short_name(name), 0.0) + t
     return ms, per
 
 
@@ -872,25 +937,36 @@ def check_backward() -> dict:
 
 
 def counted_run(**kw) -> tuple:
-    """One ``launch.train.run`` as a main path: the flash kernels' counts are
-    set to 0 just before it and read just after, and must be one forward a
-    layer and microbatch (two under remat full, which recomputes it in the
-    backward) and one backward. Returns run's result and the two counts."""
+    """One ``launch.train.run`` as a main path: every kernel's count is set
+    to 0 just before it and read just after. Per attention layer, and per
+    mLSTM layer, each microbatch launches its forward kernel once (twice under
+    remat full, which recomputes it in the backward) and its backward kernel
+    once; the other kernel family not at all. Returns run's result and the
+    counts ((flash forward, backward), (mLSTM forward, backward))."""
     from repro_torch import get_config
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
     from repro_torch.launch.train import run
+    from repro_torch.models.lm import layer_kinds
     cfg = get_config(kw["config"]).with_(n_layers=kw["n_layers"])
+    kinds = layer_kinds(cfg)
     flash_attention.launches = flash_attention.backward_launches = 0   # main path starts
+    mlstm_chunk.launches = mlstm_chunk.backward_launches = 0
     out = run(**kw)
     torch.cuda.synchronize()
-    fwd, bwd = flash_attention.launches, flash_attention.backward_launches  # ... and ends
-    calls = cfg.n_layers * kw.get("accum", 1) * len(out[0])
-    want = ({"none": 1, "full": 2}[cfg.remat] * calls, calls)
+    got = ((flash_attention.launches, flash_attention.backward_launches),  # ... and ends
+           (mlstm_chunk.launches, mlstm_chunk.backward_launches))
+    calls = kw.get("accum", 1) * len(out[0])
+    remat = {"none": 1, "full": 2}[cfg.remat]
+    want = tuple((remat * n * calls, n * calls)
+                 for n in (kinds.count("attn+mlp"), kinds.count("mlstm")))
     say(f"[train] {cfg.name} {cfg.n_layers} layers, {len(out[0])} steps: flash forward "
-        f"launches {fwd} (want {want[0]}), backward {bwd} (want {want[1]})")
-    if (fwd, bwd) != want:
-        raise AssertionError(f"{cfg.name}: kernels launched {fwd} and {bwd} times, want {want}")
-    return out, fwd, bwd
+        f"launches {got[0][0]} (want {want[0][0]}), backward {got[0][1]} (want "
+        f"{want[0][1]}); mLSTM forward {got[1][0]} (want {want[1][0]}), backward "
+        f"{got[1][1]} (want {want[1][1]})")
+    if got != want:
+        raise AssertionError(f"{cfg.name}: kernels launched {got} times, want {want}")
+    return out, got[0], got[1]
 
 
 def train_qwen() -> tuple:
@@ -903,7 +979,7 @@ def train_qwen() -> tuple:
     run_kw = dict(TRAIN_RUN)
     steps, accum = run_kw["steps"], run_kw["accum"]
     torch.cuda.reset_peak_memory_stats()
-    (losses, model, _, seconds), fwd, bwd = counted_run(
+    (losses, model, _, seconds), (fwd, bwd), _ = counted_run(
         **run_kw, ckpt_every=10 ** 9, log_every=1, device="cuda")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ln_v = math.log(cfg.vocab_size)
@@ -954,9 +1030,7 @@ def train_qwen() -> tuple:
         f"peak memory {peak:.2f} GiB; {share}")
     per = {}
     for name, t in kernels:
-        name = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-        name = name.removeprefix("void ")
-        per[name] = per.get(name, 0.0) + t
+        per[short_name(name)] = per.get(short_name(name), 0.0) + t
     top = sorted(per.items(), key=lambda x: -x[1])[:10]
     calls = cfg.n_layers * accum
     say(f"[train] profiled step, device ms by kernel (top 10): "
@@ -969,12 +1043,14 @@ def train_qwen() -> tuple:
 
 
 def one_step(cfg, impl, eps: float, batch) -> tuple:
-    """One AdamW step from the seeded parameters: (loss, grad norm, model)."""
+    """One AdamW step from the seeded parameters: (loss, grad norm, model);
+    ``impl`` for attention and the mLSTM scan alike."""
     from repro_torch import init_params
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
     opt_cfg = AdamWConfig(lr=STEP_LR, weight_decay=0.01, eps=eps)
     model = init_params(cfg, seed=5, trainable=True)
-    step = make_train_step(cfg, opt_cfg, accum=1, grad_dtype=cfg.dtype, attn_impl=impl)
+    step = make_train_step(cfg, opt_cfg, accum=1, grad_dtype=cfg.dtype, attn_impl=impl,
+                           mlstm_impl=impl)
     _, state, m = step(model, adamw_init(model, opt_cfg), batch)
     del state, step
     torch.cuda.empty_cache()
@@ -1081,16 +1157,16 @@ def resume_exactly() -> tuple:
     try:
         kw = dict(RESUME_RUN, log_every=1, device="cuda")
         t0 = time.perf_counter()
-        (straight, model, _, _), f0, b0 = counted_run(
+        (straight, model, _, _), (f0, b0), _ = counted_run(
             steps=2 * RESUME_K, system=BoltSystem(n_brokers=2), ckpt_every=10 ** 9, **kw)
         del model
         t1 = time.perf_counter()
         system = BoltSystem(n_brokers=2)
-        (first, model, _, _), f1, b1 = counted_run(
+        (first, model, _, _), (f1, b1), _ = counted_run(
             steps=RESUME_K, system=system, ckpt_every=RESUME_K, **kw)
         del model                                    # the trainer is dropped
         t2 = time.perf_counter()
-        (resumed, model, _, _), f2, b2 = counted_run(
+        (resumed, model, _, _), (f2, b2), _ = counted_run(
             steps=2 * RESUME_K, system=system, ckpt_every=10 ** 9, resume=True, **kw)
         t3 = time.perf_counter()
         del model
@@ -1117,6 +1193,393 @@ def phase_train() -> tuple:
     step_kernel_vs_plain()
     smollm = resume_exactly()
     paths = {"train qwen3-8b": qwen, "train smollm-135m": smollm}
+    return (bwd, {path: n[0] for path, n in paths.items()},
+            {path: n[1] for path, n in paths.items()})
+
+
+def mlstm_backward_bounds(B, H, S, Dh, chunk) -> dict:
+    """Least times (ms) of the mLSTM backward on an H100 SXM: its operations,
+    twice the forward's (each product's gradient is two products of its
+    size: 2 (4 L Dh^2 + 6 L^2 Dh) a chunk), once each at the bf16 rate,
+    against its bytes (q, k, v, dh, li, lf read, dq, dk, dv, dli, dlf written,
+    fp32); the bound is the larger. Beside it, the operations at the fp32
+    rate (no tensor cores)."""
+    n = (S // chunk) * B * H
+    flops = 2 * (4 * chunk * Dh ** 2 + 6 * chunk ** 2 * Dh) * n
+    nbytes = 4 * (7 * B * H * S * Dh + 4 * B * H * S)
+    out = {"ops": flops / PEAK_BF16_FLOPS * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
+           "fp32": flops / PEAK_FP32_FLOPS * 1e3, "flops": flops}
+    out["bound"] = max(out["ops"], out["bytes"])
+    return out
+
+
+def function_grads(args, state, dh, dstate, chunk: int) -> tuple:
+    """The gradients through ``mlstm_chunk`` under grad (MLSTMChunkFunction
+    on the card: the forward kernel, then the backward kernel), in the
+    order of ``GRAD_NAMES``; the final state's gradient comes in where
+    ``dstate`` is given, else only h's."""
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+    ins = [t.clone().requires_grad_() for t in args]
+    st = None if state is None else {key: t.clone().requires_grad_()
+                                     for key, t in state.items()}
+    h, out = mlstm_chunk(*ins, chunk=chunk, state=st)
+    outs, grads = [h], [dh]
+    if dstate is not None:
+        outs += [out[key] for key in "Cnm"]
+        grads += list(dstate)
+    wrt = ins + ([] if st is None else [st[key] for key in "Cnm"])
+    got = torch.autograd.grad(outs, wrt, grads)
+    return tuple(got) + ((None,) * 3 if st is None else ())
+
+
+def check_mlstm_backward() -> dict:
+    """(a): the backward kernel, through MLSTMChunkFunction, against autograd
+    of the plain version on every case, a second call equal bit for bit;
+    then timed at xlstm-1.3b's training shape, pass by pass."""
+    from repro_torch.kernels.mlstm_chunk import (BWD_FLOOR_FACTOR, BWD_TOL, backward_errors,
+                                                 mlstm_chunk, mlstm_chunk_backward,
+                                                 mlstm_chunk_backward_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    for B, H, S, Dh, chunk, carry, kind in MLSTM_BWD_CASES:
+        args = mlstm_inputs(gen, B, H, S, Dh, kind)
+        state = dstate = None
+        if carry:
+            _, state = mlstm_chunk(*mlstm_inputs(gen, B, H, 48, Dh, kind), chunk=chunk,
+                                   impl="plain")
+            dstate = (randn(gen, (B, H, Dh, Dh), torch.float32),
+                      randn(gen, (B, H, Dh), torch.float32), randn(gen, (B, H), torch.float32))
+        dh = randn(gen, (B, H, S, Dh), torch.float32)
+        before = mlstm_chunk.backward_launches
+        got = function_grads(args, state, dh, dstate, chunk)
+        again = function_grads(args, state, dh, dstate, chunk)
+        torch.cuda.synchronize()
+        launched = mlstm_chunk.backward_launches - before
+        same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+        ds = dict(zip(("dC", "dn", "dm"), dstate or (None,) * 3))
+        ref = mlstm_chunk_backward_plain(*args, dh, chunk=chunk, state=state, **ds)
+        if kind == "cancel":
+            # h's denominator nears 0: held against fp64, beside fp32 plain's error
+            f64 = lambda t: None if t is None else t.double()  # noqa: E731
+            ref64 = mlstm_chunk_backward_plain(
+                *map(f64, args), f64(dh), chunk=chunk,
+                state=None if state is None else {key: f64(t) for key, t in state.items()},
+                **{key: f64(t) for key, t in ds.items()})
+            errs, floor = backward_errors(got, ref64), backward_errors(ref, ref64)
+            limit = {key: max(BWD_TOL, BWD_FLOOR_FACTOR * floor[key]) for key in errs}
+            detail = ", ".join(f"{key} {e:.2e} (plain fp32 {floor[key]:.2e})"
+                               for key, e in errs.items())
+            against = (f"fp64 plain autograd (tol max({BWD_TOL}, {BWD_FLOOR_FACTOR}x plain "
+                       f"fp32's))")
+        else:
+            errs = backward_errors(got, ref)
+            limit = {key: BWD_TOL for key in errs}
+            detail = ", ".join(f"{key} {e:.2e}" for key, e in errs.items())
+            against = f"fp32 plain autograd (tol {BWD_TOL})"
+        say(f"[train xlstm] backward B={B} H={H} S={S} Dh={Dh} chunk={chunk} carried={carry} "
+            f"inputs={kind or 'random'}: max |diff| / max |g| against {against}: {detail}; "
+            f"kernel launched {launched}x in 2 calls, second call equal: {same}")
+        if not (launched == 2 and same and all(errs[key] <= limit[key] for key in errs)):
+            raise AssertionError(f"mlstm backward kernel disagrees or repeats unequally: {errs}")
+    del args, state, dstate, dh, got, again, ref
+
+    B, H, S, Dh, chunk = MLSTM_TRAIN_SHAPE
+    args = mlstm_inputs(gen, B, H, S, Dh)
+    dh = randn(gen, (B, H, S, Dh), torch.float32)
+    h, _ = mlstm_chunk(*args, chunk=chunk)
+    got = mlstm_chunk_backward(*args, h, dh, chunk=chunk)
+    again = mlstm_chunk_backward(*args, h, dh, chunk=chunk)
+    ref = mlstm_chunk_backward_plain(*args, dh, chunk=chunk)
+    errs = backward_errors(got, ref)
+    max_abs = max((a - b).abs().max().item() for a, b in zip(got[:5], ref[:5]))
+    if not (all(e <= BWD_TOL for e in errs.values())
+            and all(torch.equal(a, b) for a, b in zip(got[:5], again[:5]))):
+        raise AssertionError(f"mlstm backward kernel disagrees at the training shape: {errs}")
+    del got, again, ref
+    fn = lambda: mlstm_chunk_backward(*args, h, dh, chunk=chunk)  # noqa: E731
+    ms = cuda_ms(fn, iters=5)
+    plain_ms = cuda_ms(lambda: mlstm_chunk_backward_plain(*args, dh, chunk=chunk),
+                       iters=2, warmup=1)
+    fwd_ms = cuda_ms(lambda: mlstm_chunk(*args, chunk=chunk), iters=5)
+    per = {}                  # mean a launch of each pass over 3 profiled calls
+    for name, t in device_kernels(lambda: [fn() for _ in range(3)]):
+        n, total = per.get(short_name(name), (0, 0.0))
+        per[short_name(name)] = (n + 1, total + t)
+    bd = mlstm_backward_bounds(B, H, S, Dh, chunk)
+    split = ", ".join(f"{name} {total / n:.4f}" for name, (n, total) in per.items())
+    say(f"[train xlstm] backward held on {len(MLSTM_BWD_CASES)} cases; training shape B={B} "
+        f"H={H} S={S} Dh={Dh} chunk={chunk} fp32: kernel {ms:.4f} ms "
+        f"({bd['flops'] / ms / 1e9:.1f} TFLOP/s of the function's operations; per kernel, "
+        f"ms, torch.profiler, mean of 3 calls: {split or 'not measured'}), plain (autograd "
+        f"of the plain version, its forward included) "
+        f"{plain_ms:.4f} ms, bound {bd['bound']:.4f} ms (operations at bf16 989 TFLOP/s "
+        f"{bd['ops']:.4f}, bytes {bd['bytes']:.4f}); the operations at fp32 67 TFLOP/s "
+        f"{bd['fp32']:.4f} ms; the forward kernel {fwd_ms:.4f} ms; no single PyTorch call "
+        f"computes it; " + ", ".join(f"{key} {e:.2e}" for key, e in errs.items())
+        + f" of max |g|, max_abs_err {max_abs:.3e}; two calls equal bit for bit")
+    del args, dh, h
+    torch.cuda.empty_cache()
+    return {"name": "mlstm_chunk_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mlstm_chunk_bwd.cu",
+            "replaces": "src/repro/models/xlstm.py:59",
+            "launches": None, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bd["bound"],
+            "bound_by": "operations" if bd["ops"] >= bd["bytes"] else "bytes",
+            "library_ms": None}
+
+
+def slstm_layer_ms(cfg, blk, batch: int, seq: int) -> tuple:
+    """Device ms (all kernels, elementwise kernels) of one sLSTM block's work
+    in a training step at this shape: its forward, again under remat full,
+    and its backward, as lm.forward runs it (torch.profiler, device only)."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    x = randn(gen, (batch, seq, cfg.d_model), torch.bfloat16).requires_grad_()
+    dy = randn(gen, (batch, seq, cfg.d_model), torch.bfloat16)
+    params = list(blk.parameters())
+
+    def fn():
+        y = lm._remat(lambda x: lm._apply_block(blk, x, cfg)[0], cfg)(x)
+        torch.autograd.grad(y, [x] + params, dy)
+
+    fn()
+    kernels = device_kernels(fn, cpu=False)
+    return (sum(t for _, t in kernels),
+            sum(t for name, t in kernels if "elementwise" in name), len(kernels))
+
+
+@torch.no_grad()
+def initial_losses(cfg, system, run_kw) -> tuple:
+    """The loss of the launcher's initial weights (seed 0) on its first
+    batch (a fresh pipeline over the run's token topic) through the plain
+    version at chunk 64 and at chunk 32."""
+    from repro_torch import init_params, loss_fn
+    from repro_torch.data import LogDataPipeline
+    from repro_torch.streams import Topic
+    topic = Topic("train-tokens", system.find_log("train-tokens"))
+    block = torch.from_numpy(next(LogDataPipeline(topic, batch_size=run_kw["batch"],
+                                                  seq_len=run_kw["seq"]))).long().cuda()
+    batch = {"tokens": block[:, :-1], "labels": block[:, 1:]}
+    model = init_params(cfg, seed=0)
+    plain64 = float(loss_fn(cfg, model, batch, mlstm_impl="plain")[0])
+    with mlstm_calls(lambda scan, *args: scan(*args[:6], 32, "plain")):
+        plain32 = float(loss_fn(cfg, model, batch)[0])
+    del model
+    torch.cuda.empty_cache()
+    return plain64, plain32
+
+
+def train_xlstm() -> tuple:
+    """(b): the launcher trains xlstm-1.3b at full width and depth, every
+    kernel's launches counted, its first loss held against the plain
+    version's on the same weights and batch; then one more step of the
+    shape profiled (device only) for the busy and idle shares and the mLSTM
+    kernels' shares, and one sLSTM block's work profiled alone."""
+    from repro_torch import get_config
+    from repro_torch.models.lm import SLSTMBlock, layer_kinds
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.step import BF16_STEP_TOL
+    run_kw = dict(XLSTM_TRAIN_RUN)
+    cfg = get_config(run_kw["config"]).with_(n_layers=run_kw["n_layers"])
+    kinds = layer_kinds(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (losses, model, system, seconds), flash, mlstm = counted_run(
+        **run_kw, ckpt_every=10 ** 9, log_every=1, device="cuda")
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = run_kw["batch"] * run_kw["seq"]
+    step_s = statistics.median(seconds[1:])
+    opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.01)
+    state = adamw_init(model, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, accum=1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (run_kw["batch"], run_kw["seq"] + 1),
+                         generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def fn():
+        float(step_fn(model, state, batch)[2]["loss"])     # the loss read back, as run's
+
+    t0 = time.perf_counter()
+    kernels = device_kernels(fn, cpu=False)
+    prof_s = time.perf_counter() - t0
+    busy = sum(t for _, t in kernels) / 1e3
+    fwd_s = sum(t for name, t in kernels if short_name(name) in MLSTM_FWD_KERNELS) / 1e3
+    bwd_s = sum(t for name, t in kernels if short_name(name).startswith("bwd_")) / 1e3
+    elt = sum(t for name, t in kernels if "elementwise" in name) / 1e3
+    gemm = sum(t for name, t in kernels if "gemm" in name.lower() or "nvjet" in name) / 1e3
+    blk = next(b for b in model.blocks if isinstance(b, SLSTMBlock))
+    s_ms, s_elt, s_n = slstm_layer_ms(cfg, blk, run_kw["batch"], run_kw["seq"])
+    n_s = kinds.count("slstm")
+    per = {}
+    for name, t in kernels:
+        per[short_name(name)] = per.get(short_name(name), 0.0) + t
+    del model, state, step_fn, blk
+    torch.cuda.empty_cache()
+    plain64, plain32 = initial_losses(cfg, system, run_kw)
+    floor = abs(plain32 - plain64)
+    limit = max(BF16_STEP_TOL["loss"], XLSTM_FLOOR_FACTOR * floor)
+    say(f"[train xlstm] xlstm-1.3b {cfg.n_layers} layers ({kinds.count('mlstm')} mLSTM, "
+        f"{n_s} sLSTM), {n_params / 1e9:.3f} B parameters, batch {run_kw['batch']} x "
+        f"{run_kw['seq']}, remat {cfg.remat}, bf16, AdamW fp32 master and moments: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f"; the run {run_s:.1f} s. Step 1 against "
+        f"the initial weights' loss on the first batch through the plain version: "
+        f"{plain64:.4f} (chunk 32: {plain32:.4f}, floor {floor:.4f}); |diff| "
+        f"{abs(losses[0] - plain64):.4f} (limit {limit:.4f}); ln V = "
+        f"{math.log(cfg.vocab_size):.4f} (tied embeddings start above it)")
+    # that the path runs: finite losses, the first the plain version's. That
+    # it trains right is (c)'s check and the CPU tests' (the step against JAX)
+    if not (len(losses) == run_kw["steps"] and all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - plain64) <= limit):
+        raise AssertionError(f"xlstm training losses off: {losses}, plain {plain64}")
+    share = "device time not measured" if not kernels else (
+        f"one more step of the shape, profiled (device only, {prof_s:.1f} s with the "
+        f"profiler): device busy {busy:.3f} s in {len(kernels)} kernels, idle share "
+        f"{1 - busy / step_s:.3f} of the run's unprofiled step; of busy: mLSTM forward "
+        f"kernel {fwd_s / busy:.4f} ({fwd_s:.3f} s), mLSTM backward kernel "
+        f"{bwd_s / busy:.4f} ({bwd_s:.3f} s), elementwise kernels {elt / busy:.4f}, matrix "
+        f"products {gemm / busy:.4f}; one sLSTM block's work alone (forward twice, "
+        f"backward) {s_ms:.1f} ms device in {s_n} kernels, {s_elt:.1f} ms of it "
+        f"elementwise: {n_s} blocks' elementwise kernels {n_s * s_elt / 1e3 / busy:.4f} of "
+        f"busy, all their kernels {n_s * s_ms / 1e3 / busy:.4f}")
+    say(f"[train xlstm] step times " + ", ".join(f"{t:.3f}" for t in seconds)
+        + f" s; after the first {step_s:.3f} s, {tokens / step_s:.0f} tokens/s; "
+        f"peak memory {peak:.2f} GiB; {share}")
+    top = sorted(per.items(), key=lambda x: -x[1])[:10]
+    say(f"[train xlstm] profiled step, device ms by kernel (top 10): "
+        + "; ".join(f"{name[:60]} {t:.1f}" for name, t in top))
+    return flash, mlstm
+
+
+def step_diffs(dtype: str, a, b, old) -> dict:
+    """How far step a lies from step b (each (loss, grad norm, model)), in
+    the terms of STEP_TOL (fp32: relative loss and grad norm, and the worst
+    parameter's |diff| / (1 + |p|)) or BF16_STEP_TOL (bf16: loss, relative
+    grad norm, the share of each tensor's updates that differ beyond lr / 2
+    at the worst tensor, the parameters' relative RMS)."""
+    (la, ga, ma), (lb, gb, mb) = a, b
+    out = {"grad_norm": abs(ga - gb) / abs(gb)}
+    if dtype == "float32":
+        out["loss"] = abs(la - lb) / abs(lb)
+        out["params"] = max(((pa.detach() - pb.detach()).abs() / (1 + pb.detach().abs()))
+                            .max().item() for pa, pb in zip(ma.parameters(), mb.parameters()))
+        return out
+    out["loss"] = abs(la - lb)
+    d2 = w2 = 0.0
+    worst = 0.0
+    for pa, pb, po in zip(ma.parameters(), mb.parameters(), old.parameters()):
+        pa, pb, po = pa.detach().float(), pb.detach().float(), po.float()
+        worst = max(worst, ((pa - po) - (pb - po)).abs().gt(STEP_LR / 2).float().mean().item())
+        d2 += (pa - pb).square().sum().item()
+        w2 += pb.square().sum().item()
+    out["update_disagree"] = worst
+    out["params_rel_rms"] = (d2 / w2) ** 0.5
+    return out
+
+
+def step_xlstm_kernel_vs_plain() -> None:
+    """(c): one step at full width with one whole pattern (7 mLSTM + 1
+    sLSTM) through the kernels and through the plain version, from the same
+    parameters and batch, for each remat mode, in fp32 and bf16; beside the
+    floor of two plain steps that differ only in the chunk (64 against 32)."""
+    from repro_torch import get_config, init_params
+    from repro_torch.train.step import BF16_STEP_TOL, STEP_TOL
+    B, S = XLSTM_STEP_BATCH
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config("xlstm-1.3b").with_(n_layers=XLSTM_STEP_LAYERS, dtype=dtype)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(12)
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        tol = ({"loss": STEP_TOL, "grad_norm": STEP_TOL, "params": STEP_TOL}
+               if dtype == "float32" else
+               {"loss": BF16_STEP_TOL["loss"], "grad_norm": BF16_STEP_TOL["grad_norm"],
+                "update_disagree": 1 - BF16_STEP_TOL["update_agree"],
+                "params_rel_rms": BF16_STEP_TOL["params_rel_rms"]})
+        old = init_params(cfg, seed=5)
+        plain64 = one_step(cfg.with_(remat="none"), "plain", STEP_EPS, batch)
+        with mlstm_calls(lambda scan, *args: scan(*args[:6], 32, "plain")):
+            plain32 = one_step(cfg.with_(remat="none"), "plain", STEP_EPS, batch)
+        floor = step_diffs(dtype, plain32, plain64, old)
+        del plain32
+        torch.cuda.empty_cache()
+        for remat in ("none", "full", "dots"):
+            c = cfg.with_(remat=remat)
+            kern = one_step(c, None, STEP_EPS, batch)
+            plain = plain64 if remat == "none" else one_step(c, "plain", STEP_EPS, batch)
+            d = step_diffs(dtype, kern, plain, old)
+            limit = {key: max(tol[key], XLSTM_FLOOR_FACTOR * floor[key]) for key in d}
+            say(f"[train xlstm] step kernels vs plain, xlstm-1.3b {XLSTM_STEP_LAYERS} layers "
+                f"B={B} S={S} {dtype} remat {remat}: loss {kern[0]:.6f} / {plain[0]:.6f}, "
+                f"grad norm {kern[1]:.6f} / {plain[1]:.6f}; "
+                + ", ".join(f"{key} {d[key]:.3e} (floor {floor[key]:.3e}, limit "
+                            f"{limit[key]:.3e})" for key in d)
+                + f" (tol {tol} or {XLSTM_FLOOR_FACTOR}x the floor)")
+            if not all(d[key] <= limit[key] for key in d):
+                raise AssertionError(f"{dtype} xlstm train step, remat {remat}: kernels "
+                                     f"against plain differ: {d} against {limit}")
+            del kern, plain
+            torch.cuda.empty_cache()
+        del plain64, old
+        torch.cuda.empty_cache()
+
+
+def resume_xlstm() -> tuple:
+    """(d): xlstm-1.3b at full width with one pattern: 2k steps straight
+    against k steps, a checkpoint to the log, and a fresh resumed run on the
+    same system; the losses after k equal bit for bit. Each run is a main
+    path with its launches counted; returns the mLSTM kernels' sums."""
+    from repro_torch.core import BoltSystem
+    from repro_torch.train import CheckpointManager
+    k = XLSTM_RESUME_K
+    torch.use_deterministic_algorithms(True)
+    try:
+        kw = dict(XLSTM_RESUME_RUN, log_every=1, device="cuda")
+        t0 = time.perf_counter()
+        (straight, model, _, _), _, (f0, b0) = counted_run(
+            steps=2 * k, system=BoltSystem(n_brokers=2), ckpt_every=10 ** 9, **kw)
+        del model
+        system = BoltSystem(n_brokers=2)
+        (first, model, _, _), _, (f1, b1) = counted_run(
+            steps=k, system=system, ckpt_every=k, **kw)
+        del model                                    # the trainer is dropped
+        (resumed, model, _, _), _, (f2, b2) = counted_run(
+            steps=2 * k, system=system, ckpt_every=10 ** 9, resume=True, **kw)
+        t1 = time.perf_counter()
+        del model
+    finally:
+        torch.use_deterministic_algorithms(False)
+    steps = CheckpointManager(system).steps()
+    say(f"[train xlstm] resume xlstm-1.3b ({XLSTM_RESUME_RUN['n_layers']} layers), batch "
+        f"{XLSTM_RESUME_RUN['batch']} x {XLSTM_RESUME_RUN['seq']}: straight "
+        + ", ".join(f"{x:.6f}" for x in straight) + f"; resumed after step {k} "
+        + ", ".join(f"{x:.6f}" for x in resumed) + f"; checkpoints {steps}; "
+        f"{t1 - t0:.1f} s for the three runs")
+    if first != straight[:k] or resumed != straight[k:] or steps != [k]:
+        raise AssertionError(f"the resumed xlstm losses differ: {straight} against "
+                             f"{first} + {resumed}")
+    torch.cuda.empty_cache()
+    return f0 + f1 + f2, b0 + b1 + b2
+
+
+def phase_train_xlstm() -> tuple:
+    """Phase 10: returns the mLSTM backward kernel's entry and the mLSTM
+    forward's and backward's launches on each training path."""
+    t0 = time.perf_counter()
+    bwd = check_mlstm_backward()
+    t1 = time.perf_counter()
+    _, trained = train_xlstm()
+    t2 = time.perf_counter()
+    step_xlstm_kernel_vs_plain()
+    t3 = time.perf_counter()
+    resumed = resume_xlstm()
+    say(f"[train xlstm] phase times: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
+    paths = {"train xlstm-1.3b": trained, "train xlstm-1.3b 8 layers (resume)": resumed}
     return (bwd, {path: n[0] for path, n in paths.items()},
             {path: n[1] for path, n in paths.items()})
 
@@ -1199,11 +1662,16 @@ def main() -> int:
     mlstm["launches_by_path"] = {"serve xlstm-1.3b": phase_xlstm()}
     torch.cuda.empty_cache()
     backward, trained_fwd, trained_bwd = phase_train()
+    torch.cuda.empty_cache()
+    mlstm_bwd, xlstm_fwd, xlstm_bwd = phase_train_xlstm()
     kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd}
     backward["launches_by_path"] = trained_bwd
-    for entry in (kernel, backward, mlstm):          # every path that launched it
+    mlstm["launches_by_path"].update(xlstm_fwd)
+    mlstm_bwd["launches_by_path"] = xlstm_bwd
+    kernels = [kernel, backward, mlstm, mlstm_bwd]
+    for entry in kernels:                            # every path that launched it
         entry["launches"] = sum(entry["launches_by_path"].values())
-    say(json.dumps({"kernels": [kernel, backward, mlstm]}))
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -7,8 +7,9 @@ version on CPU tensors, and counts its launches.
 
 from .flash_attention import (FlashAttentionFunction, flash_attention,
                               flash_attention_backward, flash_attention_plain)
-from .mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
+from .mlstm_chunk import (MLSTMChunkFunction, mlstm_chunk, mlstm_chunk_backward,
+                          mlstm_chunk_plain)
 
 __all__ = ["FlashAttentionFunction", "flash_attention", "flash_attention_backward",
-           "flash_attention_plain", "mlstm_chunk",
-           "mlstm_chunk_plain"]
+           "flash_attention_plain", "MLSTMChunkFunction", "mlstm_chunk",
+           "mlstm_chunk_backward", "mlstm_chunk_plain"]

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional
+from typing import Union
 
 import numpy as np
 import torch
@@ -47,18 +47,19 @@ def small_config(d_model: int, n_layers: int, vocab: int) -> ModelConfig:
 def run(steps: int = 100, d_model: int = 128, n_layers: int = 4,
         batch: int = 4, seq: int = 128, vocab: int = 2048,
         resume: bool = False, store=None, system=None, log_every: int = 20,
-        ckpt_every: int = 50, seed: int = 0, config: Optional[str] = None,
-        device=None, accum: int = 1):
+        ckpt_every: int = 50, seed: int = 0,
+        config: Union[str, ModelConfig, None] = None, device=None, accum: int = 1):
     """Train ``steps`` steps (counted from the restored step on resume).
     Returns ``(losses, model, system, seconds)``, ``seconds`` each step's
     wall time, ending in the loss's read-back. ``config`` names a registered
-    config (``n_layers`` then cuts its depth; ``d_model`` and ``vocab`` are
-    the config's)."""
+    config, or is a ``ModelConfig`` (``n_layers`` then cuts its depth;
+    ``d_model`` and ``vocab`` are the config's)."""
     device = resolve_device(device)
     if config is None:
         cfg = small_config(d_model, n_layers, vocab)
     else:
-        cfg = get_config(config).with_(n_layers=n_layers)
+        cfg = get_config(config) if isinstance(config, str) else config
+        cfg = cfg.with_(n_layers=n_layers)
     vocab = cfg.vocab_size
     total, _ = cfg.count_params()
     print(f"model: {cfg.name} ({total/1e6:.1f}M params, {cfg.n_layers} layers) "

@@ -12,9 +12,13 @@ naming the ROADMAP.md item that ports them.
 ``forward`` and ``loss_fn`` build a graph where grad is enabled, so a model
 made with ``init_params(..., trainable=True)`` trains; ``cfg.remat`` then
 recomputes each block's activations in the backward as the reference's
-``_remat`` does (``src/repro/models/lm.py:156``). Only ``attn+mlp`` blocks
-have a gradient yet; xLSTM blocks raise under grad. Serving runs under
-``torch.no_grad()``: ``decode_step`` here, the prefill in the engine.
+``_remat`` does (``src/repro/models/lm.py:156``), but block by block where
+the reference remats a whole ``block_pattern`` group (the same numbers,
+less memory: one block's activations live at a time in the backward).
+Every ported block kind has a gradient: attention through the flash
+backward kernel, mLSTM through the mLSTM backward kernel (on the card), sLSTM
+by autograd through its step loop. Serving runs under ``torch.no_grad()``:
+``decode_step`` here, the prefill in the engine.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ from .xlstm import (MLSTM, SLSTM, apply_mlstm, apply_slstm, init_mlstm,
 
 # ROADMAP.md Queue 1 item that ports each block kind this module lacks
 _NOT_PORTED = {
-    "moe": "item 10 (MoE)", "mla": "item 10 (MLA)",
-    "mamba": "item 11 (Mamba)",
+    "moe": "item 3 (MoE)", "mla": "item 4 (MLA)",
+    "mamba": "item 5 (Mamba)",
 }
 _PORTED = ("attn+mlp", "mlstm", "slstm")
 
@@ -57,11 +61,11 @@ def check_ported(cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{cfg.name}: unknown block {blk!r}")
     if cfg.first_layer_dense:
         raise NotImplementedError(f"{cfg.name}: a dense first layer is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 10)")
+                                  "ported yet (ROADMAP.md Queue 1 item 3)")
     if cfg.is_encdec or cfg.vlm is not None:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder and VLM "
                                   "wrappers are not ported yet (ROADMAP.md "
-                                  "Queue 1 item 11)")
+                                  "Queue 1 item 6)")
 
 
 # ================================================================ modules
@@ -199,13 +203,6 @@ def _remat(fn, cfg: ModelConfig):
     raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
 
 
-def _check_trainable(blk: nn.Module) -> None:
-    if not isinstance(blk, Block) and any(p.requires_grad for p in blk.parameters()):
-        raise NotImplementedError(
-            f"{type(blk).__name__} has no gradient yet: xLSTM training needs "
-            "an mLSTM backward kernel (ROADMAP.md Queue 2 item 2b)")
-
-
 def _logits(cfg: ModelConfig, model: LM, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.head
@@ -236,8 +233,6 @@ def forward(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
     for blk in model.blocks:
         kw = dict(causal=True, positions=positions, want_cache=want_caches,
                   max_len=max_len, impl=attn_impl, mlstm_impl=mlstm_impl)
-        if grad:
-            _check_trainable(blk)
         if grad and x.requires_grad and not want_caches:
             x = _remat(lambda x, blk=blk, kw=kw: _apply_block(blk, x, cfg, **kw)[0],
                        cfg)(x)
@@ -252,10 +247,13 @@ def forward(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
 
 
 def loss_fn(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
-            attn_impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
+            attn_impl: Optional[str] = None,
+            mlstm_impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
     """Mean next-token NLL over ``batch["labels"]`` (plus the forward's aux
-    loss), with the vocabulary padding masked; ``(loss, {"nll", "aux"})``."""
-    logits, aux, _, _ = forward(cfg, model, batch, attn_impl=attn_impl)
+    loss), with the vocabulary padding masked; ``(loss, {"nll", "aux"})``.
+    ``attn_impl`` and ``mlstm_impl`` as ``forward`` takes them."""
+    logits, aux, _, _ = forward(cfg, model, batch, attn_impl=attn_impl,
+                                mlstm_impl=mlstm_impl)
     labels = batch["labels"]
     logits = logits[:, :labels.shape[1]].float()
     # mask vocab padding out of the partition function

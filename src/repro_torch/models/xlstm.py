@@ -6,11 +6,16 @@ Port of ``src/repro/models/xlstm.py``. Parameters keep the JAX layouts
 fp32), so a JAX tree converts by a plain copy.
 
 mLSTM over a full sequence runs ``mlstm_chunk``: the Hopper kernel on the
-card, its plain version on the CPU. One decode step (S = 1 with a state) is
-the O(1) recurrence in plain PyTorch, the reference's chunk body at chunk 1.
-sLSTM is a loop over time steps in plain PyTorch; the JAX package has no
-kernel for it. A block given a state updates it in place and returns the
-same dict.
+card, its plain version on the CPU; where a graph is built (grad enabled and
+an input or a parameter requiring it) the card's call goes through
+``MLSTMChunkFunction``, whose gradient is the Hopper backward kernel. One
+decode step (S = 1 with a state) is the O(1) recurrence in plain PyTorch,
+the reference's chunk body at chunk 1. sLSTM is a loop over time steps in
+plain PyTorch, and its gradient autograd through that loop; the JAX package
+has no kernel for it. A block given a state updates it in place and returns
+the same dict; so a block given a state while building a graph raises
+(the in-place update would overwrite what autograd saved): train with no
+state and ``want_state``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,17 @@ def _dims(cfg: ModelConfig) -> Tuple[int, int]:
 def _sdims(cfg: ModelConfig) -> Tuple[int, int]:
     """sLSTM inner dims (proj factor 1)."""
     return cfg.d_model, cfg.d_model // cfg.n_heads
+
+
+def _check_no_graph(state: Optional[State], x: torch.Tensor, p: nn.Module) -> None:
+    """A state is updated in place: refuse one where a graph is built."""
+    if state is not None and torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in p.parameters())
+            or any(t.requires_grad for t in state.values())):
+        raise ValueError("a state given to an xLSTM block is updated in place, "
+                         "which would break the graph autograd builds: pass no "
+                         "state under grad (want_state returns the final one), "
+                         "or run under torch.no_grad()")
 
 
 def _copy_into(state: State, new: State) -> State:
@@ -110,7 +126,9 @@ def apply_mlstm(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, Optional[State]]:
     """x (B,S,D). With a state and S = 1 it runs one decode step; otherwise
     the chunkwise scan (``impl`` is passed to the kernel's wrapper). A given
-    state is updated in place; ``want_state`` returns the final state."""
+    state is updated in place, and refused where a graph is built;
+    ``want_state`` returns the final state."""
+    _check_no_graph(state, x, p)
     Di, Dh = _dims(cfg)
     B, S, D = x.shape
     H = cfg.n_heads
@@ -169,7 +187,9 @@ def apply_slstm(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[State] = None, want_state: bool = False,
                 ) -> Tuple[torch.Tensor, Optional[State]]:
     """x (B,S,D); a loop over the S steps, all in fp32. A given state is
-    updated in place; ``want_state`` returns the final state."""
+    updated in place, and refused where a graph is built; ``want_state``
+    returns the final state."""
+    _check_no_graph(state, x, p)
     Di, Dh = _sdims(cfg)
     B, S, D = x.shape
     H = cfg.n_heads

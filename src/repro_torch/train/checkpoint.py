@@ -111,7 +111,7 @@ def _leaf_paths(rec: Dict) -> List[str]:
         raise ValueError(
             f"the checkpoint at step {rec['step']} was written by the JAX "
             "package (its treedef is a JAX PyTreeDef proto); restoring it into "
-            "the PyTorch port is not supported yet (ROADMAP.md Queue 1 item 7)")
+            "the PyTorch port is not supported yet (ROADMAP.md Queue 1 item 1c)")
     return paths
 
 

@@ -85,4 +85,4 @@ def opt_state_shardings(*args, **kwargs):
     """The reference's ZeRO-1 state shardings (``optimizer.py:84``) need the
     distributed port."""
     raise NotImplementedError("ZeRO-1 optimizer-state sharding is not ported yet "
-                              "(ROADMAP.md Queue 1 item 12)")
+                              "(ROADMAP.md Queue 1 item 7)")

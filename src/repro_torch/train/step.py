@@ -2,10 +2,10 @@
 
 Port of ``src/repro/train/step.py:22``. The batch splits into ``accum``
 microbatches along its first axis; each microbatch's gradient is taken by
-autograd (on the card the attention gradient is the flash backward kernel),
-added to an accumulator in ``grad_dtype``, and the sum is scaled by
-``1 / accum`` in that dtype before ``adamw_update``. Activation memory is one
-microbatch's, as the reference's ``lax.scan`` keeps it.
+autograd (on the card the attention and mLSTM gradients are their backward
+kernels), added to an accumulator in ``grad_dtype``, and the sum is scaled
+by ``1 / accum`` in that dtype before ``adamw_update``. Activation memory is
+one microbatch's, as the reference's ``lax.scan`` keeps it.
 """
 
 from __future__ import annotations
@@ -32,17 +32,19 @@ BF16_STEP_TOL = {"loss": 1e-2, "grad_norm": 1e-2, "update_agree": 0.95,
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum: int = 1,
-                    grad_dtype: str = "bfloat16", attn_impl: Optional[str] = None):
+                    grad_dtype: str = "bfloat16", attn_impl: Optional[str] = None,
+                    mlstm_impl: Optional[str] = None):
     """``train_step(model, opt_state, batch) -> (model, opt_state,
     {"loss", "grad_norm"})``, updating the model and state in place.
-    ``attn_impl="plain"`` takes attention and its gradient through the
-    kernel's plain version."""
+    ``attn_impl="plain"`` and ``mlstm_impl="plain"`` take attention and the
+    mLSTM scan, and their gradients, through the kernels' plain versions."""
     gdt = getattr(torch, grad_dtype)
 
     def train_step(model: LM, opt_state: Dict, batch: Dict[str, torch.Tensor]):
         names, params = zip(*model.named_parameters())
         if accum == 1:
-            loss, _ = loss_fn(cfg, model, batch, attn_impl=attn_impl)
+            loss, _ = loss_fn(cfg, model, batch, attn_impl=attn_impl,
+                              mlstm_impl=mlstm_impl)
             grads = [g.to(gdt) for g in torch.autograd.grad(loss, params)]
             loss = loss.detach()
         else:
@@ -53,7 +55,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum: int = 1,
             loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
             for i in range(accum):
                 mb_loss, _ = loss_fn(cfg, model, {key: x[i] for key, x in mbs.items()},
-                                     attn_impl=attn_impl)
+                                     attn_impl=attn_impl, mlstm_impl=mlstm_impl)
                 for acc, g in zip(grads, torch.autograd.grad(mb_loss, params)):
                     acc.add_(g.to(gdt))
                 loss = loss + mb_loss.detach()

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.flash_attention import (_check, backward_errors,  # noqa: E402
                                                  flash_attention)
 from repro_torch.kernels.mlstm_chunk import _check as mlstm_check  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import _check_backward as mlstm_check_backward  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk  # noqa: E402
 
 cuda = pytest.mark.cuda
@@ -126,7 +127,8 @@ MLSTM_TOL = 3e-4
 
 def _mlstm_inputs(seed, B, H, S, Dh, device="cuda", kind=None):
     """Random inputs; kind "forget": small forget gates (F in the hundreds
-    within a chunk); "cancel": keys along one direction u, queries nearly
+    within a chunk); "floor": small input gates, so exp(-m) is the
+    denominator; "cancel": keys along one direction u, queries nearly
     orthogonal to it, so q . n cancels (as chip_smoke.py's mlstm_inputs)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)  # noqa: E731
@@ -134,6 +136,8 @@ def _mlstm_inputs(seed, B, H, S, Dh, device="cuda", kind=None):
     li, lf = f(B, H, S), torch.nn.functional.logsigmoid(f(B, H, S) + 2.0)
     if kind == "forget":
         lf = 2.0 * torch.nn.functional.logsigmoid(f(B, H, S) - 4.0)
+    elif kind == "floor":
+        li = li - 8.0
     elif kind == "cancel":
         u = f(Dh)
         u /= u.norm()
@@ -218,6 +222,142 @@ def test_mlstm_wrapper_checks(make, error, match):
     else:
         with pytest.raises(error, match=match):
             mlstm_check(*args, 8, None)
+
+
+# ------------------------------------------------------- mLSTM backward
+# The backward kernel, through MLSTMChunkFunction, against autograd of the
+# plain version at the wrapper's BWD_TOL; where q . n cancels, both against
+# fp64, the kernel within BWD_FLOOR_FACTOR of the fp32 plain version's error
+# (kernels/mlstm_chunk.py). Carried states get the final state's gradient.
+MLSTM_BWD_CASES = [
+    (1, 2, 64, 32, 16, False, None),        # tests/test_kernels.py MLSTM_CASES
+    (2, 3, 128, 64, 32, False, None),
+    (1, 4, 128, 128, 64, False, None),
+    (2, 2, 96, 32, 32, False, None),
+    (2, 2, 128, 64, 32, True, None),        # a carried-in state, dC, dn, dm in
+    (1, 2, 100, 64, 32, False, None),       # ragged S
+    (1, 2, 70, 1024, 64, True, None),       # xlstm-1.3b's Dh, ragged, carried
+    (4, 4, 256, 1024, 64, False, None),
+    (1, 4, 256, 1024, 64, True, "forget"),  # F in the hundreds within a chunk
+    (1, 4, 256, 1024, 64, True, "cancel"),  # q nearly orthogonal to n
+    (2, 2, 128, 64, 32, True, "cancel"),
+    (1, 2, 128, 96, 64, True, "floor"),     # exp(-m) is the denominator
+]
+
+
+def _mlstm_function_grads(args, state, dh, dstate, chunk):
+    ins = [t.clone().requires_grad_() for t in args]
+    st = None if state is None else {key: t.clone().requires_grad_() for key, t in state.items()}
+    h, out = mlstm_chunk(*ins, chunk=chunk, state=st)
+    assert type(h.grad_fn).__name__ == "MLSTMChunkFunctionBackward"
+    outs, grads = [h], [dh]
+    if dstate is not None:
+        outs += [out[key] for key in ("C", "n", "m")]
+        grads += list(dstate)
+    wrt = ins + ([] if st is None else [st[key] for key in ("C", "n", "m")])
+    return tuple(torch.autograd.grad(outs, wrt, grads)) + ((None,) * 3 if st is None else ())
+
+
+@cuda
+@pytest.mark.parametrize("B,H,S,Dh,chunk,carry,kind", MLSTM_BWD_CASES)
+def test_mlstm_backward_matches_plain(B, H, S, Dh, chunk, carry, kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.mlstm_chunk import (BWD_FLOOR_FACTOR, BWD_TOL, backward_errors,
+                                                 mlstm_chunk_backward_plain)
+    args = _mlstm_inputs(S + Dh + 1, B, H, S, Dh, kind=kind)
+    rng = np.random.default_rng(S + Dh + 2)
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda()  # noqa: E731
+    state = dstate = None
+    if carry:
+        _, state = mlstm_chunk(*_mlstm_inputs(2, B, H, 48, Dh, kind=kind), chunk=chunk,
+                               impl="plain")
+        dstate = (normal(B, H, Dh, Dh), normal(B, H, Dh), normal(B, H))
+    dh = normal(B, H, S, Dh)
+    before = mlstm_chunk.backward_launches
+    got = _mlstm_function_grads(args, state, dh, dstate, chunk)
+    again = _mlstm_function_grads(args, state, dh, dstate, chunk)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.backward_launches == before + 2
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+    ds = dict(zip(("dC", "dn", "dm"), dstate or (None,) * 3))
+    ref = mlstm_chunk_backward_plain(*args, dh, chunk=chunk, state=state, **ds)
+    if kind != "cancel":
+        errs = backward_errors(got, ref)
+        assert all(e <= BWD_TOL for e in errs.values()), errs
+        return
+    f64 = lambda t: None if t is None else t.double()  # noqa: E731
+    ref64 = mlstm_chunk_backward_plain(
+        *map(f64, args), f64(dh), chunk=chunk,
+        state={key: f64(t) for key, t in state.items()}, **{k: f64(t) for k, t in ds.items()})
+    errs, floor = backward_errors(got, ref64), backward_errors(ref, ref64)
+    assert all(errs[k] <= max(BWD_TOL, BWD_FLOOR_FACTOR * floor[k]) for k in errs), (errs, floor)
+
+
+@cuda
+def test_mlstm_backward_repeats_bit_for_bit_at_training_shape():
+    """xlstm-1.3b's training shape: two calls give the same bits (no
+    atomics: exact resume needs it) and agree with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.mlstm_chunk import (BWD_TOL, backward_errors, mlstm_chunk_backward,
+                                                 mlstm_chunk_backward_plain)
+    B, H, S, Dh, chunk = 2, 4, 2048, 1024, 64
+    args = _mlstm_inputs(17, B, H, S, Dh)
+    dh = torch.from_numpy(np.random.default_rng(18).normal(size=(B, H, S, Dh))
+                          .astype(np.float32)).cuda()
+    h, _ = mlstm_chunk(*args, chunk=chunk)
+    got = mlstm_chunk_backward(*args, h, dh, chunk=chunk)
+    again = mlstm_chunk_backward(*args, h, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got[:5], again[:5]))
+    errs = backward_errors(got, mlstm_chunk_backward_plain(*args, dh, chunk=chunk))
+    assert all(e <= BWD_TOL for e in errs.values()), errs
+
+
+@cuda
+def test_mlstm_function_only_under_grad():
+    """On the card, h's grad_fn is MLSTMChunkFunction's where an input
+    requires grad; under no_grad the forward kernel runs alone and h has
+    no graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args = [t.requires_grad_() for t in _mlstm_inputs(19, 1, 2, 96, 64)]
+    fwd, bwd = mlstm_chunk.launches, mlstm_chunk.backward_launches
+    h, st = mlstm_chunk(*args, chunk=32)
+    assert type(h.grad_fn).__name__ == "MLSTMChunkFunctionBackward"
+    assert st["C"].grad_fn is not None and mlstm_chunk.launches == fwd + 1
+    with torch.no_grad():
+        h2, st2 = mlstm_chunk(*args, chunk=32)
+    assert h2.grad_fn is None and st2["C"].grad_fn is None
+    assert torch.equal(h.detach(), h2)
+    assert mlstm_chunk.launches == fwd + 2 and mlstm_chunk.backward_launches == bwd
+
+
+# The backward wrapper's own checks, on CPU tensors, before any launch
+def _mlstm_bwd_args(dh=None, dC=None):
+    q = torch.zeros(1, 2, 8, 64)
+    return q, q.clone(), q.clone() if dh is None else dh, (dC, None, None)
+
+
+@pytest.mark.parametrize("make,error,match", [
+    (lambda: _mlstm_bwd_args(), None, None),
+    (lambda: _mlstm_bwd_args(dh=torch.zeros(1, 2, 8, 64, dtype=torch.float64)), TypeError,
+     "float32"),
+    (lambda: _mlstm_bwd_args(dh=torch.zeros(1, 2, 9, 64)), ValueError, "want"),
+    (lambda: _mlstm_bwd_args(dh=torch.zeros(1, 2, 64, 8).transpose(2, 3)), ValueError,
+     "contiguous"),
+    (lambda: _mlstm_bwd_args(dh=torch.zeros(1, 2, 8, 64, device="meta")), ValueError,
+     "lies on"),
+    (lambda: _mlstm_bwd_args(dC=torch.zeros(1, 2, 64, 32)), ValueError, "dC"),
+], ids=["ok", "dtype", "shape", "contiguity", "device", "state"])
+def test_mlstm_backward_wrapper_checks(make, error, match):
+    q, h, dh, dstate = make()
+    if error is None:
+        mlstm_check_backward(q, h, dh, dstate)
+    else:
+        with pytest.raises(error, match=match):
+            mlstm_check_backward(q, h, dh, dstate)
 
 
 # ------------------------------------------------------- flash backward
