@@ -65,8 +65,10 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      states with the final state's gradient coming in) and on inputs where
      the floor exp(-m) wins, near-cancelling denominators against fp64, a
      second call equal bit for bit; then timed at xlstm-1.3b's training
-     shape (B=2, H=4, S=2048, Dh=1024, chunk 64) beside the plain version
-     and the bound, pass by pass (torch.profiler); (b) xlstm-1.3b at full
+     shape (B=2, H=4, S=2048, Dh=1024, chunk 64) beside the plain version,
+     the bound and the design floor (the walks' split products at the bf16
+     rate, their scratch bytes at the memory rate), each __global__ by
+     torch.profiler (ms a call, mean of 3 calls); (b) xlstm-1.3b at full
      width and depth (48 layers, 42 mLSTM + 6 sLSTM) trained 2 steps by the
      launcher (bf16, AdamW with fp32 master and moments, remat full, batch
      2 x 2048), its first loss against the plain version's on the same
@@ -1203,12 +1205,22 @@ def mlstm_backward_bounds(B, H, S, Dh, chunk) -> dict:
     size: 2 (4 L Dh^2 + 6 L^2 Dh) a chunk), once each at the bf16 rate,
     against its bytes (q, k, v, dh, li, lf read, dq, dk, dv, dli, dlf written,
     fp32); the bound is the larger. Beside it, the operations at the fp32
-    rate (no tensor cores)."""
+    rate (no tensor cores), and the kernel's design floor: its three walks'
+    products (a state term and an update of 2 L Dh^2 operations each, a
+    chunk and head) MLSTM_PIECES times at the bf16 rate, and its scratch
+    bytes (the chunk-start states in fp32, written and read; the walks'
+    partial sums over their column blocks of 256; the five operands' bf16
+    pieces, written and read once) at the memory rate."""
     n = (S // chunk) * B * H
     flops = 2 * (4 * chunk * Dh ** 2 + 6 * chunk ** 2 * Dh) * n
     nbytes = 4 * (7 * B * H * S * Dh + 4 * B * H * S)
+    nc, ds, dp = -(-S // chunk), -(-Dh // 256), -(-Dh // 64) * 64
+    scratch = (2 * 4 * Dh * Dh * nc * B * H + 2 * 3 * 4 * ds * B * H * S * Dh
+               + 2 * 5 * 3 * 2 * B * H * S * dp)
     out = {"ops": flops / PEAK_BF16_FLOPS * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
-           "fp32": flops / PEAK_FP32_FLOPS * 1e3, "flops": flops}
+           "fp32": flops / PEAK_FP32_FLOPS * 1e3, "flops": flops,
+           "split": MLSTM_PIECES * 3 * 4 * chunk * Dh ** 2 * n / PEAK_BF16_FLOPS * 1e3,
+           "scratch": scratch / PEAK_BYTES * 1e3, "scratch_bytes": scratch}
     out["bound"] = max(out["ops"], out["bytes"])
     return out
 
@@ -1301,16 +1313,18 @@ def check_mlstm_backward() -> dict:
     plain_ms = cuda_ms(lambda: mlstm_chunk_backward_plain(*args, dh, chunk=chunk),
                        iters=2, warmup=1)
     fwd_ms = cuda_ms(lambda: mlstm_chunk(*args, chunk=chunk), iters=5)
-    per = {}                  # mean a launch of each pass over 3 profiled calls
+    per = {}                  # each __global__'s ms a call, over 3 profiled calls
     for name, t in device_kernels(lambda: [fn() for _ in range(3)]):
-        n, total = per.get(short_name(name), (0, 0.0))
-        per[short_name(name)] = (n + 1, total + t)
+        per[short_name(name)] = per.get(short_name(name), 0.0) + t / 3
     bd = mlstm_backward_bounds(B, H, S, Dh, chunk)
-    split = ", ".join(f"{name} {total / n:.4f}" for name, (n, total) in per.items())
+    split = ", ".join(f"{name} {t:.4f}" for name, t in per.items())
     say(f"[train xlstm] backward held on {len(MLSTM_BWD_CASES)} cases; training shape B={B} "
         f"H={H} S={S} Dh={Dh} chunk={chunk} fp32: kernel {ms:.4f} ms "
         f"({bd['flops'] / ms / 1e9:.1f} TFLOP/s of the function's operations; per kernel, "
-        f"ms, torch.profiler, mean of 3 calls: {split or 'not measured'}), plain (autograd "
+        f"ms a call, torch.profiler, mean of 3 calls: {split or 'not measured'}); design "
+        f"floor: the walks' split products at bf16 989 TFLOP/s {bd['split']:.4f} ms, their "
+        f"scratch {bd['scratch_bytes'] / 1e9:.3f} GB at 3.35 TB/s {bd['scratch']:.4f} ms; "
+        f"plain (autograd "
         f"of the plain version, its forward included) "
         f"{plain_ms:.4f} ms, bound {bd['bound']:.4f} ms (operations at bf16 989 TFLOP/s "
         f"{bd['ops']:.4f}, bytes {bd['bytes']:.4f}); the operations at fp32 67 TFLOP/s "

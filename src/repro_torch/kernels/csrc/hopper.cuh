@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the bf16 flash-attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): mbarriers, 3-D
+// (flash_attention.cu) and backward (flash_attention_bwd.cu), and through
+// mlstm_split.cuh by the chunkwise-mLSTM forward and backward: mbarriers, 3-D
 // TMA loads, wgmma shared-memory descriptors and products, register
 // rebalancing, and the tensor maps that TMA and wgmma agree on.
 //
@@ -95,6 +96,26 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4}], [%5];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
          "r"(bar)
+      : "memory");
+}
+
+// The same from a whole warp, the copy issued where `pred` holds (one lane),
+// without a branch: a producer warp that takes no divergent path keeps ptxas
+// from inserting a wgmma wait there (C7518, "wgmma ... serialized").
+__device__ __forceinline__ void mbar_expect_tx_if(uint32_t bar, uint32_t bytes, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n"
+      :: "r"(bar), "r"(bytes), "r"((int)pred) : "memory");
+}
+__device__ __forceinline__ void tma_load_3d_if(uint32_t dst, const CUtensorMap* map, int c0,
+                                               int c1, int c2, uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "@p cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n}\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(bar), "r"((int)pred)
       : "memory");
 }
 

@@ -73,11 +73,9 @@
 // ptxas (sm_90a): mlstm_walk<4> 224 registers, no spills; the other passes
 // 32-62 registers, no spills.
 
-#include <cuda.h>               // CUtensorMap and its enums (header only)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mlstm_split.cuh"   // split3, wgmma_rs6/ss6, descriptors, TMA (hopper.cuh)
 
 namespace {
 
@@ -86,7 +84,6 @@ constexpr int DT = 32;            // key columns per tile of the CUDA-core passe
 constexpr int THREADS = 256;      // CUDA-core passes
 constexpr int LDT = DT + 1;       // padded row stride of their q/k tiles
 constexpr int MAX_DH = 1024;
-constexpr int PIECES = 3;         // bf16 pieces of a split fp32 operand
 
 // ------------------------------------------------------------ scratch
 // One buffer, laid out by `Scratch`; the wrapper allocates
@@ -109,8 +106,6 @@ struct Scratch {
   __nv_bfloat16* vx;    // (3 BH, S, Dp): v, split
   __nv_bfloat16* swx;   // (3 BH nc, 64, 64): Q K^T .* W of each chunk, split
 };
-
-__host__ __device__ inline int padded(int Dh) { return (Dh + 63) / 64 * 64; }
 
 constexpr int KB = 256;           // keys per block of passes 2 and 4 (4 walk tiles)
 __host__ __device__ inline int key_blocks(int Dh) { return (Dh + KB - 1) / KB; }
@@ -147,172 +142,6 @@ inline size_t scratch_layout(Scratch* s, char* base, int BH, int S, int Dh, int 
                       reinterpret_cast<__nv_bfloat16*>(kwx), reinterpret_cast<__nv_bfloat16*>(vx),
                       reinterpret_cast<__nv_bfloat16*>(swx)};
   return off;
-}
-
-// x = x1 + x2 + x3 to fp32's 24 significant bits, each piece a bf16 (8): x1
-// = x rounded, x2 = the rest rounded, x3 = what remains of that, rounded.
-__device__ __forceinline__ void split3(float x, __nv_bfloat16 (&p)[PIECES]) {
-  p[0] = __float2bfloat16_rn(x);
-  const float r = x - __bfloat162float(p[0]);
-  p[1] = __float2bfloat16_rn(r);
-  p[2] = __float2bfloat16_rn(r - __bfloat162float(p[1]));
-}
-
-// ------------------------------------------------ PTX: mbarrier, TMA, wgmma
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete, spinning inside the PTX
-// (no divergent branch around the wgmma that follow); a wrong count or
-// phase traps after ~2^32 clocks instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "mov.u64 t0, %%clock64;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "mov.u64 t1, %%clock64;\n"
-      "sub.u64 t1, t1, t0;\n"
-      "setp.gt.u64 p, t1, 4294967296;\n"
-      "@p trap;\n"
-      "bra WAIT;\n"
-      "DONE:\n}\n"
-      :: "r"(bar), "r"(parity) : "memory");
-}
-
-// Arrive on `bar` from the threads where `pred` holds, without a branch.
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
-      :: "r"(bar), "r"((int)pred) : "memory");
-}
-
-// Named barrier `id` over `threads` threads (one warpgroup's, here).
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-// One TMA box of a 3-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0,
-                                            int c1, int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-         "r"(bar)
-      : "memory");
-}
-
-// wgmma descriptors of bf16 tiles of 128-byte swizzled rows (64 values), 1 KiB
-// aligned: K-major (a row per M or N index; a k-step is 32 bytes along the
-// row), and MN-major (a row per k; a k-step is 16 rows, 2 KiB).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
-}
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + 32 * kk, 16);
-}
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + 2048 * kk, 8192);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Pin registers that an asynchronous wgmma reads or writes at this point of
-// the instruction order.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
-
-#define WGMMA_D32                                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WGMMA_D32_OUT(d)                                                                   \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-// d (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 64),
-// B K-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : WGMMA_D32_OUT(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64, fp32) += A (64 x 16) * B (16 x 64), both in shared memory; A
-// MN-major (transposed by the descriptor), B K-major (TB = 0) or MN-major (1).
-template <int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
-      ", %32, %33, p, 1, 1, 1, %35;\n}\n"
-      : WGMMA_D32_OUT(d)
-      : "l"(a), "l"(b), "r"(1), "n"(TB));
-}
-
-// The products of split operands that fp32 needs, A1 B1 + A1 B2 + A2 B1 +
-// A1 B3 + A2 B2 + A3 B1, issued smallest first (the three dropped are below
-// 2^-25 of the product). A from registers (pieces a1, a2, a3) or shared
-// memory; B's pieces in shared memory.
-__device__ __forceinline__ void wgmma_rs6(float (&d)[32], const uint32_t (&a1)[4],
-                                          const uint32_t (&a2)[4], const uint32_t (&a3)[4],
-                                          const uint64_t (&b)[PIECES]) {
-  wgmma_rs(d, a3, b[0]);
-  wgmma_rs(d, a2, b[1]);
-  wgmma_rs(d, a1, b[2]);
-  wgmma_rs(d, a2, b[0]);
-  wgmma_rs(d, a1, b[1]);
-  wgmma_rs(d, a1, b[0]);
-}
-template <int TB>
-__device__ __forceinline__ void wgmma_ss6(float (&d)[32], const uint64_t (&a)[PIECES],
-                                          const uint64_t (&b)[PIECES]) {
-  wgmma_ss<TB>(d, a[2], b[0]);
-  wgmma_ss<TB>(d, a[1], b[1]);
-  wgmma_ss<TB>(d, a[0], b[2]);
-  wgmma_ss<TB>(d, a[1], b[0]);
-  wgmma_ss<TB>(d, a[0], b[1]);
-  wgmma_ss<TB>(d, a[0], b[0]);
 }
 
 // ----------------------------------------------- pass 1: the gates' scans
@@ -572,7 +401,6 @@ __global__ void __launch_bounds__(THREADS) mlstm_den(const float* __restrict__ q
 //   3. C^T = decay C^T + V^T (k .* wk): A = V^T, B = k .* wk (MN-major).
 // Every product takes its operands in three bf16 pieces and sums the six
 // products that fp32 needs in fp32 (wgmma_rs6, wgmma_ss6).
-constexpr int WG = 128;
 constexpr int WALK_THREADS = 2 * WG;
 constexpr int EB = 2 * 64;                // values e per CTA
 constexpr int STAGES = 6;                 // ring of q or k .* wk tiles
@@ -598,10 +426,6 @@ struct WalkArgs {
   const float* decay;
   int BH, S, Dh, chunk, nc, ds;
 };
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 template <int NJ>
 __global__ void __launch_bounds__(WALK_THREADS, 1)
@@ -719,18 +543,9 @@ mlstm_walk(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
           if ((g - 2) % 4 == 3) release(it + j - 1, lane);
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float x0 = cacc[j][8 * kk + 2 * i], x1 = cacc[j][8 * kk + 2 * i + 1];
-          const __nv_bfloat162 p1 = __floats2bfloat162_rn(x0, x1);
-          const float2 f1 = __bfloat1622float2(p1);
-          const float r0 = x0 - f1.x, r1 = x1 - f1.y;
-          const __nv_bfloat162 p2 = __floats2bfloat162_rn(r0, r1);
-          const float2 f2 = __bfloat1622float2(p2);
-          const __nv_bfloat162 p3 = __floats2bfloat162_rn(r0 - f2.x, r1 - f2.y);
-          a1[b][i] = *reinterpret_cast<const uint32_t*>(&p1);
-          a2[b][i] = *reinterpret_cast<const uint32_t*>(&p2);
-          a3[b][i] = *reinterpret_cast<const uint32_t*>(&p3);
-        }
+        for (int i = 0; i < 4; ++i)
+          split3_pair(cacc[j][8 * kk + 2 * i], cacc[j][8 * kk + 2 * i + 1], a1[b][i], a2[b][i],
+                      a3[b][i]);
         if (kk == 0) mbar_wait(bar_full + 8 * st, ((it + j) / STAGES) & 1);
         const uint64_t qd[PIECES] = {desc_kmajor(tq, kk), desc_kmajor(tq + TILE, kk),
                                      desc_kmajor(tq + 2 * TILE, kk)};
@@ -840,58 +655,14 @@ __global__ void __launch_bounds__(MAX_DH / 4) mlstm_out(const float* __restrict_
   reinterpret_cast<float4*>(h)[i] = make_float4(s.x / dn, s.y / dn, s.z / dn, s.w / dn);
 }
 
-// cuTensorMapEncodeTiled is a driver-API function: reached through the
-// runtime's entry-point query, so the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                                  cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
-  }();
-  return fn;
-}
-
-// The tensor map of a contiguous (n2, n1, n0) bf16 array, boxes of 64
-// values x `rows` rows of one slab, 128-byte swizzled. Three dimensions, so a
-// box that overhangs n1 or n0 is zero-filled instead of reading the next
-// slab. TMA needs a 16-byte aligned base (the scratch buffer is 256-byte
-// aligned) and strides of a multiple of 16 bytes (n0 is a multiple of 64).
-bool tensor_map(CUtensorMap* map, const __nv_bfloat16* ptr, int n0, int n1, int n2,
-                int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
-  const cuuint64_t strides[2] = {(cuuint64_t)n0 * 2, (cuuint64_t)n0 * n1 * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<__nv_bfloat16*>(ptr),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int NJ>
 cudaError_t launch_walk(const Scratch& sc, const WalkArgs& a, float* h, cudaStream_t stream) {
   const int Dp = padded(a.Dh);
   CUtensorMap tq, tk, tv, ts;
-  if (!tensor_map(&tq, sc.qx, Dp, a.S, PIECES * a.BH, a.chunk) ||
-      !tensor_map(&tk, sc.kwx, Dp, a.S, PIECES * a.BH, a.chunk) ||
-      !tensor_map(&tv, sc.vx, Dp, a.S, PIECES * a.BH, a.chunk) ||
-      !tensor_map(&ts, sc.swx, LMAX, LMAX, PIECES * a.BH * a.nc, LMAX))
+  if (!tensor_map_pieces(&tq, sc.qx, Dp, a.S, PIECES * a.BH, a.chunk) ||
+      !tensor_map_pieces(&tk, sc.kwx, Dp, a.S, PIECES * a.BH, a.chunk) ||
+      !tensor_map_pieces(&tv, sc.vx, Dp, a.S, PIECES * a.BH, a.chunk) ||
+      !tensor_map_pieces(&ts, sc.swx, LMAX, LMAX, PIECES * a.BH * a.nc, LMAX))
     return cudaErrorInvalidValue;
   static const cudaError_t set = cudaFuncSetAttribute(
       mlstm_walk<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, WalkSmem::SMEM);

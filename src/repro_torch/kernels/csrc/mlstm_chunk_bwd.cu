@@ -18,44 +18,78 @@
 //   gradient its output state receives, dC_c (the reverse walk below):
 //   dq_t += w_t (C0_c dN_t + da_t n0_c),  dk_s += wk_s (dC_c v_s + dn_c),
 //   dv_s += wk_s dC_c^T k_s,  dC_{c-1} = decay_c dC_c + sum_t w_t q_t dN_t^T;
+//   w_t's gradient from the state, dN_t . (C0_c^T q_t) = q_t . (C0_c dN_t);
 //   the gates: every exponent is g_s - run_t, so each weight's gradient goes
 //   to g_s and to run_t, and run_t = max(m0, max_{s<=t} g_s) hands it on to
 //   the g at the running argmax or to the chunk's m0, and so to the chunk
 //   before (torch's rule: the later index of a tie; half each where m0 ties).
 //
-// Design: six passes, all on CUDA cores in fp32, with the gates' scans and
-// every exponent's difference in fp64 as the forward has them; no atomics,
-// and every sum across CTAs is a partial written by one CTA and added in a
-// fixed order, so two calls give the same bits.
+// Design. The Dh^2-sized work, the chunk-start states C0_c, the reverse
+// walk of dC_c and the state terms C0_c dN, dC_c V and dC_c^T K, runs on the
+// tensor cores as the forward's walk does: each fp32 operand split into three
+// bf16 pieces and the six products that fp32 needs summed in fp32 wgmma
+// accumulators (mlstm_split.cuh), so every fp32 tolerance holds
+// (tests/test_torch_mlstm_precision.py emulates it); the gates' scans and
+// every exponent's difference stay in fp64. No atomics: every sum across CTAs
+// is a partial written by one CTA and added in a fixed order, so two calls
+// give the same bits. Nine launches:
 //   1. `bwd_gates`, a CTA per (b, h): the forward's gates again, bit for bit.
-//   2. `bwd_states`, a CTA per (64 x 64 tile of C, b h): the forward's walk
-//      again, writing the state each chunk starts from (C_c, n_c). The
-//      backward recomputes them rather than having the forward save them:
-//      the forward stays as it is, and the nc Dh^2 floats (1 GiB at B=2,
-//      H=4, S=2048, Dh=1024) live only during this call.
-//   3. `bwd_local`, a CTA per (chunk, b h): the intra-chunk L x L terms
-//      (Q K^T, dN V^T, dS, P), D_t and da_t again, and the first dq, dk, dv.
-//   4. `bwd_walk`, a CTA per (64 x 64 tile of dC, b h): the only sequential
-//      part, over the chunks in reverse, writing the gradient each chunk's
-//      output state receives (dC_c, dn_c), and at the end dC0, dn0.
-//   5. `bwd_inter`, a CTA per (64-wide tile, kind, chunk, b h): the state's
-//      terms, four L x Dh x 64 products a tile pair (C0_c dN, dC_c V, Q C0_c,
-//      K dC_c), added to dq, dk (row tiles) and dv (column tiles); partial
-//      sums of dw_t, dwk_s and d(decay) a tile.
-//   6. `bwd_gates_back`, a CTA per (b, h): the gates' gradients in fp64,
+//   2. `bwd_split`, a CTA per (chunk, b h): the walks' operands k .* wk, v,
+//      dh and k in pieces, and each chunk's sum of k .* wk (n's increment).
+//   3. `bwd_local`, a CTA per (chunk, b h), CUDA cores: n at the chunk's
+//      start (the recurrence over earlier chunks' increments), the L x L
+//      terms (Q K^T, dN V^T, dS, P), D_t and da_t, the first dq, dk, dv, and
+//      the chunk's sum of w_t da_t q_t (dn's increment).
+//   4. `bwd_split` again: q .* (w / D) in pieces, once D is known.
+//   5-7. `bwd_walk_states`, `bwd_walk_dc`, `bwd_walk_dct`: three walks over
+//      the chunks, each a CTA per (128 rows a, 256 columns b, b h) of two
+//      warpgroups holding a state Z[a, b] as fp32 wgmma accumulators (64 x
+//      256 a warpgroup, 128 registers), with the forward walk's TMA ring
+//      (warp 0 loads R and Q tiles five ahead into a 6-stage ring of
+//      mbarrier-guarded slots, P's 128 columns a chunk into a chunk buffer).
+//      Per chunk: first the state term O[a, t] = sum_b Z[a, b] R[t, b] (A =
+//      Z split in registers, B = R, K-major), written as a partial sum over
+//      the CTA's 256 b; then Z = decay Z + sum_s P[s, a] Q[s, b] (A and B
+//      MN-major from shared memory).
+//        5. forward, Z = C0 (a = d, b = e): P = k .* wk, Q = v; O = C0 dh^T
+//           (dq's and w's terms); C0_c goes out in fp32 in the threads'
+//           own register order (coalesced, 1 GiB at the training shape).
+//        6. reverse, Z = dC (a = d, b = e): P = q .* (w / D), Q = dh; O =
+//           dC v^T (dk's term); <dC_c, C0_c> from the states of 5, each
+//           thread its own elements (read a tile ahead), for d(decay); dC0
+//           at the end.
+//        7. reverse, Z = dC^T (a = e, b = d): P = dh, Q = q .* (w / D); O =
+//           dC^T k^T (dv's term).
+//      So the state terms are folded into the walks, read from the
+//      registers that hold C0_c or dC_c: dC_c never goes to memory, and C0_c
+//      only in fp32 for the one dot. A walk holds its state in one
+//      orientation, and a state term takes it as A, contracting over b: dC
+//      v^T over e and dC^T k^T over d need both, so the dC walk runs twice
+//      (the second's update is its only repeated work); holding both at
+//      once would need 256 accumulator registers a thread.
+//   8. `bwd_terms`, a CTA per (chunk, b h), CUDA cores: adds each walk's
+//      partial sums in order into dq, dk, dv, with the rows' dot products
+//      that w_t's and wk_s's gradients need, dn by its recurrence, and
+//      d(decay) = <dC, C0> + dn . n0.
+//   9. `bwd_gates_back`, a CTA per (b, h): the gates' gradients in fp64,
 //      chunk by chunk in parallel, then the chain of m0 from chunk to chunk.
 // Bound on an H100 SXM at xlstm-1.3b's training shape (B=2, H=4, S=2048,
 // Dh=1024, L=64): the function's backward does about twice the forward's
-// operations, 0.16 ms at the bf16 tensor-core rate, against 0.14 ms of
+// operations, 0.15 ms at the bf16 tensor-core rate, against 0.14 ms of
 // reading q, k, v, dh and writing dq, dk, dv in fp32: operations bound.
-// This design does ~12 L Dh^2 + 10 L^2 Dh operations a chunk on CUDA cores
-// in fp32 (67 TFLOP/s): a floor of ~3 ms, and it writes and reads the
-// chunk states and their gradients (2 GiB) besides. Tensor cores (the
-// forward's split-bf16 products) are later work.
+// This design's floor: three walks of 2 x 2 L Dh^2 operations a chunk and
+// head, each six times on the tensor cores (6 x 12 L Dh^2), 1.25 ms at the
+// bf16 rate; beside that it moves 4.8 GB (the chunk-start states written
+// and read, 2.1 GB; the walks' partial sums written and read, 1.6 GB; the
+// operands' pieces written and read, 1.0 GB), 1.42 ms at 3.35 TB/s, most
+// of it under the walks' products. The 4 L^2 Dh-sized local terms stay on
+// CUDA cores in fp32 (0.16 ms of operations at 67 TFLOP/s).
+// ptxas (sm_90a): bwd_walk_*<4> 222-255 registers, no spills; the other
+// passes 32-79 registers, no spills.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mlstm_split.cuh"   // split3, wgmma_rs6/ss6, descriptors, TMA (hopper.cuh)
 
 namespace {
 
@@ -66,7 +100,23 @@ constexpr int LDP = T + 4;        // row of a shared tile; keeps float4 alignmen
 constexpr int THREADS = 256;
 constexpr int MAX_DH = 1024;
 
-__host__ __device__ inline int tiles(int Dh) { return (Dh + T - 1) / T; }
+// The walks' CTAs: EB rows a (two warpgroups of 64) x nj tiles of 64 columns
+// b, ds blocks of columns and eb blocks of rows a head.
+constexpr int WALK_THREADS = 2 * WG;
+constexpr int EB = 2 * 64;
+constexpr int KB = 256;           // columns b a CTA at most (4 tiles, 128 registers)
+constexpr int STAGES = 6;         // ring of R or Q tiles
+constexpr int TILE = LMAX * 128;  // 64 rows x 64 bf16
+constexpr int STAGE_BYTES = PIECES * TILE;
+constexpr int CHUNK_BYTES = 2 * PIECES * TILE;   // P's 128 columns a
+
+struct WalkShape {
+  int nj, ds, eb;
+};
+inline WalkShape walk_shape(int Dh) {
+  const int tiles = (Dh + 63) / 64, ds = (Dh + KB - 1) / KB;
+  return {(tiles + ds - 1) / ds, ds, (Dh + EB - 1) / EB};
+}
 
 struct Scratch {
   double* g;      // (BH, S): g_t = li_t - F_t
@@ -74,18 +124,27 @@ struct Scratch {
   float4* step;   // (BH, S): {w_t, wk_t, exp(-m_t), D_t}
   float* decay;   // (BH, nc)
   double2* chain; // (BH, nc): first {F_L, max g}, then {m0, run_L} of each chunk
-  float* Cs;      // (BH, nc, Dh, Dh): C at the start of each chunk
+  float* ksum;    // (BH, nc, Dh): sum_s wk_s k_s of each chunk
   float* ns;      // (BH, nc, Dh): n at the start of each chunk
-  float* dCs;     // (BH, nc, Dh, Dh): the gradient of each chunk's output C
-  float* dns;     // (BH, nc, Dh)
+  float* qda;     // (BH, nc, Dh): sum_t w_t da_t q_t of each chunk
   float* da;      // (BH, S): the gradient of a_t
   float* dmf;     // (BH, S): the floor's gradient of m_t
   double* qn0;    // (BH, S): q_t . n0 of its chunk
   double* zr;     // (BH, S): sum_s dP[t,s] P[t,s]
   double* zc;     // (BH, S): sum_t dP[t,s] P[t,s]
-  float* dwp;     // (P, BH, S): partial sums of dN_t . (C0^T q_t) a column tile
-  float* dwkp;    // (P, BH, S): partial sums of k_s . (dC v_s + dn) a row tile
-  float* ddp;     // (P, BH, nc): partial sums of <dC, C0> + dn . n0 a row tile
+  double* dw;     // (BH, S): q_t . (C0 dN_t), the state's share of w_t's gradient
+  double* dwk;    // (BH, S): k_s . (dC v_s + dn)
+  double* ddec;   // (BH, nc): <dC, C0> + dn . n0 of each chunk
+  double* ddp;    // (BH, nc, n_cta, 8): walk 6's <dC, C0> a warp
+  float4* cs;     // (BH, nc, n_cta, 8 nj, 256): C0_c as walk 5's threads hold it
+  float* xp;      // (ds, BH, S, Dh): partial sums of C0 dh^T, a column block each
+  float* yp;      // (ds, BH, S, Dh): of dC v^T
+  float* rp;      // (ds, BH, S, Dh): of dC^T k^T
+  __nv_bfloat16* kwx;   // (3 BH, S, Dp): k .* wk in pieces
+  __nv_bfloat16* vx;    // v
+  __nv_bfloat16* dhx;   // dh
+  __nv_bfloat16* kx;    // k
+  __nv_bfloat16* qwx;   // q .* (w / D)
   double* dg;     // (BH, S)
   double* dF;     // (BH, S)
   double2* dmc;   // (BH, nc): {dm0 of the chunk without dm_out, its share of it}
@@ -102,31 +161,42 @@ inline size_t scratch_layout(Scratch* s, char* base, int BH, int S, int Dh, int 
     off = align256(off + bytes);
     return p;
   };
-  const size_t n = (size_t)BH * S, m = (size_t)BH * nc, P = tiles(Dh);
-  Scratch x;
-  x.g = reinterpret_cast<double*>(take(n * 8));
-  x.run = reinterpret_cast<double*>(take(n * 8));
-  x.step = reinterpret_cast<float4*>(take(n * 16));
-  x.decay = reinterpret_cast<float*>(take(m * 4));
-  x.chain = reinterpret_cast<double2*>(take(m * 16));
-  x.Cs = reinterpret_cast<float*>(take(m * Dh * Dh * 4));
-  x.ns = reinterpret_cast<float*>(take(m * Dh * 4));
-  x.dCs = reinterpret_cast<float*>(take(m * Dh * Dh * 4));
-  x.dns = reinterpret_cast<float*>(take(m * Dh * 4));
-  x.da = reinterpret_cast<float*>(take(n * 4));
-  x.dmf = reinterpret_cast<float*>(take(n * 4));
-  x.qn0 = reinterpret_cast<double*>(take(n * 8));
-  x.zr = reinterpret_cast<double*>(take(n * 8));
-  x.zc = reinterpret_cast<double*>(take(n * 8));
-  x.dwp = reinterpret_cast<float*>(take(P * n * 4));
-  x.dwkp = reinterpret_cast<float*>(take(P * n * 4));
-  x.ddp = reinterpret_cast<float*>(take(P * m * 4));
-  x.dg = reinterpret_cast<double*>(take(n * 8));
-  x.dF = reinterpret_cast<double*>(take(n * 8));
-  x.dmc = reinterpret_cast<double2*>(take(m * 16));
-  x.dmo = reinterpret_cast<double*>(take(m * 8));
-  x.arg = reinterpret_cast<int*>(take(m * 4));
-  if (s) *s = x;
+  const WalkShape ws = walk_shape(Dh);
+  const size_t n = (size_t)BH * S, m = (size_t)BH * nc, n_cta = (size_t)ws.eb * ws.ds;
+  const size_t x = PIECES * n * padded(Dh) * 2;
+  Scratch r;
+  r.g = reinterpret_cast<double*>(take(n * 8));
+  r.run = reinterpret_cast<double*>(take(n * 8));
+  r.step = reinterpret_cast<float4*>(take(n * 16));
+  r.decay = reinterpret_cast<float*>(take(m * 4));
+  r.chain = reinterpret_cast<double2*>(take(m * 16));
+  r.ksum = reinterpret_cast<float*>(take(m * Dh * 4));
+  r.ns = reinterpret_cast<float*>(take(m * Dh * 4));
+  r.qda = reinterpret_cast<float*>(take(m * Dh * 4));
+  r.da = reinterpret_cast<float*>(take(n * 4));
+  r.dmf = reinterpret_cast<float*>(take(n * 4));
+  r.qn0 = reinterpret_cast<double*>(take(n * 8));
+  r.zr = reinterpret_cast<double*>(take(n * 8));
+  r.zc = reinterpret_cast<double*>(take(n * 8));
+  r.dw = reinterpret_cast<double*>(take(n * 8));
+  r.dwk = reinterpret_cast<double*>(take(n * 8));
+  r.ddec = reinterpret_cast<double*>(take(m * 8));
+  r.ddp = reinterpret_cast<double*>(take(m * n_cta * 8 * 8));
+  r.cs = reinterpret_cast<float4*>(take(m * n_cta * ws.nj * 8 * WALK_THREADS * 16));
+  r.xp = reinterpret_cast<float*>(take(ws.ds * n * Dh * 4));
+  r.yp = reinterpret_cast<float*>(take(ws.ds * n * Dh * 4));
+  r.rp = reinterpret_cast<float*>(take(ws.ds * n * Dh * 4));
+  r.kwx = reinterpret_cast<__nv_bfloat16*>(take(x));
+  r.vx = reinterpret_cast<__nv_bfloat16*>(take(x));
+  r.dhx = reinterpret_cast<__nv_bfloat16*>(take(x));
+  r.kx = reinterpret_cast<__nv_bfloat16*>(take(x));
+  r.qwx = reinterpret_cast<__nv_bfloat16*>(take(x));
+  r.dg = reinterpret_cast<double*>(take(n * 8));
+  r.dF = reinterpret_cast<double*>(take(n * 8));
+  r.dmc = reinterpret_cast<double2*>(take(m * 16));
+  r.dmo = reinterpret_cast<double*>(take(m * 8));
+  r.arg = reinterpret_cast<int*>(take(m * 4));
+  if (s) *s = r;
   return off;
 }
 
@@ -178,11 +248,6 @@ struct One {
   __device__ float operator()(int) const { return 1.f; }
 };
 
-// A sum over the 16 threads of a half-warp (tx = 0 .. 15), in a fixed order.
-__device__ __forceinline__ double sum16(double x) {
-  for (int off = 1; off < 16; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 __device__ __forceinline__ double sum32(double x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
@@ -238,80 +303,98 @@ __global__ void __launch_bounds__(128) bwd_gates(const float* __restrict__ li,
   }
 }
 
-// ------------------------------------------- pass 2: the chunk-start states
-// CTA (tile (dt, et) of C, bh): C[d][e] for 64 d x 64 e, 4 x 4 a thread, over
-// the chunks in order; before chunk c's update the tile goes to Cs[c]. The
-// CTAs of column tile 0 carry n for their 64 d as well.
-__global__ void __launch_bounds__(THREADS) bwd_states(const float* __restrict__ k,
-                                                      const float* __restrict__ v,
-                                                      const float* __restrict__ C0,
-                                                      const float* __restrict__ n0, Scratch sc,
-                                                      int S, int Dh, int chunk, int nc) {
-  __shared__ __align__(16) float ka[LMAX * LDP];
-  __shared__ __align__(16) float vb[LMAX * LDP];
-  __shared__ float wks[LMAX];
-  const int P = tiles(Dh), bh = blockIdx.y;
-  const int d0 = T * (blockIdx.x / P), e0 = T * (blockIdx.x % P);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const bool carry_n = e0 == 0 && tid < T && d0 + tid < Dh;
-  float acc[4][4];
+// ------------------------------------------- passes 2 and 4: the pieces
+// CTA (c, bh): the chunk's rows of the walks' operands, split into three
+// bf16 pieces (four columns a thread; the pad columns to Dp are 0). Mode 0:
+// k .* wk (rounded as the forward rounds it, `__fmul_rn`), v, dh and k, and
+// the chunk's sum of k .* wk over its steps (n's increment, the plain
+// version's order); mode 1, once bwd_local has D: q .* (w / D).
+__global__ void __launch_bounds__(THREADS) bwd_split(const float* __restrict__ q,
+                                                     const float* __restrict__ k,
+                                                     const float* __restrict__ v,
+                                                     const float* __restrict__ dh, Scratch sc,
+                                                     int S, int Dh, int chunk, int nc,
+                                                     int mode) {
+  __shared__ float scale[LMAX];
+  const int c = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x, BH = gridDim.y;
+  const int t0 = c * chunk, Lc = min(chunk, S - t0), Dp = padded(Dh), quads = Dp / 4;
+  const size_t gb = (size_t)bh * S + t0, slab = (size_t)BH * S * Dp;
+  if (tid < Lc) {
+    const float4 st = sc.step[gb + tid];
+    scale[tid] = mode == 0 ? st.y : st.x / st.w;
+  }
+  __syncthreads();
+  auto put = [&](__nv_bfloat16* x, size_t off, float4 val) {   // four columns, 8 bytes a piece
+    __nv_bfloat16 p[4][PIECES];
+    split3(val.x, p[0]);
+    split3(val.y, p[1]);
+    split3(val.z, p[2]);
+    split3(val.w, p[3]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = d0 + 4 * ty + i, e = e0 + 4 * tx + j;
-      acc[i][j] = (C0 && d < Dh && e < Dh) ? C0[((size_t)bh * Dh + d) * Dh + e] : 0.f;
+    for (int i = 0; i < PIECES; ++i) {
+      const __nv_bfloat162 lo = __halves2bfloat162(p[0][i], p[1][i]);
+      const __nv_bfloat162 hi = __halves2bfloat162(p[2][i], p[3][i]);
+      *reinterpret_cast<uint2*>(x + i * slab + off) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
     }
-  float n = (carry_n && n0) ? n0[(size_t)bh * Dh + d0 + tid] : 0.f;
-  for (int c = 0; c < nc; ++c) {
-    const int t0 = c * chunk, Lc = min(chunk, S - t0);
-    const size_t gb = (size_t)bh * S + t0;
-    float* out = sc.Cs + ((size_t)bh * nc + c) * Dh * Dh;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = d0 + 4 * ty + i, e = e0 + 4 * tx + j;
-        if (d < Dh && e < Dh) out[(size_t)d * Dh + e] = acc[i][j];
-      }
-    if (carry_n) sc.ns[((size_t)bh * nc + c) * Dh + d0 + tid] = n;
-    if (tid < LMAX) wks[tid] = tid < Lc ? sc.step[gb + tid].y : 0.f;
-    __syncthreads();
-    // k .* wk rounded as the forward rounds it (`__fmul_rn`)
-    load_nat(ka, k + gb * Dh + d0, Dh, Lc, Dh - d0, LMAX,
-             [&](int r) { return wks[r]; });
-    load_nat(vb, v + gb * Dh + e0, Dh, Lc, Dh - e0, LMAX, One());
-    __syncthreads();
-    const float decay = sc.decay[(size_t)bh * nc + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= decay;
-    mm<LMAX>(acc, ka, vb, ty, tx);
-    if (carry_n) {
+  };
+  // q, k, v are 8-byte aligned (the wrapper checks), dh only 4-byte
+  auto get2 = [&](const float* x, size_t off, bool in) {
+    if (!in) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float2 a = *reinterpret_cast<const float2*>(x + off);
+    const float2 b = *reinterpret_cast<const float2*>(x + off + 2);
+    return make_float4(a.x, a.y, b.x, b.y);
+  };
+  auto get1 = [&](const float* x, size_t off, bool in) {
+    return in ? make_float4(x[off], x[off + 1], x[off + 2], x[off + 3])
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto mul = [](float4 x, float s) {
+    return make_float4(__fmul_rn(x.x, s), __fmul_rn(x.y, s), __fmul_rn(x.z, s), __fmul_rn(x.w, s));
+  };
+  for (int i = tid; i < Lc * quads; i += THREADS) {
+    const int t = i / quads, d = 4 * (i % quads);
+    const bool in = d < Dh;                      // Dh % 4 == 0: a quad is in or out
+    const size_t src = (gb + t) * Dh + d, xo = (gb + t) * Dp + d;
+    const float s = scale[t];
+    if (mode == 0) {
+      const float4 kv = get2(k, src, in);
+      put(sc.kwx, xo, mul(kv, s));
+      put(sc.kx, xo, kv);
+      put(sc.vx, xo, get2(v, src, in));
+      put(sc.dhx, xo, get1(dh, src, in));
+    } else {
+      put(sc.qwx, xo, mul(get2(q, src, in), s));
+    }
+  }
+  if (mode == 0) {
+    float* ksum = sc.ksum + ((size_t)bh * nc + c) * Dh;
+    for (int d = tid; d < Dh; d += THREADS) {
       float sum = 0.f;
-      for (int s = 0; s < LMAX; ++s) sum += ka[s * LDP + tid];
-      n = fmaf(decay, n, sum);
+      for (int s = 0; s < Lc; ++s) sum += __fmul_rn(k[(gb + s) * Dh + d], scale[s]);
+      ksum[d] = sum;
     }
-    __syncthreads();
   }
 }
 
 // ------------------------------------------- pass 3: each chunk's own terms
 // CTA (c, bh), 256 threads, dynamic shared memory (LocalSmem):
+//   0. n0 of the chunk: n = decay n + ksum over the chunks before it;
 //   A. S = Q K^T and G = dH V^T over Dh, 32 columns a step; per row, dh . h
 //      and q . n0 (fp64);
 //   B. per row: W, P = S .* W, a_t = sum_s P (fp64) + w_t q_t . n0, D_t, da_t,
 //      the floor's dm_t; per element: dP = G / D + da (s <= t), dS = dP .* W,
 //      Z = dP .* P and its row and column sums (fp64);
-//   C. over Dh, 64 columns a step: dq = dS K, dk = dS^T Q, dv = P^T dN.
+//   C. over Dh, 64 columns a step: dq = dS K, dk = dS^T Q, dv = P^T dN, and
+//      dn's increment sum_t w_t da_t q_t.
 struct LocalSmem {
   static constexpr int TILES = 0;                   // A: 4 [KT][LDP]; C: 3 [T][LDP]
   static constexpr int SP = TILES + 3 * T * LDP;    // S, then P       [t][s]
   static constexpr int SG = SP + T * LDP;           // G, then dS      [t][s]
   static constexpr int ST = SG + T * LDP;           // dS transposed   [s][t]
-  static constexpr int ROW = ST + T * LDP;          // D, da, w, wk, dhh, qn0 (2 each)
-  static constexpr int FLOATS = ROW + 8 * LMAX;
+  static constexpr int ROW = ST + T * LDP;          // D, da, dhh, qn0 (2 each), w
+  static constexpr int NS = ROW + 8 * LMAX;         // n0 of the chunk
+  static constexpr int FLOATS = NS + MAX_DH;
   static constexpr int BYTES = FLOATS * 4;
   static_assert(4 * KT <= 3 * T, "phase A's tiles fit phase C's");
   static_assert(BYTES <= 232448, "over the 227 KiB a CTA may use");
@@ -319,20 +402,33 @@ struct LocalSmem {
 
 __global__ void __launch_bounds__(THREADS) bwd_local(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ h, const float* __restrict__ dh, Scratch sc,
-    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int S, int Dh,
-    int chunk, int nc) {
+    const float* __restrict__ h, const float* __restrict__ dh, const float* __restrict__ n0p,
+    Scratch sc, float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int S,
+    int Dh, int chunk, int nc) {
   using L = LocalSmem;
   extern __shared__ __align__(16) float smem[];
   float* sD = smem + L::ROW;
   float* sda = sD + LMAX;
   double* sdhh = reinterpret_cast<double*>(sda + LMAX);   // 8-byte aligned: ROW is even
   double* sqn = sdhh + LMAX;
+  float* sw = reinterpret_cast<float*>(sqn + LMAX);
+  float* n0 = smem + L::NS;
   const int c = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16, warp = tid / 32, lane = tid % 32;
   const int t0 = c * chunk, Lc = min(chunk, S - t0);
-  const size_t gb = (size_t)bh * S + t0, base = gb * Dh;
-  const float* n0 = sc.ns + ((size_t)bh * nc + c) * Dh;
+  const size_t gb = (size_t)bh * S + t0, base = gb * Dh, ci = (size_t)bh * nc + c;
+  // ---- 0. n0 of the chunk, as the forward carries n
+  {
+    const float* decay = sc.decay + (size_t)bh * nc;
+    const float* ksum = sc.ksum + (size_t)bh * nc * Dh;
+    for (int d = tid; d < Dh; d += THREADS) {
+      float n = n0p ? n0p[(size_t)bh * Dh + d] : 0.f;
+      for (int j = 0; j < c; ++j) n = fmaf(decay[j], n, ksum[(size_t)j * Dh + d]);
+      n0[d] = n;
+      sc.ns[ci * Dh + d] = n;
+    }
+  }
+  __syncthreads();
   // ---- A. per row: dh . h and q . n0, in fp64
   for (int t = warp; t < LMAX; t += THREADS / 32) {
     double x = 0.0, y = 0.0;
@@ -388,7 +484,7 @@ __global__ void __launch_bounds__(THREADS) bwd_local(
     }
     a = sum32(a);
     if (lane == 0) {
-      float D = 1.f, da = 0.f;
+      float D = 1.f, da = 0.f, wt = 0.f;
       if (t < Lc) {
         float4 st = sc.step[gb + t];
         const float af = (float)(a + (double)st.x * sqn[t]), ab = fabsf(af), lo = st.z;
@@ -398,6 +494,7 @@ __global__ void __launch_bounds__(THREADS) bwd_local(
         const double dD = -sdhh[t] / D;
         const float sgn = af > 0.f ? 1.f : (af < 0.f ? -1.f : 0.f);
         da = (float)(dD * to_a * sgn);
+        wt = st.x;
         sc.dmf[gb + t] = (float)(-dD * (1.f - to_a) * lo);
         sc.da[gb + t] = da;
         sc.qn0[gb + t] = sqn[t];
@@ -406,6 +503,7 @@ __global__ void __launch_bounds__(THREADS) bwd_local(
       }
       sD[t] = D;
       sda[t] = da;
+      sw[t] = wt;
     }
   }
   __syncthreads();
@@ -463,203 +561,383 @@ __global__ void __launch_bounds__(THREADS) bwd_local(
           dv[o] = av[i][j];
         }
       }
-    __syncthreads();
-  }
-}
-
-// --------------------------------------------------- pass 4: the reverse walk
-// CTA (tile (dt, et) of dC, bh), over the chunks from the last: the tile
-// goes to dCs[c] (the gradient chunk c's output state receives), then dC =
-// decay_c dC + sum_t (w_t q_t) (dh_t / D_t)^T. Column tile 0 carries dn =
-// decay_c dn + sum_t w_t da_t q_t. After chunk 0: dC0, dn0.
-__global__ void __launch_bounds__(THREADS) bwd_walk(const float* __restrict__ q,
-                                                    const float* __restrict__ dh,
-                                                    const float* __restrict__ dCf,
-                                                    const float* __restrict__ dnf, Scratch sc,
-                                                    float* __restrict__ dC0,
-                                                    float* __restrict__ dn0, int S, int Dh,
-                                                    int chunk, int nc) {
-  __shared__ __align__(16) float qa[LMAX * LDP];
-  __shared__ __align__(16) float nb[LMAX * LDP];
-  __shared__ float ws[LMAX], inv[LMAX], das[LMAX];
-  const int P = tiles(Dh), bh = blockIdx.y;
-  const int d0 = T * (blockIdx.x / P), e0 = T * (blockIdx.x % P);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const bool carry_n = e0 == 0 && tid < T && d0 + tid < Dh;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = d0 + 4 * ty + i, e = e0 + 4 * tx + j;
-      acc[i][j] = (dCf && d < Dh && e < Dh) ? dCf[((size_t)bh * Dh + d) * Dh + e] : 0.f;
-    }
-  float dn = (carry_n && dnf) ? dnf[(size_t)bh * Dh + d0 + tid] : 0.f;
-  for (int c = nc - 1; c >= 0; --c) {
-    const int t0 = c * chunk, Lc = min(chunk, S - t0);
-    const size_t gb = (size_t)bh * S + t0;
-    float* out = sc.dCs + ((size_t)bh * nc + c) * Dh * Dh;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = d0 + 4 * ty + i, e = e0 + 4 * tx + j;
-        if (d < Dh && e < Dh) out[(size_t)d * Dh + e] = acc[i][j];
-      }
-    if (carry_n) sc.dns[((size_t)bh * nc + c) * Dh + d0 + tid] = dn;
-    if (tid < LMAX) {
-      const bool in = tid < Lc;
-      const float4 st = in ? sc.step[gb + tid] : make_float4(0.f, 0.f, 0.f, 1.f);
-      ws[tid] = st.x;
-      inv[tid] = 1.f / st.w;
-      das[tid] = in ? sc.da[gb + tid] : 0.f;
-    }
-    __syncthreads();
-    load_nat(qa, q + gb * Dh + d0, Dh, Lc, Dh - d0, LMAX, [&](int r) { return ws[r]; });
-    load_nat(nb, dh + gb * Dh + e0, Dh, Lc, Dh - e0, LMAX, [&](int r) { return inv[r]; });
-    __syncthreads();
-    const float decay = sc.decay[(size_t)bh * nc + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= decay;
-    mm<LMAX>(acc, qa, nb, ty, tx);
-    if (carry_n) {
+    if (tid < T && d0 + tid < Dh) {          // dn's increment over the chunk
       float sum = 0.f;
-      for (int t = 0; t < LMAX; ++t) sum = fmaf(qa[t * LDP + tid], das[t], sum);
-      dn = fmaf(decay, dn, sum);
+      for (int t = 0; t < LMAX; ++t) sum = fmaf(qN[t * LDP + tid] * sw[t], sda[t], sum);
+      sc.qda[ci * Dh + d0 + tid] = sum;
     }
     __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = d0 + 4 * ty + i, e = e0 + 4 * tx + j;
-      if (dC0 && d < Dh && e < Dh) dC0[((size_t)bh * Dh + d) * Dh + e] = acc[i][j];
-    }
-  if (carry_n && dn0) dn0[(size_t)bh * Dh + d0 + tid] = dn;
 }
 
-// ------------------------------------------------- pass 5: the state's terms
-// CTA (tile p of 64 columns, kind, c, bh). Kind 0, rows d of C0_c and dC_c:
-//   X = dN C0_c^T and Y = V dC_c^T over all e, 32 a step;
-//   dq_t[d] += w_t (X + da_t n0[d]),  dk_s[d] += wk_s (Y + dn[d]);
-//   partials: dwk_s = sum_d k_s[d] (Y + dn[d]),  <dC_c, C0_c> + dn . n0.
-// Kind 1, columns e of C0_c and dC_c:
-//   U = Q C0_c and R = K dC_c over all d;  dv_s[e] += wk_s R;
-//   partial: dw_t = sum_e dN_t[e] U[t][e].
-__global__ void __launch_bounds__(THREADS) bwd_inter(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dh, Scratch sc, float* __restrict__ dq, float* __restrict__ dk,
-    float* __restrict__ dv, int S, int Dh, int chunk, int nc) {
-  __shared__ __align__(16) float sa[KT * LDP], sb[KT * LDP], sc2[KT * LDP], sd[KT * LDP];
-  __shared__ float ws[LMAX], wks[LMAX], inv[LMAX], das[LMAX];
-  __shared__ double red[THREADS / 32];
-  const int P = tiles(Dh), kind = blockIdx.x / P, p = blockIdx.x % P;
-  const int c = blockIdx.y, bh = blockIdx.z, tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int t0 = c * chunk, Lc = min(chunk, S - t0), x0 = T * p;
-  const size_t gb = (size_t)bh * S + t0, base = gb * Dh, BHS = (size_t)gridDim.z * S;
-  const size_t sidx = (size_t)bh * nc + c;
-  const float* C = sc.Cs + sidx * Dh * Dh;
-  const float* dC = sc.dCs + sidx * Dh * Dh;
-  const float* n0 = sc.ns + sidx * Dh;
-  const float* dn = sc.dns + sidx * Dh;
-  if (tid < LMAX) {
-    const bool in = tid < Lc;
-    const float4 st = in ? sc.step[gb + tid] : make_float4(0.f, 0.f, 0.f, 1.f);
-    ws[tid] = st.x;
-    wks[tid] = st.y;
-    inv[tid] = 1.f / st.w;
-    das[tid] = in ? sc.da[gb + tid] : 0.f;
+// ---------------------------------------------- passes 5-7: the three walks
+// CTA (block ab of EB rows a, block `part` of NJ tiles of 64 columns b, bh),
+// two warpgroups, each holding Z[a, b] for its 64 rows a as NJ fp32 m64n64
+// accumulators. Over the chunks (in order, or from the last), per chunk:
+//   1. O = Z R^T over the CTA's columns (A = Z split in registers, B = R's
+//      chunk rows, K-major, from the ring), out to the partial sums op[part];
+//   2. STATES: Z (the state the chunk starts from) out to cs, in the
+//      threads' register order; DC: dotted with those (a partial a warp);
+//   3. Z = decay Z + P^T Q (A = P's chunk rows, MN-major, from the chunk
+//      buffer; B = Q's, MN-major, from the ring).
+// Warp 0 issues the TMA loads into a 6-stage ring of R and Q tiles (R's NJ,
+// then Q's NJ of each chunk) five ahead, and P's 128 columns a chunk into
+// the chunk buffer: the forward walk's scheme (mlstm_chunk.cu pass 4), with
+// the whole warp, not thread 0, taking the producer's branch.
+struct WalkSmem {
+  static constexpr int BAR = 0;     // full[STAGES], empty[STAGES], cfull, cempty
+  static constexpr int RING = 1024;
+  static constexpr int CHUNK = RING + STAGES * STAGE_BYTES;   // P's piece p, half w at (2p + w) TILE
+  static constexpr int SMEM = 1024 + CHUNK + CHUNK_BYTES;     // + alignment slack
+  static_assert(SMEM <= 232448, "over the 227 KiB a CTA may use");
+};
+
+// The walks, by what they do besides the product and the update: the
+// chunk-start states go forward and out; dC goes in reverse, dotted with
+// them, and out at the end; dC^T goes in reverse. Fixed at compile time: a
+// branch at run time around the accumulators made ptxas serialize the wgmma.
+enum WalkKind { STATES = 0, DC = 1, DCT = 2 };
+
+struct WalkArgs {
+  const float* init;     // Z before the first chunk, (a, b) at bh Dh^2 + a sa + b sb; null: 0
+  int init_sa, init_sb;
+  float* fin;            // DC: null, or Z after the last chunk, (BH, Dh, Dh) as [a][b]
+  float* op;             // (ds, BH, S, Dh): partial sums of O[t][a]
+  float4* cs;            // (BH, nc, n_cta, 8 NJ, 256): Z at each chunk's start (STATES
+                         // writes, DC reads)
+  double* ddp;           // DC: (BH, nc, n_cta, 8) the dot <Z, cs> a warp
+  const float* decay;    // (BH, nc)
+  int BH, S, Dh, chunk, nc, ds;
+};
+
+template <int NJ, int KIND>
+__device__ __forceinline__ void walk_body(const CUtensorMap* tm_r, const CUtensorMap* tm_q,
+                                          const CUtensorMap* tm_p, const WalkArgs& a) {
+  using L = WalkSmem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 1 KiB alignment: the 128-byte swizzle repeats every 1024 bytes, and TMA
+  // and wgmma agree on it only from such a boundary
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gen = smem_raw + (base - smem_u32(smem_raw));   // the same, generic
+  const uint32_t bar_full = base + L::BAR, bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_cfull = bar_empty + 8 * STAGES, bar_cempty = bar_cfull + 8;
+  const int S = a.S, Dh = a.Dh, chunk = a.chunk, nc = a.nc, DS = a.ds;
+  const int bh = blockIdx.y, ab = blockIdx.x / DS, part = blockIdx.x % DS;
+  const int b_base = part * NJ * 64;
+  auto chunk_at = [&](int i) { return KIND == STATES ? i : nc - 1 - i; };
+
+  // rows past a chunk of fewer than 64 steps are never loaded: zero them once
+  for (int i = threadIdx.x; i < (L::SMEM - 1024 - L::RING) / 16; i += WALK_THREADS)
+    reinterpret_cast<uint4*>(gen + L::RING)[i] = make_uint4(0, 0, 0, 0);
+  fence_async_smem();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, WALK_THREADS / 32);    // every warp
+    }
+    mbar_init(bar_cfull, 1);
+    mbar_init(bar_cempty, WALK_THREADS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  float a1[4][4], a2[4][4];
-  zero(a1);
-  zero(a2);
-  if (kind == 0) {
-    double dd = 0.0;
-    for (int e0 = 0; e0 < Dh; e0 += KT) {
-      load_tr(sa, dh + base + e0, Dh, Lc, KT, [&](int r) { return inv[r]; });
-      load_tr(sc2, v + base + e0, Dh, Lc, KT, One());
-      // C0_c and dC_c rows x0.., columns e0..: read by the same thread, so
-      // <dC, C0> over this tile is summed here
-      for (int i = tid; i < T * KT; i += THREADS) {
-        const int r = i / KT, e = i % KT;
-        const bool ok = x0 + r < Dh;
-        const size_t o = (size_t)(x0 + r) * Dh + e0 + e;
-        const float cv = ok ? C[o] : 0.f, dcv = ok ? dC[o] : 0.f;
-        sb[e * LDP + r] = cv;
-        sd[e * LDP + r] = dcv;
-        dd = fma((double)cv, (double)dcv, dd);
+
+  // Ring load n: tile n % NJ of R (first NJ of a chunk) or of Q (next NJ) of
+  // the walk's chunk n / (2 NJ), piece p at slab p BH + bh.
+  // Warp 0 issues the loads, its lane 0 alone inside the PTX: the warp is
+  // the unit of the branch (its index broadcast from lane 0, so the compiler
+  // knows it is uniform), and no wgmma wait lands in a divergent path.
+  const uint32_t box = chunk * 128;
+  const int n_loads = 2 * NJ * nc;
+  const bool issue = (threadIdx.x & 31) == 0;
+  auto load_tile = [&](int n) {
+    const int st = n % STAGES, c = chunk_at(n / (2 * NJ)), j = n % (2 * NJ);
+    const uint32_t full = bar_full + 8 * st, dst = base + L::RING + st * STAGE_BYTES;
+    const CUtensorMap* map = j < NJ ? tm_r : tm_q;
+    mbar_wait(bar_empty + 8 * st, ((n / STAGES) & 1) ^ 1);   // round 0 passes
+    mbar_expect_tx_if(full, PIECES * box, issue);
+    for (int p = 0; p < PIECES; ++p)
+      tma_load_3d_if(dst + p * TILE, map, b_base + 64 * (j % NJ), c * chunk, p * a.BH + bh,
+                     full, issue);
+  };
+  auto load_chunk = [&](int i) {
+    const int c = chunk_at(i);
+    const uint32_t ch = base + L::CHUNK;
+    mbar_wait(bar_cempty, (i & 1) ^ 1);
+    mbar_expect_tx_if(bar_cfull, PIECES * 2 * box, issue);
+    for (int p = 0; p < PIECES; ++p)
+      for (int w = 0; w < 2; ++w)
+        tma_load_3d_if(ch + (2 * p + w) * TILE, tm_p, EB * ab + 64 * w, c * chunk,
+                       p * a.BH + bh, bar_cfull, issue);
+  };
+  const bool producer = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0) == 0;
+  if (producer) {
+    for (int n = 0; n < STAGES - 1 && n < n_loads; ++n) load_tile(n);
+    load_chunk(0);
+  }
+  // freeing ring load n lets load n + STAGES - 1 in (into the slot of n - 1)
+  auto release = [&](int n, int lane) {
+    mbar_arrive_if(bar_empty + 8 * (n % STAGES), lane == 0);
+    if (producer && n + STAGES - 1 < n_loads) load_tile(n + STAGES - 1);
+  };
+
+  {
+    // the warpgroup, broadcast from lane 0 so the compiler knows it is uniform
+    const int w = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / WG, 0);
+    const int tid = threadIdx.x % WG, lane = tid & 31;
+    const int r = (tid >> 5) * 16 + (lane >> 2);          // rows r, r + 8 of the block
+    const int q2 = 2 * (lane & 3);                        // column pair in a block of 8
+    const int a_w = EB * ab + 64 * w;                     // this warpgroup's rows a
+    // accumulator element i: row r + 8 ((i >> 1) & 1), column 8 (i >> 2) + q2 + (i & 1)
+    auto row_of = [&](int i) { return r + 8 * ((i >> 1) & 1); };
+    auto col_of = [&](int i) { return 8 * (i >> 2) + q2 + (i & 1); };
+    const size_t n_cta = gridDim.x, cta = blockIdx.x;
+
+    float cacc[NJ][32];                   // Z[a_w + row, b_base + 64 j + column]
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int x = a_w + row_of(i), y = b_base + 64 * j + col_of(i);
+        cacc[j][i] = (a.init && x < Dh && y < Dh)
+                         ? a.init[(size_t)bh * Dh * Dh + (size_t)x * a.init_sa +
+                                  (size_t)y * a.init_sb]
+                         : 0.f;
       }
-      __syncthreads();
-      mm<KT>(a1, sa, sb, ty, tx);
-      mm<KT>(a2, sc2, sd, ty, tx);
-      __syncthreads();
-    }
-    if (tid < T && x0 + tid < Dh) dd = fma((double)dn[x0 + tid], (double)n0[x0 + tid], dd);
-    dd = sum32(dd);
-    if (tid % 32 == 0) red[tid / 32] = dd;
-    double part[4] = {0.0, 0.0, 0.0, 0.0};
+
+    uint32_t a1[2][4], a2[2][4], a3[2][4];   // A fragments of Z, two in turn
+    for (int ci = 0, it = 0; ci < nc; ++ci) {
+      const int c = chunk_at(ci), t0 = c * chunk, Lc = min(chunk, S - t0);
+      const size_t gb = (size_t)bh * S + t0;
+      const uint32_t ch = base + L::CHUNK;
+      float hq[32];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 32; ++i) hq[i] = 0.f;
+      // ---- 1. O = Z R^T over this CTA's columns, a k-step a group, with
+      // the fragments of the next built while the last is on the tensor cores
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = 4 * ty + i, d = x0 + 4 * tx + j;
-        if (r < Lc && d < Dh) {
-          const size_t o = base + (size_t)r * Dh + d;
-          dq[o] += ws[r] * (a1[i][j] + das[r] * n0[d]);
-          const float y = a2[i][j] + dn[d];
-          dk[o] += wks[r] * y;
-          part[i] = fma((double)k[o], (double)y, part[i]);
+      for (int g = 0; g < 4 * NJ; ++g) {
+        const int j = g / 4, kk = g % 4, b = g & 1;
+        const int st = (it + j) % STAGES;
+        const uint32_t tr = base + L::RING + st * STAGE_BYTES;
+        if (g >= 2) {
+          wgmma_wait<1>();                // group g - 2, which read buffer b, is done
+          pin(a1);
+          pin(a2);
+          pin(a3);
+          if ((g - 2) % 4 == 3) release(it + j - 1, lane);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split3_pair(cacc[j][8 * kk + 2 * i], cacc[j][8 * kk + 2 * i + 1], a1[b][i], a2[b][i],
+                      a3[b][i]);
+        if (kk == 0) mbar_wait(bar_full + 8 * st, ((it + j) / STAGES) & 1);
+        const uint64_t rd[PIECES] = {desc_kmajor(tr, kk), desc_kmajor(tr + TILE, kk),
+                                     desc_kmajor(tr + 2 * TILE, kk)};
+        wgmma_fence();
+        wgmma_rs6(hq, a1[b], a2[b], a3[b], rd);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      pin(a1);
+      pin(a2);
+      pin(a3);
+      pin(hq);
+      release(it + NJ - 1, lane);
+      it += NJ;
+      float* op = a.op + ((size_t)part * a.BH * S + gb) * Dh;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int t = col_of(i), x = a_w + row_of(i);
+        if (t < Lc && x < Dh) op[(size_t)t * Dh + x] = hq[i];
+      }
+      // ---- 2 and 3. Z out or dotted, then Z = decay Z + P^T Q, a tile a group.
+      // DC loads each tile's states one tile ahead, while the tensor cores
+      // work, and dots them with Z before its decay
+      const float decay = a.decay[(size_t)bh * nc + c];
+      float4* cs = a.cs + (((size_t)bh * nc + c) * n_cta + cta) * (8 * NJ) * WALK_THREADS +
+                   threadIdx.x;
+      double dd = 0.0;
+      float4 xs[8];
+      if constexpr (KIND == DC) {
+#pragma unroll
+        for (int m = 0; m < 8; ++m) xs[m] = cs[m * WALK_THREADS];
+      }
+      mbar_wait(bar_cfull, ci & 1);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int st = (it + j) % STAGES;
+        const uint32_t tq = base + L::RING + st * STAGE_BYTES;
+        if constexpr (KIND == STATES) {
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+            cs[(8 * j + m) * WALK_THREADS] = make_float4(cacc[j][4 * m], cacc[j][4 * m + 1],
+                                                         cacc[j][4 * m + 2], cacc[j][4 * m + 3]);
+        }
+        if constexpr (KIND == DC) {
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+            dd = fma((double)cacc[j][4 * m], (double)xs[m].x, dd);
+            dd = fma((double)cacc[j][4 * m + 1], (double)xs[m].y, dd);
+            dd = fma((double)cacc[j][4 * m + 2], (double)xs[m].z, dd);
+            dd = fma((double)cacc[j][4 * m + 3], (double)xs[m].w, dd);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) cacc[j][i] *= decay;
+        mbar_wait(bar_full + 8 * st, ((it + j) / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t qd[PIECES] = {desc_mnmajor(tq, kk), desc_mnmajor(tq + TILE, kk),
+                                       desc_mnmajor(tq + 2 * TILE, kk)};
+          const uint64_t pd[PIECES] = {desc_mnmajor(ch + w * TILE, kk),
+                                       desc_mnmajor(ch + (2 + w) * TILE, kk),
+                                       desc_mnmajor(ch + (4 + w) * TILE, kk)};
+          wgmma_ss6<1>(cacc[j], pd, qd);
+        }
+        wgmma_commit();
+        if constexpr (KIND == DC) {
+          if (j + 1 < NJ) {
+#pragma unroll
+            for (int m = 0; m < 8; ++m) xs[m] = cs[(8 * (j + 1) + m) * WALK_THREADS];
+          }
+        }
+        if (j > 0) {                      // tile j - 1's group is done: free its stage
+          wgmma_wait<1>();
+          pin(cacc[j - 1]);
+          release(it + j - 1, lane);
         }
       }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const double s = sum16(part[i]);
-      const int r = 4 * ty + i;
-      if (tx == 0 && r < Lc) sc.dwkp[p * BHS + gb + r] = (float)s;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      double s = 0.0;
-      for (int w = 0; w < THREADS / 32; ++w) s += red[w];
-      sc.ddp[(size_t)p * gridDim.z * nc + sidx] = (float)s;
-    }
-  } else {
-    for (int d0 = 0; d0 < Dh; d0 += KT) {
-      load_tr(sa, q + base + d0, Dh, Lc, KT, One());
-      load_tr(sc2, k + base + d0, Dh, Lc, KT, One());
-      load_nat(sb, C + (size_t)d0 * Dh + x0, Dh, KT, Dh - x0, KT, One());
-      load_nat(sd, dC + (size_t)d0 * Dh + x0, Dh, KT, Dh - x0, KT, One());
-      __syncthreads();
-      mm<KT>(a1, sa, sb, ty, tx);
-      mm<KT>(a2, sc2, sd, ty, tx);
-      __syncthreads();
-    }
-    double part[4] = {0.0, 0.0, 0.0, 0.0};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = 4 * ty + i, e = x0 + 4 * tx + j;
-        if (r < Lc && e < Dh) {
-          const size_t o = base + (size_t)r * Dh + e;
-          dv[o] += wks[r] * a2[i][j];
-          part[i] = fma((double)(dh[o] * inv[r]), (double)a1[i][j], part[i]);
-        }
+      wgmma_wait<0>();
+      pin(cacc[NJ - 1]);
+      release(it + NJ - 1, lane);
+      it += NJ;
+      mbar_arrive_if(bar_cempty, lane == 0);
+      if (producer && ci + 1 < nc) load_chunk(ci + 1);
+      if constexpr (KIND == DC) {
+        dd = sum32(dd);
+        if (lane == 0) a.ddp[(((size_t)bh * nc + c) * n_cta + cta) * 8 + threadIdx.x / 32] = dd;
       }
+    }
+    if (KIND == DC && a.fin) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const double s = sum16(part[i]);
-      const int r = 4 * ty + i;
-      if (tx == 0 && r < Lc) sc.dwp[p * BHS + gb + r] = (float)s;
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int x = a_w + row_of(i), y = b_base + 64 * j + col_of(i);
+          if (x < Dh && y < Dh) a.fin[((size_t)bh * Dh + x) * Dh + y] = cacc[j][i];
+        }
     }
   }
 }
 
-// ------------------------------------------------- pass 6: the gates' gradients
+// The three walks: one body under three names, so a profile tells them apart.
+#define MLSTM_BWD_WALK(name, kind)                                                            \
+  template <int NJ>                                                                         \
+  __global__ void __launch_bounds__(WALK_THREADS, 1)                                        \
+      name(const __grid_constant__ CUtensorMap tm_r, const __grid_constant__ CUtensorMap tm_q, \
+           const __grid_constant__ CUtensorMap tm_p, const WalkArgs a) {                     \
+    walk_body<NJ, kind>(&tm_r, &tm_q, &tm_p, a);                                            \
+  }
+MLSTM_BWD_WALK(bwd_walk_states, STATES)   // 5: C0_c, forward
+MLSTM_BWD_WALK(bwd_walk_dc, DC)           // 6: dC_c, reverse
+MLSTM_BWD_WALK(bwd_walk_dct, DCT)         // 7: dC_c^T, reverse
+#undef MLSTM_BWD_WALK
+
+// ------------------------------------------------- pass 8: the state's terms
+// CTA (c, bh): dn (the gradient chunk c's output n receives) by dn = decay dn
+// + qda from the last chunk back, d(decay) = walk 6's partials of <dC, C0>
+// then dn . n0, in order; then a warp a row, four columns a lane at a time,
+// each walk's partial sums added in order:
+//   X = C0 dh_t / D_t:   dq_t += w_t (X + da_t n0),  dw_t = q_t . X;
+//   Y = dC v_s + dn:     dk_s += wk_s Y,             dwk_s = k_s . Y;
+//   R = dC^T k_s:        dv_s += wk_s R.
+// Chunk 0's CTA writes dn0.
+__global__ void __launch_bounds__(THREADS) bwd_terms(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ dnf,
+    Scratch sc, float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ dn0, int S, int Dh, int chunk, int nc, int ds, int n_cta) {
+  __shared__ float sn[MAX_DH], sdn[MAX_DH];
+  __shared__ double red[THREADS / 32];
+  const int c = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int t0 = c * chunk, Lc = min(chunk, S - t0);
+  const size_t gb = (size_t)bh * S + t0, ci = (size_t)bh * nc + c;
+  const size_t part = (size_t)gridDim.y * S * Dh;
+  const float* decay = sc.decay + (size_t)bh * nc;
+  const float* qda = sc.qda + (size_t)bh * nc * Dh;
+  double dd = 0.0;
+  for (int d = tid; d < Dh; d += THREADS) {
+    float dn = dnf ? dnf[(size_t)bh * Dh + d] : 0.f;
+    for (int j = nc - 1; j > c; --j) dn = fmaf(decay[j], dn, qda[(size_t)j * Dh + d]);
+    const float n = sc.ns[ci * Dh + d];
+    sn[d] = n;
+    sdn[d] = dn;
+    dd = fma((double)dn, (double)n, dd);
+    if (c == 0 && dn0) dn0[(size_t)bh * Dh + d] = fmaf(decay[0], dn, qda[d]);
+  }
+  dd = sum32(dd);
+  if (lane == 0) red[warp] = dd;
+  __syncthreads();
+  if (tid == 0) {
+    const double* p = sc.ddp + ci * n_cta * 8;
+    double s = 0.0;
+    for (int i = 0; i < n_cta * 8; ++i) s += p[i];
+    for (int i = 0; i < THREADS / 32; ++i) s += red[i];
+    sc.ddec[ci] = s;
+  }
+  for (int t = warp; t < Lc; t += THREADS / 32) {
+    const float4 st = sc.step[gb + t];
+    const float w = st.x, wk = st.y, inv = 1.f / st.w, da = sc.da[gb + t];
+    const size_t row = (gb + t) * Dh;
+    double xw = 0.0, yw = 0.0;
+    for (int d = 4 * lane; d < Dh; d += 128) {
+      float4 x = *reinterpret_cast<const float4*>(sc.xp + row + d);
+      float4 y = *reinterpret_cast<const float4*>(sc.yp + row + d);
+      float4 r = *reinterpret_cast<const float4*>(sc.rp + row + d);
+      for (int p = 1; p < ds; ++p) {
+        const float4 xo = *reinterpret_cast<const float4*>(sc.xp + p * part + row + d);
+        const float4 yo = *reinterpret_cast<const float4*>(sc.yp + p * part + row + d);
+        const float4 ro = *reinterpret_cast<const float4*>(sc.rp + p * part + row + d);
+        x = make_float4(x.x + xo.x, x.y + xo.y, x.z + xo.z, x.w + xo.w);
+        y = make_float4(y.x + yo.x, y.y + yo.y, y.z + yo.z, y.w + yo.w);
+        r = make_float4(r.x + ro.x, r.y + ro.y, r.z + ro.z, r.w + ro.w);
+      }
+      float4 gq = *reinterpret_cast<float4*>(dq + row + d);
+      float4 gk = *reinterpret_cast<float4*>(dk + row + d);
+      float4 gv = *reinterpret_cast<float4*>(dv + row + d);
+      const float xs[4] = {x.x * inv, x.y * inv, x.z * inv, x.w * inv};
+      const float ys[4] = {y.x + sdn[d], y.y + sdn[d + 1], y.z + sdn[d + 2], y.w + sdn[d + 3]};
+      gq.x += w * (xs[0] + da * sn[d]);
+      gq.y += w * (xs[1] + da * sn[d + 1]);
+      gq.z += w * (xs[2] + da * sn[d + 2]);
+      gq.w += w * (xs[3] + da * sn[d + 3]);
+      gk.x += wk * ys[0];
+      gk.y += wk * ys[1];
+      gk.z += wk * ys[2];
+      gk.w += wk * ys[3];
+      gv.x += wk * r.x;
+      gv.y += wk * r.y;
+      gv.z += wk * r.z;
+      gv.w += wk * r.w;
+      *reinterpret_cast<float4*>(dq + row + d) = gq;
+      *reinterpret_cast<float4*>(dk + row + d) = gk;
+      *reinterpret_cast<float4*>(dv + row + d) = gv;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {   // q and k are only 8-byte aligned
+        xw = fma((double)q[row + d + u], (double)xs[u], xw);
+        yw = fma((double)k[row + d + u], (double)ys[u], yw);
+      }
+    }
+    xw = sum32(xw);
+    yw = sum32(yw);
+    if (lane == 0) {
+      sc.dw[gb + t] = xw;
+      sc.dwk[gb + t] = yw;
+    }
+  }
+}
+
+// ------------------------------------------------- pass 9: the gates' gradients
 // CTA bh, a thread a chunk (in parallel), in fp64: the gradients of g and of
 // run_t from the weights (Z, dw_t w_t, dwk_s wk_s, d(decay) decay) and of
 // m_t (the floor), run_t's routed to the running argmax's g or to m0. The
@@ -670,27 +948,22 @@ __global__ void __launch_bounds__(THREADS) bwd_inter(
 __global__ void __launch_bounds__(128) bwd_gates_back(Scratch sc, const float* __restrict__ dmf_p,
                                                       float* __restrict__ dli,
                                                       float* __restrict__ dlf,
-                                                      float* __restrict__ dm0, int S, int Dh,
+                                                      float* __restrict__ dm0, int S,
                                                       int chunk, int nc) {
-  const int bh = blockIdx.x, P = tiles(Dh);
-  const size_t BHS = (size_t)gridDim.x * S, BHN = (size_t)gridDim.x * nc;
+  const int bh = blockIdx.x;
   for (int c = threadIdx.x; c < nc; c += blockDim.x) {
     const int t0 = c * chunk, Lc = min(chunk, S - t0);
     const size_t gb = (size_t)bh * S + t0, ci = (size_t)bh * nc + c;
     const double m0 = sc.chain[ci].x, decay = sc.decay[ci];
     double* dg = sc.dg + gb;
     double* dF = sc.dF + gb;
-    double ddecay = 0.0;
-    for (int p = 0; p < P; ++p) ddecay += sc.ddp[p * BHN + ci];
+    const double ddecay = sc.ddec[ci];
     double dm0 = ddecay * decay, tail = ddecay * decay;   // tail: -drun at the last step
     // the weights' gradients; dF holds drun_t for now
     for (int t = 0; t < Lc; ++t) {
       const float4 st = sc.step[gb + t];
-      double dw = (double)sc.da[gb + t] * sc.qn0[gb + t], dwk = 0.0;
-      for (int p = 0; p < P; ++p) {
-        dw += sc.dwp[p * BHS + gb + t];
-        dwk += sc.dwkp[p * BHS + gb + t];
-      }
+      const double dw = (double)sc.da[gb + t] * sc.qn0[gb + t] + sc.dw[gb + t];
+      const double dwk = sc.dwk[gb + t];
       dg[t] = sc.zc[gb + t] + dwk * st.y;
       tail += dwk * st.y;
       dm0 += dw * st.x;
@@ -748,6 +1021,39 @@ __global__ void __launch_bounds__(128) bwd_gates_back(Scratch sc, const float* _
   }
 }
 
+// Walk `which` (a WalkKind): its three operands' tensor maps (R, Q, P), then
+// the launch.
+template <int NJ>
+cudaError_t launch_walk(int which, const __nv_bfloat16* r, const __nv_bfloat16* q,
+                        const __nv_bfloat16* p, const WalkArgs& a, int n_cta,
+                        cudaStream_t stream) {
+  using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, WalkArgs);
+  const Kernel kernels[3] = {bwd_walk_states<NJ>, bwd_walk_dc<NJ>, bwd_walk_dct<NJ>};
+  static const cudaError_t set[3] = {
+      cudaFuncSetAttribute(kernels[0], cudaFuncAttributeMaxDynamicSharedMemorySize, WalkSmem::SMEM),
+      cudaFuncSetAttribute(kernels[1], cudaFuncAttributeMaxDynamicSharedMemorySize, WalkSmem::SMEM),
+      cudaFuncSetAttribute(kernels[2], cudaFuncAttributeMaxDynamicSharedMemorySize, WalkSmem::SMEM)};
+  if (set[which] != cudaSuccess) return set[which];
+  const int Dp = padded(a.Dh);
+  CUtensorMap tr, tq, tp;
+  if (!tensor_map_pieces(&tr, r, Dp, a.S, PIECES * a.BH, a.chunk) ||
+      !tensor_map_pieces(&tq, q, Dp, a.S, PIECES * a.BH, a.chunk) ||
+      !tensor_map_pieces(&tp, p, Dp, a.S, PIECES * a.BH, a.chunk))
+    return cudaErrorInvalidValue;
+  kernels[which]<<<dim3(n_cta, a.BH), WALK_THREADS, WalkSmem::SMEM, stream>>>(tr, tq, tp, a);
+  return cudaGetLastError();
+}
+
+cudaError_t walk(int which, int nj, const __nv_bfloat16* r, const __nv_bfloat16* q,
+                 const __nv_bfloat16* p, const WalkArgs& a, int n_cta, cudaStream_t stream) {
+  switch (nj) {
+    case 1: return launch_walk<1>(which, r, q, p, a, n_cta, stream);
+    case 2: return launch_walk<2>(which, r, q, p, a, n_cta, stream);
+    case 3: return launch_walk<3>(which, r, q, p, a, n_cta, stream);
+    default: return launch_walk<4>(which, r, q, p, a, n_cta, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -763,8 +1069,8 @@ size_t mlstm_chunk_bwd_scratch_bytes(int BH, int S, int Dh, int chunk) {
 // and contiguous; scratch: 256-byte aligned, of mlstm_chunk_bwd_scratch_bytes().
 // C0, n0, m0 may be null (the empty state), as may dC, dn, dm (no gradient
 // of the final state) and dC0, dn0, dm0 (none wanted). Dh % 32 == 0, Dh <=
-// 1024, 1 <= chunk <= min(64, S). Launches six kernels
-// on `stream`; returns a cudaError_t, 0 on success.
+// 1024, 1 <= chunk <= min(64, S). Launches nine kernels on `stream`; returns
+// a cudaError_t, 0 on success.
 int mlstm_chunk_bwd(const float* q, const float* k, const float* v, const float* li,
                     const float* lf, const float* C0, const float* n0, const float* m0,
                     const float* h, const float* dh, const float* dC, const float* dn,
@@ -774,21 +1080,37 @@ int mlstm_chunk_bwd(const float* q, const float* k, const float* v, const float*
   if (BH < 1 || S < 1 || Dh < 32 || Dh % 32 || Dh > MAX_DH || chunk < 1 || chunk > LMAX ||
       chunk > S)
     return (int)cudaErrorInvalidValue;
-  const int nc = (S + chunk - 1) / chunk, P = tiles(Dh);
+  const int nc = (S + chunk - 1) / chunk;
+  const WalkShape ws = walk_shape(Dh);
+  const int n_cta = ws.eb * ws.ds;
   Scratch sc;
   scratch_layout(&sc, static_cast<char*>(scratch), BH, S, Dh, nc);
   static const cudaError_t set = cudaFuncSetAttribute(
       bwd_local, cudaFuncAttributeMaxDynamicSharedMemorySize, LocalSmem::BYTES);
   if (set != cudaSuccess) return (int)set;
+  const dim3 chunks(nc, BH);
   bwd_gates<<<BH, 128, 0, stream>>>(li, lf, m0, sc, S, chunk, nc);
-  bwd_states<<<dim3(P * P, BH), THREADS, 0, stream>>>(k, v, C0, n0, sc, S, Dh, chunk, nc);
-  bwd_local<<<dim3(nc, BH), THREADS, LocalSmem::BYTES, stream>>>(q, k, v, h, dh, sc, dq, dk,
-                                                                  dv, S, Dh, chunk, nc);
-  bwd_walk<<<dim3(P * P, BH), THREADS, 0, stream>>>(q, dh, dC, dn, sc, dC0, dn0, S, Dh, chunk,
-                                                     nc);
-  bwd_inter<<<dim3(2 * P, nc, BH), THREADS, 0, stream>>>(q, k, v, dh, sc, dq, dk, dv, S, Dh,
-                                                         chunk, nc);
-  bwd_gates_back<<<BH, 128, 0, stream>>>(sc, dm, dli, dlf, dm0, S, Dh, chunk, nc);
+  bwd_split<<<chunks, THREADS, 0, stream>>>(q, k, v, dh, sc, S, Dh, chunk, nc, 0);
+  bwd_local<<<chunks, THREADS, LocalSmem::BYTES, stream>>>(q, k, v, h, dh, n0, sc, dq, dk, dv,
+                                                           S, Dh, chunk, nc);
+  bwd_split<<<chunks, THREADS, 0, stream>>>(q, k, v, dh, sc, S, Dh, chunk, nc, 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // 5. C0_c: Z = C (a = d, b = e), O = C0 dh^T
+  WalkArgs a{C0, Dh, 1, nullptr, sc.xp, sc.cs, nullptr, sc.decay, BH, S, Dh, chunk, nc, ws.ds};
+  err = walk(STATES, ws.nj, sc.dhx, sc.vx, sc.kwx, a, n_cta, stream);
+  if (err != cudaSuccess) return (int)err;
+  // 6. dC_c: Z = dC (a = d, b = e), O = dC v^T, <dC_c, C0_c>; dC0
+  a = WalkArgs{dC, Dh, 1, dC0, sc.yp, sc.cs, sc.ddp, sc.decay, BH, S, Dh, chunk, nc, ws.ds};
+  err = walk(DC, ws.nj, sc.vx, sc.dhx, sc.qwx, a, n_cta, stream);
+  if (err != cudaSuccess) return (int)err;
+  // 7. dC_c again: Z = dC^T (a = e, b = d), O = dC^T k^T
+  a = WalkArgs{dC, 1, Dh, nullptr, sc.rp, sc.cs, nullptr, sc.decay, BH, S, Dh, chunk, nc, ws.ds};
+  err = walk(DCT, ws.nj, sc.kx, sc.qwx, sc.dhx, a, n_cta, stream);
+  if (err != cudaSuccess) return (int)err;
+  bwd_terms<<<chunks, THREADS, 0, stream>>>(q, k, dn, sc, dq, dk, dv, dn0, S, Dh, chunk, nc,
+                                            ws.ds, n_cta);
+  bwd_gates_back<<<BH, 128, 0, stream>>>(sc, dm, dli, dlf, dm0, S, chunk, nc);
   return (int)cudaGetLastError();
 }
 

@@ -42,8 +42,9 @@ MAX_HEAD_DIM = 1024     # C's column slice must fit one CTA's shared memory
 
 # The backward against autograd of the plain version, both fp32: each
 # gradient's max abs difference over its max abs value. The kernel's sums
-# run in another order than autograd's (measured 1e-7 to 2.2e-5 on the
-# card's cases, chip_smoke.py phase 10a); 1e-4, as the flash backward's fp32. Where q . n nears 0 (near-cancelling
+# run in another order than autograd's, its Dh^2-sized products on the
+# tensor cores in three bf16 pieces (measured 1.8e-7 to 2.2e-5 on the card's
+# cases, chip_smoke.py phase 10a); 1e-4, as the flash backward's fp32. Where q . n nears 0 (near-cancelling
 # denominators), h and its gradient are ill-conditioned: two fp32 orders of
 # the sums disagree beyond that, so there both are held against an fp64
 # plain autograd, the kernel to the larger of BWD_TOL and BWD_FLOOR_FACTOR

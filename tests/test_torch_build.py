@@ -12,10 +12,11 @@ pytest.importorskip("torch")
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import BWD_SOURCES, SOURCES  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import BWD_SOURCES as MLSTM_BWD_SOURCES  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import SOURCES as MLSTM_SOURCES  # noqa: E402
 
 LIBRARIES = [("flash_attention", SOURCES), ("flash_attention_bwd", BWD_SOURCES),
-             ("mlstm_chunk", MLSTM_SOURCES)]
+             ("mlstm_chunk", MLSTM_SOURCES), ("mlstm_chunk_bwd", MLSTM_BWD_SOURCES)]
 
 
 @pytest.fixture
@@ -44,6 +45,16 @@ def test_editing_a_source_changes_only_its_library_path(csrc, name, sources):
     for other, other_sources in LIBRARIES:
         moved = build._library_path(other, other_sources) != paths[other]
         assert moved == (other == name), other
+
+
+@pytest.mark.parametrize("header", ["hopper.cuh", "mlstm_split.cuh"])
+def test_editing_a_shared_header_rebuilds_every_library(csrc, header):
+    """Both mLSTM sources include mlstm_split.cuh (which includes hopper.cuh),
+    so an edit to either header builds all four libraries anew."""
+    paths = {n: build._library_path(n, s) for n, s in LIBRARIES}
+    (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
+    for name, sources in LIBRARIES:
+        assert build._library_path(name, sources) != paths[name], name
 
 
 def test_a_new_header_changes_the_library_path(csrc):

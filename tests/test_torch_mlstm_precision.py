@@ -22,8 +22,11 @@ on the tensor cores; the emulation sums them in fp64 and rounds the product
 to fp32 once, where the tensor cores keep an fp32 sum: a slight advantage
 to every mode alike.
 
+The backward's products are emulated the same way, at the end of the file.
+
 ``PYTHONPATH=src python tests/test_torch_mlstm_precision.py`` prints the
-table of every mode on every case (the numbers recorded in PERF.md).
+table of every mode on every case, forward and backward (the numbers
+recorded in PERF.md).
 """
 
 import numpy as np
@@ -31,7 +34,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.mlstm_chunk import init_state, mlstm_chunk_plain  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import (BWD_FLOOR_FACTOR, BWD_TOL,  # noqa: E402
+                                             backward_errors, init_state,
+                                             mlstm_chunk_backward_plain, mlstm_chunk_plain)
 from test_torch_cuda import _mlstm_inputs  # noqa: E402
 
 MLSTM_TOL = 3e-4
@@ -91,9 +96,39 @@ def _product(mode):
     return mm
 
 
-def _chunk_body(q, k, v, li, lf, C0, n0, m0, mm):
+class _SplitProduct(torch.autograd.Function):
+    """einsum ``eq`` of two fp32 operands through split products in ``mode``,
+    forward and backward: each gradient is the product of the output's
+    gradient with the other operand, split the same way, as the backward
+    kernel's walks and state terms take them."""
+
+    @staticmethod
+    def forward(ctx, eq, mode, a, b):
+        ctx.eq, ctx.mode = eq, mode
+        ctx.save_for_backward(a, b)
+        return _product(mode)(eq, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ins, out = ctx.eq.split("->")
+        x, y = ins.split(",")
+        mm = _product(ctx.mode)
+        return None, None, mm(f"{out},{y}->{x}", g, b), mm(f"{x},{out}->{y}", a, g)
+
+
+def _split_grad_product(mode):
+    """``mm`` for ``_chunk_body`` whose products are split forward and
+    backward (``_SplitProduct``); None: plain einsum, as autograd has it."""
+    if mode is None:
+        return torch.einsum
+    return lambda eq, a, b: _SplitProduct.apply(eq, mode, a, b)
+
+
+def _chunk_body(q, k, v, li, lf, C0, n0, m0, mm, mm_local=None):
     """The port's chunk body (kernels/mlstm_chunk.py ``_chunk_body``) with its
-    three tensor-core products through ``mm``; all else as the plain version."""
+    three tensor-core products through ``mm`` (the intra-chunk one through
+    ``mm_local`` where given); all else as the plain version."""
     L = q.shape[2]
     F = torch.cumsum(lf, dim=-1)
     g = li - F
@@ -101,9 +136,9 @@ def _chunk_body(q, k, v, li, lf, C0, n0, m0, mm):
     m = F + run
     logw = (F - m)[..., :, None] + g[..., None, :]
     mask = torch.ones(L, L, dtype=torch.bool).tril()
-    W = torch.where(mask, torch.exp(logw), torch.zeros((), dtype=q.dtype))
+    W = torch.exp(torch.where(mask, logw, float("-inf")))   # finite gradients, as the plain's
     scores = torch.einsum("bhtd,bhsd->bhts", q, k) * W
-    h_num = mm("bhts,bhsd->bhtd", scores, v)
+    h_num = (mm_local or mm)("bhts,bhsd->bhtd", scores, v)
     n_intra = torch.einsum("bhts,bhsd->bhtd", W, k)
     w_state = torch.exp(F + m0[..., None] - m)
     h_num = h_num + w_state[..., None] * mm("bhtd,bhde->bhte", q, C0)
@@ -119,15 +154,16 @@ def _chunk_body(q, k, v, li, lf, C0, n0, m0, mm):
     return h, (C, n, m_L)
 
 
-def _scan(args, chunk, state, mode):
+def _scan(args, chunk, state, mode, mm=None, mm_local=None):
     q, k, v, li, lf = args
     C, n, m = state["C"], state["n"], state["m"]
-    mm = _product(mode) if q.dtype == torch.float32 else torch.einsum
+    if mm is None:
+        mm = _product(mode) if q.dtype == torch.float32 else torch.einsum
     hs = []
     for t0 in range(0, q.shape[2], chunk):
         sl = slice(t0, t0 + chunk)
         h, (C, n, m) = _chunk_body(q[:, :, sl], k[:, :, sl], v[:, :, sl], li[:, :, sl],
-                                   lf[:, :, sl], C, n, m, mm)
+                                   lf[:, :, sl], C, n, m, mm, mm_local)
         hs.append(h)
     return torch.cat(hs, dim=2), {"C": C, "n": n, "m": m}
 
@@ -239,6 +275,87 @@ def test_operand_splits_are_exact_to_their_bits():
         assert (rest <= bound * x.double().abs()).all(), mode
 
 
+# ------------------------------------------------------------ the backward
+# The backward kernel (csrc/mlstm_chunk_bwd.cu) takes its Dh^2-sized products
+# to the tensor cores the same way: the chunk-start states (the update
+# (k .* wk)^T V again), the reverse walk of dC (the update sum_t (w_t q_t /
+# D_t) dh_t^T) and the state terms C0 dN, dC v and dC^T k, every fp32 operand
+# in pieces; its L x L terms stay in fp32 on CUDA cores. Emulated here by
+# autograd of the chunk body with its two state products split forward and
+# backward (``_SplitProduct``: each gradient of Q C0 and of (k .* wk)^T V is
+# itself a split product) and the intra-chunk product plain, and held as the
+# kernel is (kernels/mlstm_chunk.py): BWD_TOL of each gradient's max against
+# autograd of the fp32 plain version; on the "cancel" inputs, against fp64,
+# within max(BWD_TOL, BWD_FLOOR_FACTOR x the fp32 plain version's error).
+BWD_CASES = CASES + [(1, 2, 128, 96, 64, True, "floor")]
+BWD_IDS = CASE_IDS + ["1-2-128-96-64-carried-floor"]
+
+
+def _bwd_measure(case, modes):
+    """{mode: (max over the gradients of |err| / max |g| against fp32 plain
+    autograd, max over them of the fp64 error over its limit)}, the inputs
+    and gradients chip_smoke.py's phase 10a draws, on the CPU."""
+    B, H, S, Dh, chunk, carry, kind = case
+    args = _mlstm_inputs(S + Dh + 1, B, H, S, Dh, "cpu", kind)
+    rng = np.random.default_rng(S + Dh + 2)
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    state = dstate = None
+    if carry:
+        _, state = mlstm_chunk_plain(*_mlstm_inputs(2, B, H, 48, Dh, "cpu", kind), chunk=chunk)
+        dstate = (normal(B, H, Dh, Dh), normal(B, H, Dh), normal(B, H))
+    dh = normal(B, H, S, Dh)
+    ds = dict(zip(("dC", "dn", "dm"), dstate or (None,) * 3))
+    ref = mlstm_chunk_backward_plain(*args, dh, chunk=chunk, state=state, **ds)
+    f64 = lambda t: None if t is None else t.double()  # noqa: E731
+    ref64 = mlstm_chunk_backward_plain(
+        *map(f64, args), f64(dh), chunk=chunk,
+        state=None if state is None else {key: f64(t) for key, t in state.items()},
+        **{key: f64(t) for key, t in ds.items()})
+    floor = backward_errors(ref, ref64)
+    limit = {key: max(BWD_TOL, BWD_FLOOR_FACTOR * e) for key, e in floor.items()}
+    out = {}
+    for mode in modes:
+        ins = [t.clone().requires_grad_() for t in args]
+        st = None if state is None else {key: t.clone().requires_grad_()
+                                         for key, t in state.items()}
+        h, fin = _scan(ins, chunk, st or init_state(B, H, Dh, "cpu"), None,
+                       mm=_split_grad_product(mode), mm_local=torch.einsum)
+        outs, grads = [h], [dh]
+        if dstate is not None:
+            outs += [fin[key] for key in "Cnm"]
+            grads += list(dstate)
+        wrt = ins + ([] if st is None else [st[key] for key in "Cnm"])
+        got = tuple(torch.autograd.grad(outs, wrt, grads)) + ((None,) * 3 if st is None else ())
+        e32, e64 = backward_errors(got, ref), backward_errors(got, ref64)
+        out[mode] = (max(e32.values()), max(e64[key] / limit[key] for key in e64))
+    return out
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_backward_split_holds_the_backward_tolerances(case):
+    """Three bf16 pieces, six products, in every Dh^2-sized product of the
+    backward: BWD_TOL against fp32 plain autograd, and on the "cancel"
+    inputs within the fp64 limit."""
+    err32, over64 = _bwd_measure(case, [KERNEL_MODE])[KERNEL_MODE]
+    if case[6] == "cancel":
+        assert over64 <= 1.0, over64
+    else:
+        assert err32 <= BWD_TOL, err32
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[i] for i in (2, 4, 9)],
+                         ids=[BWD_IDS[i] for i in (2, 4, 9)])
+def test_two_bf16_pieces_in_the_backward(case):
+    """Two bf16 pieces (three products) do not fall short of the backward's
+    tolerances at these sizes, but lie 12-31x further from the fp32 plain
+    version than three (PERF.md: 0.46 of the fp64 limit against 0.31 at
+    the training length): the kernel keeps three."""
+    got = _bwd_measure(case, ["bf16x2", KERNEL_MODE])
+    err2, over2 = got["bf16x2"]
+    assert err2 <= BWD_TOL and over2 <= 1.0, got
+    assert err2 > 5.0 * got[KERNEL_MODE][0], got
+
+
 if __name__ == "__main__":
     modes = list(MODES)
     print("case | plain fp32 vs fp64 | " + " | ".join(
@@ -247,3 +364,9 @@ if __name__ == "__main__":
         got, plain64 = _measure(case, modes)
         print(f"{cid} | {plain64:.2e} | " + " | ".join(
             f"{got[m][0]:.3f}, {got[m][1]:.2e}" for m in modes), flush=True)
+    print("backward case | " + " | ".join(
+        f"{m}: err vs fp32 plain, fp64 error / limit" for m in ("bf16x3", "bf16x2")))
+    for case, cid in zip(BWD_CASES, BWD_IDS):
+        got = _bwd_measure(case, ["bf16x3", "bf16x2"])
+        print(f"{cid} | " + " | ".join(f"{got[m][0]:.2e}, {got[m][1]:.3f}"
+                                      for m in ("bf16x3", "bf16x2")), flush=True)
