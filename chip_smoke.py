@@ -80,6 +80,25 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      (d) the same 8 layers at batch 2 x 512: 4 steps straight against 2, a
      checkpoint to the log and 2 resumed, equal bit for bit. Every launcher
      run counts the mLSTM and flash kernels (flash: 0).
+ 11. moe: granite-moe-3b-a800m at full width (bf16, seeded random weights;
+     24 q heads padded to 32, 8 kv heads, Dh 64; 40 experts padded to 48,
+     top 8). The flash forward and backward at its training shape, against
+     the plain version and timed beside SDPA and the bounds; (a) at full
+     depth (32 layers): one forward of 4 prompts x 32 tokens, each layer's
+     flash call held against the plain version on its inputs, the logits
+     against a plain forward within 3x the floor of two plain forwards that
+     differ in the order of one sum, and against a plain forward routed as
+     the kernel's was, the (token, layer) expert choices that differ
+     counted; the eager prefill and decode step timed; 4 requests served by
+     ServeEngine on the port's log; (b) trained 6 steps by the launcher at
+     full depth (batch 2 x 4096 in 2 microbatches, AdamW fp32 master and
+     moments, remat full), with step time, tokens/s, peak memory, the busy
+     and idle shares of one more step, the flash kernels' shares and, from
+     one MoE layer's work alone, the expert products' and the dispatch's;
+     (c) one step, kernels against plain (routed as the kernels), 2 layers,
+     fp32 and bf16, at train/step.py's tolerances; (d) 2 layers at batch 2 x
+     512: 4 steps straight against 2, a checkpoint and 2 resumed, bit for
+     bit. Every launcher run counts the flash kernels.
 The line before the last lists the kernels as JSON, each with its launches
 on every main path (launches_by_path) and their sum (launches); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
@@ -249,6 +268,27 @@ XLSTM_STEP_BATCH = (2, 512)
 XLSTM_RESUME_RUN = dict(config="xlstm-1.3b", n_layers=8, batch=2, seq=512)
 XLSTM_RESUME_K = 2
 MLSTM_FWD_KERNELS = ("mlstm_gates", "mlstm_prep", "mlstm_den", "mlstm_walk", "mlstm_out")
+# phase 11: granite-moe-3b-a800m at full width (24 q heads padded to 32, 8 kv
+# heads: G = 4, Dh = 64; 40 experts padded to 48, top 8, d_expert 512), bf16
+GRANITE_SHAPE = (1, 32, 8, 4096, 64)           # its training and long-prompt flash calls
+# (a) a routing flip (a top-8 near-tie that rounding breaks the other way)
+# moves a token by O(1) in the layers after it, so the full-depth logits,
+# kernel against plain, are held to MOE_FLOOR_FACTOR times the floor of two
+# plain forwards that differ only in the order of a sum (P V over the keys
+# in two halves), or PREFILL_TOL; each layer's flash call against the plain
+# version on that layer's inputs at TOL; and the logits against a plain
+# forward routed as the kernel's was at PREFILL_TOL
+MOE_FLOOR_FACTOR = 3.0
+# (b) full depth: 4.03 B parameters (48 experts a layer, an untied 49408-row
+# embedding and head) x 16 bytes (bf16 weights and gradient accumulator, fp32
+# master and moments) = 64.5 GB, and a microbatch's own bf16 gradients 8.1
+# GB: ~68 GiB of the card's 79, activations under remat full a few GiB more
+MOE_TRAIN_RUN = dict(config="granite-moe-3b-a800m", n_layers=32, batch=2, seq=4096, accum=2,
+                     steps=6)
+# (d) full width, 2 layers, batch 2 x 512: 4 steps straight against 2, a
+# checkpoint and 2 resumed
+MOE_RESUME_RUN = dict(config="granite-moe-3b-a800m", n_layers=2, batch=2, seq=512)
+MOE_RESUME_K = 2
 
 
 def say(*parts) -> None:
@@ -940,7 +980,8 @@ def check_backward() -> dict:
 
 def counted_run(**kw) -> tuple:
     """One ``launch.train.run`` as a main path: every kernel's count is set
-    to 0 just before it and read just after. Per attention layer, and per
+    to 0 just before it and read just after. Per attention layer (``attn+mlp``
+    or ``attn+moe``), and per
     mLSTM layer, each microbatch launches its forward kernel once (twice under
     remat full, which recomputes it in the backward) and its backward kernel
     once; the other kernel family not at all. Returns run's result and the
@@ -960,8 +1001,8 @@ def counted_run(**kw) -> tuple:
            (mlstm_chunk.launches, mlstm_chunk.backward_launches))
     calls = kw.get("accum", 1) * len(out[0])
     remat = {"none": 1, "full": 2}[cfg.remat]
-    want = tuple((remat * n * calls, n * calls)
-                 for n in (kinds.count("attn+mlp"), kinds.count("mlstm")))
+    n_attn = sum(kind.partition("+")[0] == "attn" for kind in kinds)
+    want = tuple((remat * n * calls, n * calls) for n in (n_attn, kinds.count("mlstm")))
     say(f"[train] {cfg.name} {cfg.n_layers} layers, {len(out[0])} steps: flash forward "
         f"launches {got[0][0]} (want {want[0][0]}), backward {got[0][1]} (want "
         f"{want[0][1]}); mLSTM forward {got[1][0]} (want {want[1][0]}), backward "
@@ -976,7 +1017,6 @@ def train_qwen() -> tuple:
     kernels' launches counted; then one more step of the same shape timed
     and profiled for the device's busy and idle shares."""
     from repro_torch import get_config
-    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
     cfg = get_config(TRAIN_RUN["config"]).with_(n_layers=TRAIN_RUN["n_layers"])
     run_kw = dict(TRAIN_RUN)
     steps, accum = run_kw["steps"], run_kw["accum"]
@@ -995,29 +1035,7 @@ def train_qwen() -> tuple:
         raise AssertionError(f"training losses off: {losses}")
     tokens = run_kw["batch"] * run_kw["seq"]
     step_s = statistics.median(seconds[1:])
-    # one more step of the same shape (fresh AdamW state, random tokens, no
-    # data pipeline), not on the counted path: its wall time, unprofiled, and
-    # the device's busy time in a profiled repeat of it
-    opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.01)
-    state = adamw_init(model, opt_cfg)
-    step_fn = make_train_step(cfg, opt_cfg, accum=accum)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(11)
-    toks = torch.randint(0, cfg.vocab_size, (run_kw["batch"], run_kw["seq"] + 1),
-                         generator=gen, device="cuda")
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-
-    def fn():
-        float(step_fn(model, state, batch)[2]["loss"])     # the loss read back, as run's
-
-    fn()
-    walls = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        fn()
-        walls.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
-    kernels = device_kernels(fn)
+    wall, kernels = one_more_step(cfg, model, run_kw)
     busy = sum(t for _, t in kernels) / 1e3
     fwd_s = sum(t for name, t in kernels if "flash_fwd" in name) / 1e3
     bwd_s = sum(t for name, t in kernels if "flash_bwd" in name) / 1e3
@@ -1039,9 +1057,39 @@ def train_qwen() -> tuple:
         + "; ".join(f"{name[:60]} {t:.1f}" for name, t in top)
         + "; flash backward per call by pass, ms: "
         + ", ".join(f"{name} {t / calls:.4f}" for name, t in per.items() if "flash_bwd" in name))
-    del model, state, step_fn
+    del model
     torch.cuda.empty_cache()
     return fwd, bwd
+
+
+def one_more_step(cfg, model, run_kw: dict, cpu: bool = True) -> tuple:
+    """One more training step of the run's shape (fresh AdamW state, random
+    tokens, no data pipeline), not on the counted path: its wall time
+    unprofiled (the median of two, after a warm-up) and the device's
+    kernels in a profiled repeat of it (``device_kernels``)."""
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.01)
+    state = adamw_init(model, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, accum=run_kw["accum"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (run_kw["batch"], run_kw["seq"] + 1),
+                         generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def fn():
+        float(step_fn(model, state, batch)[2]["loss"])     # the loss read back, as run's
+
+    fn()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    kernels = device_kernels(fn, cpu=cpu)
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return statistics.median(walls), kernels
 
 
 def one_step(cfg, impl, eps: float, batch) -> tuple:
@@ -1059,27 +1107,45 @@ def one_step(cfg, impl, eps: float, batch) -> tuple:
     return float(m["loss"]), float(m["grad_norm"]), model
 
 
-def step_kernel_vs_plain() -> None:
+def step_pair(cfg, eps: float, batch) -> tuple:
+    """``one_step`` through the kernels, then through the plain version
+    routed as the kernel step was (``moe_routes``); and how many (token,
+    layer) expert choices the plain step's own top-k would have changed."""
+    log = []
+    with moe_routes(log):
+        kern = one_step(cfg, None, eps, batch)
+    with moe_routes(log, pin=True) as pinned:
+        plain = one_step(cfg, "plain", eps, batch)
+    return kern, plain, pinned["flips"]
+
+
+def step_kernel_vs_plain(config: str = "qwen3-8b") -> None:
     """(c): one step at full width with 2 layers, S = 1024, through the
     kernels and through the plain version, from the same parameters and
     batch: every gradient, then the loss, grad norm and every updated
     parameter compared; in fp32 also at the optimizer's own eps, where the
-    parameters that differ must be those of near-zero gradients."""
+    parameters that differ must be those of near-zero gradients. An MoE
+    model's plain step takes the kernel step's expert choices (its gates
+    from its own probabilities): a near-tie that rounding flips moves a
+    token by O(1), which would hold the routing's discontinuity, not the
+    kernels; the choices it would have flipped are counted."""
     from repro_torch import get_config, init_params, loss_fn
     from repro_torch.train import AdamWConfig
     from repro_torch.train.step import BF16_STEP_TOL, STEP_TOL
     for dtype in ("float32", "bfloat16"):
-        cfg = get_config("qwen3-8b").with_(n_layers=2, dtype=dtype)
+        cfg = get_config(config).with_(n_layers=2, dtype=dtype)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(12)
         toks = torch.randint(0, cfg.vocab_size, (2, 1025), generator=gen, device="cuda")
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-        grads = {}
+        grads, log = {}, []
         for impl in (None, "plain"):
             model = init_params(cfg, seed=5, trainable=True)
-            loss, _ = loss_fn(cfg, model, batch, attn_impl=impl)
-            grads[impl] = torch.autograd.grad(loss, list(model.parameters()))
+            with moe_routes(log, pin=impl == "plain") as pinned:
+                loss, _ = loss_fn(cfg, model, batch, attn_impl=impl)
+                grads[impl] = torch.autograd.grad(loss, list(model.parameters()))
             del model, loss
+        flips, routed = pinned["flips"], pinned["tokens"]
         size = (lambda t: t.abs().max()) if dtype == "float32" else torch.linalg.norm
         g_err = max((size(a.float() - b.float()) / size(b.float()).clamp_min(1e-30)).item()
                     for a, b in zip(grads[None], grads["plain"]))
@@ -1088,8 +1154,8 @@ def step_kernel_vs_plain() -> None:
         torch.cuda.empty_cache()
         if not g_err <= STEP_GRAD_TOL[dtype]:
             raise AssertionError(f"{dtype} gradients, kernels against plain: {g_err}")
-        (lk, gk, mk), (lp, gp, mp) = (one_step(cfg, impl, STEP_EPS, batch)
-                                      for impl in (None, "plain"))
+        (lk, gk, mk), (lp, gp, mp), step_flips = step_pair(cfg, STEP_EPS, batch)
+        flips = max(flips, step_flips)
         old = init_params(cfg, seed=5)
         d2 = w2 = 0.0
         worst_abs, worst_agree = 0.0, 1.0
@@ -1112,8 +1178,7 @@ def step_kernel_vs_plain() -> None:
             ok = (abs(lk - lp) <= STEP_TOL * abs(lp) and abs(gk - gp) <= STEP_TOL * abs(gp))
             detail = f"params max abs diff {worst_abs:.3e} (tol {STEP_TOL} abs + rel)"
             eps = AdamWConfig().eps
-            (_, _, mk), (_, gp8, mp) = (one_step(cfg, impl, eps, batch)
-                                        for impl in (None, "plain"))
+            (_, _, mk), (_, gp8, mp), _ = step_pair(cfg, eps, batch)
             clip = min(1.0, AdamWConfig().clip_norm / gp8)   # the update sees g * clip
             n_bad = n_all = 0
             worst_g = 0.0
@@ -1140,47 +1205,52 @@ def step_kernel_vs_plain() -> None:
                       f"rel_rms {rel:.3e} (tol {tol})")
         del plain_grads
         torch.cuda.empty_cache()
-        say(f"[train] step kernels vs plain, qwen3-8b 2 layers S=1024 {dtype}: gradients "
+        routed = "" if cfg.moe is None else (
+            f"; plain routed as the kernels (unpinned its top-k would change {flips} of "
+            f"{routed} tokens' choices, each layer routing twice under remat)")
+        say(f"[train] step kernels vs plain, {config} 2 layers S=1024 {dtype}: gradients "
             f"{'max |diff| / max |g|' if dtype == 'float32' else 'rel_rms'} {g_err:.3e} at "
             f"the worst tensor (tol {STEP_GRAD_TOL[dtype]}); "
-            f"loss {lk:.6f} / {lp:.6f}, grad norm {gk:.6f} / {gp:.6f}; {detail}")
+            f"loss {lk:.6f} / {lp:.6f}, grad norm {gk:.6f} / {gp:.6f}; {detail}{routed}")
         if not ok:
             raise AssertionError(f"{dtype} train step: kernels against plain differ")
 
 
-def resume_exactly() -> tuple:
-    """(d): smollm-135m at full size, 2k steps straight against k steps,
-    a checkpoint to the log, and a fresh resumed run on the same system:
-    the losses after k equal bit for bit. Each of the three runs is a main
-    path with its launches counted; returns their sums (forward, backward)."""
+def resume_exactly(run_kw: dict = RESUME_RUN, k: int = RESUME_K,
+                   tag: str = "smollm-135m (30 layers, G=3, Dh=64)") -> tuple:
+    """(d): ``run_kw`` (smollm-135m at full size), 2k steps straight against
+    k steps, a checkpoint to the log, and a fresh resumed run on the same
+    system: the losses after k equal bit for bit. Each of the three runs is
+    a main path with its launches counted; returns their sums (forward,
+    backward)."""
     from repro_torch.core import BoltSystem
     from repro_torch.train import CheckpointManager
     torch.use_deterministic_algorithms(True)
     try:
-        kw = dict(RESUME_RUN, log_every=1, device="cuda")
+        kw = dict(run_kw, log_every=1, device="cuda")
         t0 = time.perf_counter()
         (straight, model, _, _), (f0, b0), _ = counted_run(
-            steps=2 * RESUME_K, system=BoltSystem(n_brokers=2), ckpt_every=10 ** 9, **kw)
+            steps=2 * k, system=BoltSystem(n_brokers=2), ckpt_every=10 ** 9, **kw)
         del model
         t1 = time.perf_counter()
         system = BoltSystem(n_brokers=2)
         (first, model, _, _), (f1, b1), _ = counted_run(
-            steps=RESUME_K, system=system, ckpt_every=RESUME_K, **kw)
+            steps=k, system=system, ckpt_every=k, **kw)
         del model                                    # the trainer is dropped
         t2 = time.perf_counter()
         (resumed, model, _, _), (f2, b2), _ = counted_run(
-            steps=2 * RESUME_K, system=system, ckpt_every=10 ** 9, resume=True, **kw)
+            steps=2 * k, system=system, ckpt_every=10 ** 9, resume=True, **kw)
         t3 = time.perf_counter()
         del model
     finally:
         torch.use_deterministic_algorithms(False)
     steps = CheckpointManager(system).steps()
-    say(f"[train] resume smollm-135m (30 layers, G=3, Dh=64), batch {RESUME_RUN['batch']} x "
-        f"{RESUME_RUN['seq']}: straight " + ", ".join(f"{x:.6f}" for x in straight)
-        + "; resumed after step " + f"{RESUME_K} " + ", ".join(f"{x:.6f}" for x in resumed)
+    say(f"[train] resume {tag}, batch {run_kw['batch']} x {run_kw['seq']}: straight "
+        + ", ".join(f"{x:.6f}" for x in straight)
+        + f"; resumed after step {k} " + ", ".join(f"{x:.6f}" for x in resumed)
         + f"; checkpoints {steps}; {t1 - t0:.1f} s straight, {t2 - t1:.1f} s to the "
         f"checkpoint, {t3 - t2:.1f} s resumed")
-    if first != straight[:RESUME_K] or resumed != straight[RESUME_K:] or steps != [RESUME_K]:
+    if first != straight[:k] or resumed != straight[k:] or steps != [k]:
         raise AssertionError(f"the resumed losses differ: {straight} against {first} + "
                              f"{resumed}")
     torch.cuda.empty_cache()
@@ -1598,6 +1668,293 @@ def phase_train_xlstm() -> tuple:
             {path: n[1] for path, n in paths.items()})
 
 
+@contextmanager
+def flash_calls(fn):
+    """Route the model's flash calls (``attention.flash_attention``) through
+    ``fn(flash, q, k, v, causal=..., impl=...)``, ``flash`` the real one."""
+    from repro_torch.models import attention
+    flash = attention.flash_attention
+    attention.flash_attention = lambda *args, **kw: fn(flash, *args, **kw)
+    try:
+        yield
+    finally:
+        attention.flash_attention = flash
+
+
+@contextmanager
+def moe_routes(log: list, pin: bool = False):
+    """Append each MoE routing's expert choices to ``log`` in call order; or,
+    with ``pin``, give each call the choices ``log`` holds (its gates from
+    its own probabilities, renormalised) and count in ``["flips"]`` the
+    (token, layer) choices its own top-k would have changed, of
+    ``["tokens"]`` routed. A model with no MoE layer never routes."""
+    from repro_torch.models import moe
+    route = moe._route
+    state = {"calls": 0, "flips": 0, "tokens": 0}
+
+    def routed(xt, p, cfg):
+        probs, gate, eidx = route(xt, p, cfg)
+        state["tokens"] += eidx.numel() // eidx.shape[-1]
+        if not pin:
+            log.append(eidx)
+            return probs, gate, eidx
+        want = log[state["calls"]]
+        state["calls"] += 1
+        state["flips"] += int((eidx.sort(-1).values != want.sort(-1).values).any(-1).sum())
+        gate = probs.gather(-1, want)
+        return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), want
+
+    moe._route = routed
+    try:
+        yield state
+    finally:
+        moe._route = route
+
+
+def flips(a: list, b: list) -> int:
+    """(token, layer) expert choices that differ between two routing logs."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum()) for x, y in zip(a, b))
+
+
+def attention_split_sum(q, k, v, *, causal: bool, impl=None) -> torch.Tensor:
+    """``flash_attention_plain`` with its P V sum over the keys taken in two
+    halves: the same function, one sum in another order (the floor of (a))."""
+    B, H, S, Dh = q.shape
+    KH = k.shape[1]
+    qg = q.reshape(B, KH, H // KH, S, Dh).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * Dh ** -0.5
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = s.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    h = S // 2
+    out = (torch.einsum("bkgqs,bksd->bkgqd", p[..., :h], v[:, :, :h].float())
+           + torch.einsum("bkgqs,bksd->bkgqd", p[..., h:], v[:, :, h:].float()))
+    return out.reshape(B, H, S, Dh).to(q.dtype)
+
+
+def flash_at_granite() -> None:
+    """The flash forward and backward kernels at granite's training shape
+    (H = 32 of which 8 padded slots, KH = 8, Dh = 64, S = 4096), against
+    the plain version, timed beside SDPA (forward and backward) and the
+    bounds of phase 2 and 9a at H = 32 (the kernel does the padded heads'
+    work, as the reference does)."""
+    from repro_torch.kernels.flash_attention import (_forward_kernel, backward_errors,
+                                                     flash_attention, flash_attention_backward,
+                                                     flash_attention_backward_plain)
+    B, H, KH, S, Dh = GRANITE_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    q = randn(gen, (B, H, S, Dh), torch.bfloat16)
+    k, v = randn(gen, (B, KH, S, Dh), torch.bfloat16), randn(gen, (B, KH, S, Dh), torch.bfloat16)
+    do = randn(gen, (B, H, S, Dh), torch.bfloat16)
+    out = flash_attention(q, k, v, causal=True)
+    err = (out.float() - flash_attention(q, k, v, causal=True, impl="plain").float()
+           ).abs().max().item()
+    o, lse = _forward_kernel(q, k, v, True, 0, with_lse=True)
+    got = flash_attention_backward(q, k, v, o, do, lse, causal=True)
+    again = flash_attention_backward(q, k, v, o, do, lse, causal=True)
+    b_err, b_scaled = max(backward_errors(got, flash_attention_backward_plain(
+        q, k, v, do, causal=True)), key=lambda e: e[1])
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not (err <= TOL[torch.bfloat16] and b_scaled <= 1 and same):
+        raise AssertionError(f"flash at granite's shape: forward {err}, backward {b_err}, "
+                             f"repeat equal {same}")
+    del out, got, again
+    ke, ve = k.repeat_interleave(H // KH, 1), v.repeat_interleave(H // KH, 1)
+    fwd = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True), iters=20)
+    bwd = cuda_ms(lambda: flash_attention_backward(q, k, v, o, do, lse, causal=True), iters=10)
+    sdpa_bwd = sdpa_backward_ms(q, k, v, do, iters=10)
+    f_ops = 2 * B * H * S * S * Dh / PEAK_BF16_FLOPS * 1e3
+    f_bytes = 2 * (2 * B * H * S * Dh + 2 * B * KH * S * Dh) / PEAK_BYTES * 1e3
+    b_ops, b_bytes = backward_bounds(B, H, KH, S, Dh)
+    say(f"[moe] flash at granite's shape B={B} H={H} (8 padded) KH={KH} S={S} Dh={Dh} bf16 "
+        f"causal: forward kernel {fwd:.4f} ms, sdpa {sdpa:.4f} ms, bound "
+        f"{max(f_ops, f_bytes):.4f} ms (ops {f_ops:.4f}, bytes {f_bytes:.4f}), max_abs_err "
+        f"{err:.3e}; backward kernel {bwd:.4f} ms, sdpa backward {sdpa_bwd:.4f} ms, bound "
+        f"{max(b_ops, b_bytes):.4f} ms (ops {b_ops:.4f}, bytes {b_bytes:.4f}), rel_rms "
+        f"{b_err:.3e}, two calls equal")
+    del q, k, v, do, o, lse, ke, ve
+    torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def check_moe_prefill(cfg, model, tag: str) -> None:
+    """(a): one full-depth forward of 4 prompts x 32 tokens through the
+    kernel (launched once a layer), each layer's flash call held against the
+    plain version on the inputs it sees; the logits against a plain forward,
+    within MOE_FLOOR_FACTOR of the floor of two plain forwards that differ
+    in the order of one sum, and against a plain forward routed as the
+    kernel's was; the (token, layer) expert choices that differ counted."""
+    from repro_torch import forward
+    from repro_torch.kernels.flash_attention import flash_attention
+    tokens = prefill_tokens(cfg)
+    batch = {"tokens": tokens}
+    errs, routes = [], {key: [] for key in ("kernel", "plain", "split")}
+
+    def held(flash, q, k, v, *, causal, impl=None):
+        out = flash(q, k, v, causal=causal, impl=impl)
+        errs.append((out.float() - flash(q, k, v, causal=causal, impl="plain").float())
+                    .abs().max().item())
+        return out
+
+    before = flash_attention.launches
+    with flash_calls(held), moe_routes(routes["kernel"]):
+        logits, _, _, _ = forward(cfg, model, batch)
+    if flash_attention.launches - before != cfg.n_layers:
+        raise AssertionError("the prefill did not launch the kernel once a layer")
+    with moe_routes(routes["plain"]):
+        plain, _, _, _ = forward(cfg, model, batch, attn_impl="plain")
+    with flash_calls(lambda flash, *args, **kw: attention_split_sum(*args, **kw)), \
+            moe_routes(routes["split"]):
+        split, _, _, _ = forward(cfg, model, batch)
+    with moe_routes(routes["kernel"], pin=True):
+        pinned, _, _, _ = forward(cfg, model, batch, attn_impl="plain")
+    if logits.shape != (*tokens.shape, cfg.padded_vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    d, floor, dp = logit_diff(logits, plain), logit_diff(split, plain), logit_diff(logits, pinned)
+    n = tokens.numel() * cfg.n_layers
+    tol = PREFILL_TOL[logits.dtype]
+    say(f"[moe prefill] {tag} B=4 S=32: {cfg.n_layers} layers, each layer's flash call vs "
+        f"plain on its inputs max_abs_err {max(errs):.3e} (tol {TOL[logits.dtype]}); logits "
+        f"{tuple(logits.shape)} finite; kernel vs plain max_abs {d['max_abs']:.3e}, rel_rms "
+        f"{d['rel_rms']:.3e}, argmax agree {d['argmax_agree']:.4f}, expert choices differing "
+        f"{flips(routes['kernel'], routes['plain'])} of {n} (token, layer); plain split sum vs "
+        f"plain (floor) max_abs {floor['max_abs']:.3e}, rel_rms {floor['rel_rms']:.3e}, argmax "
+        f"agree {floor['argmax_agree']:.4f}, choices differing "
+        f"{flips(routes['split'], routes['plain'])} (tol {MOE_FLOOR_FACTOR}x floor or {tol}); "
+        f"plain routed as the kernel: max_abs {dp['max_abs']:.3e}, rel_rms {dp['rel_rms']:.3e} "
+        f"(tol {tol})")
+    if not (max(errs) <= TOL[logits.dtype] and all(dp[key] <= tol[key] for key in tol)
+            and all(d[key] <= max(MOE_FLOOR_FACTOR * floor[key], tol[key]) for key in tol)):
+        raise AssertionError(f"{tag} prefill disagrees: layers {errs}, logits {d} against "
+                             f"floor {floor}, pinned {dp}")
+
+
+def moe_layer_ms(cfg, blk, seq: int) -> tuple:
+    """Device ms of one MoE layer's ``apply_moe`` in a training step at a
+    microbatch of 1 x ``seq``: its forward, again under remat full, and its
+    backward (torch.profiler, device only); (all kernels, the matrix
+    products', kernel count)."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    x = randn(gen, (1, seq, cfg.d_model), torch.bfloat16).requires_grad_()
+    dy = randn(gen, (1, seq, cfg.d_model), torch.bfloat16)
+    params = list(blk.moe.parameters())
+
+    def fn():
+        for _ in range(2 if cfg.remat == "full" else 1):
+            y, aux = moe.apply_moe(blk.moe, x, cfg)
+        torch.autograd.grad([y, aux], [x] + params, [dy, torch.ones_like(aux)])
+
+    fn()
+    kernels = device_kernels(fn, cpu=False)
+    return (sum(t for _, t in kernels),
+            sum(t for name, t in kernels if "gemm" in name.lower() or "nvjet" in name),
+            len(kernels))
+
+
+def train_moe() -> tuple:
+    """(b): the launcher trains granite-moe-3b-a800m at full width and depth,
+    the flash kernels' launches counted; then one more step of the shape
+    timed and profiled (device only) for the busy and idle shares, the
+    flash kernels' shares, and from one MoE layer's work alone the expert
+    products' and the dispatch's."""
+    from repro_torch import get_config
+    from repro_torch.models.lm import layer_kinds
+    run_kw = dict(MOE_TRAIN_RUN)
+    cfg = get_config(run_kw["config"]).with_(n_layers=run_kw["n_layers"])
+    steps, accum = run_kw["steps"], run_kw["accum"]
+    torch.cuda.reset_peak_memory_stats()
+    (losses, model, _, seconds), (fwd, bwd), _ = counted_run(
+        **run_kw, ckpt_every=10 ** 9, log_every=1, device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in model.parameters())
+    ln_v = math.log(cfg.vocab_size)
+    say(f"[moe train] granite-moe-3b-a800m {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+        f"parameters, batch {run_kw['batch']} x {run_kw['seq']} in {accum} microbatches, "
+        f"remat {cfg.remat}, bf16, AdamW fp32 master and moments: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f" (ln V = {ln_v:.4f}, plus the router's "
+        f"aux loss over {cfg.n_layers} layers)")
+    # that the path runs: finite losses, the first near ln V. That it trains
+    # right is (c)'s check and the CPU tests' (the step against the reference)
+    if not (len(losses) == steps and all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - ln_v) <= 1.0):
+        raise AssertionError(f"granite training losses off: {losses}")
+    tokens = run_kw["batch"] * run_kw["seq"]
+    step_s = statistics.median(seconds[1:])
+    wall, kernels = one_more_step(cfg, model, run_kw, cpu=False)
+    busy = sum(t for _, t in kernels) / 1e3
+    fwd_s = sum(t for name, t in kernels if "flash_fwd" in name) / 1e3
+    bwd_s = sum(t for name, t in kernels if "flash_bwd" in name) / 1e3
+    gemm = sum(t for name, t in kernels if "gemm" in name.lower() or "nvjet" in name) / 1e3
+    n_moe = layer_kinds(cfg).count("attn+moe")
+    m_ms, m_gemm, m_n = moe_layer_ms(cfg, model.blocks[0], run_kw["seq"])
+    calls = n_moe * accum / 1e3
+    per = {}
+    for name, t in kernels:
+        per[short_name(name)] = per.get(short_name(name), 0.0) + t
+    del model
+    torch.cuda.empty_cache()
+    share = "device time not measured" if not kernels else (
+        f"one more step of the shape: {wall:.3f} s unprofiled, device busy {busy:.3f} s in "
+        f"{len(kernels)} kernels (profiled repeat, device only), idle share "
+        f"{1 - busy / wall:.3f}; of busy: flash forward {fwd_s / busy:.4f} ({fwd_s:.3f} s), "
+        f"flash backward {bwd_s / busy:.4f} ({bwd_s:.3f} s), all matrix products "
+        f"{gemm / busy:.4f}; one MoE layer's apply_moe alone (forward twice, backward, 1 x "
+        f"{run_kw['seq']}) {m_ms:.2f} ms device in {m_n} kernels, its matrix products "
+        f"{m_gemm:.2f} ms: over {n_moe} layers x {accum} microbatches the expert products "
+        f"{m_gemm * calls / busy:.4f} of busy, the routing, dispatch and combine "
+        f"{(m_ms - m_gemm) * calls / busy:.4f}")
+    say(f"[moe train] step times " + ", ".join(f"{t:.3f}" for t in seconds)
+        + f" s; median after the first {step_s:.3f} s, {tokens / step_s:.0f} tokens/s; "
+        f"peak memory {peak:.2f} GiB; {share}")
+    top = sorted(per.items(), key=lambda x: -x[1])[:10]
+    say(f"[moe train] profiled step, device ms by kernel (top 10): "
+        + "; ".join(f"{name[:60]} {t:.1f}" for name, t in top))
+    return fwd, bwd
+
+
+def phase_moe() -> tuple:
+    """Phase 11: granite-moe-3b-a800m. Returns the flash forward's and
+    backward's launches on each granite path."""
+    from repro_torch import get_config, init_params
+    from repro_torch.kernels.flash_attention import flash_attention
+    t0 = time.perf_counter()
+    flash_at_granite()
+    cfg = get_config("granite-moe-3b-a800m")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[moe prefill] granite-moe-3b-a800m: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+        f"parameters ({cfg.n_experts_padded} experts a layer, {cfg.moe.n_experts} routed, top "
+        f"{cfg.moe.top_k}; {cfg.n_heads_padded} q heads, {cfg.n_heads} real)")
+    check_moe_prefill(cfg, model, "granite-moe-3b-a800m bf16")
+    time_prefill_and_decode(cfg, model, "moe prefill", prefill_tokens(cfg))
+    served, _ = phase_serve(cfg, model, flash_attention, cfg.n_layers, SERVE_PROMPTS,
+                            "moe serve")
+    say(f"[moe serve] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    trained = train_moe()
+    t2 = time.perf_counter()
+    step_kernel_vs_plain("granite-moe-3b-a800m")
+    t3 = time.perf_counter()
+    resumed = resume_exactly(MOE_RESUME_RUN, MOE_RESUME_K,
+                             "granite-moe-3b-a800m (2 layers, full width)")
+    say(f"[moe] phase times: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, "
+        f"(d) {time.perf_counter() - t3:.1f} s")
+    paths = {"train granite-moe-3b-a800m": trained,
+             "train granite-moe-3b-a800m 2 layers (resume)": resumed}
+    return ({"serve granite-moe-3b-a800m": served, **{path: n[0] for path, n in paths.items()}},
+            {path: n[1] for path, n in paths.items()})
+
+
 def serve_timing(repeats: int) -> None:
     """``--serve-timing N``: only the served paths' times, N times each, to
     compare two commits' packages in alternating processes (this script
@@ -1678,8 +2035,10 @@ def main() -> int:
     backward, trained_fwd, trained_bwd = phase_train()
     torch.cuda.empty_cache()
     mlstm_bwd, xlstm_fwd, xlstm_bwd = phase_train_xlstm()
-    kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd}
-    backward["launches_by_path"] = trained_bwd
+    torch.cuda.empty_cache()
+    moe_fwd, moe_bwd = phase_moe()
+    kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd}
+    backward["launches_by_path"] = {**trained_bwd, **moe_bwd}
     mlstm["launches_by_path"].update(xlstm_fwd)
     mlstm_bwd["launches_by_path"] = xlstm_bwd
     kernels = [kernel, backward, mlstm, mlstm_bwd]

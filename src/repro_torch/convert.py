@@ -4,10 +4,14 @@
 ``repro.models.lm.init_params`` as numpy arrays (``jax.device_get``) and
 returns the port's ``LM`` with the same values. The JAX tree stacks each
 block-pattern entry ``j`` over ``n_groups``; layer ``g * len(pattern) + j`` of
-the port is ``groups[j][g]``. Each block's parameters copy by name: ``ln1``,
-``attn``, ``ln2`` and ``mlp`` for ``attn+mlp``; ``ln1`` and the mixer's
-leaves (``x_up`` .. ``x_out``, ``s_gates`` .. ``s_out``) for ``mlstm`` and
-``slstm``. bf16 arrays arrive through their ``uint16`` view, so this module
+the port is ``groups[j][g]``, or, with a dense first layer, layer 0 is the
+tree's unstacked ``first`` block and the groups start at layer 1. Each
+block's parameters copy by their dotted names, walked into the tree's
+nested dicts: ``ln1``, ``attn``, ``ln2`` and ``mlp`` for ``attn+mlp``;
+``moe.router``, ``moe.e_in``, ``moe.e_gate``, ``moe.e_out`` (the padded
+experts included) and ``moe.shared.*`` for ``attn+moe``; ``ln1`` and the
+mixer's leaves (``x_up`` .. ``x_out``, ``s_gates`` .. ``s_out``) for
+``mlstm`` and ``slstm``. bf16 arrays arrive through their ``uint16`` view, so this module
 needs neither JAX nor ``ml_dtypes``.
 
 ``opt_state_from_jax(cfg, model, state)`` does the same for the state of
@@ -53,14 +57,18 @@ def _leaves(cfg: ModelConfig, model: LM,
     if model.head is not None:
         yield "head", model.head, tree["head"]
     n_pat = len(cfg.block_pattern)
+    first = int(cfg.first_layer_dense)
     for i, blk in enumerate(model.blocks):
-        g, j = divmod(i, n_pat)
-        src = tree["groups"][j]
-        for part, mod in blk.named_children():
-            for name, p in mod.named_parameters():
-                yield f"blocks.{i}.{part}.{name}", p, src[part][name][g]
-        for name, p in blk.named_parameters(recurse=False):
-            yield f"blocks.{i}.{name}", p, src[name][g]
+        if i < first:
+            src, pick = tree["first"], (lambda leaf: leaf)
+        else:
+            g, j = divmod(i - first, n_pat)
+            src, pick = tree["groups"][j], (lambda leaf, g=g: leaf[g])
+        for name, p in blk.named_parameters():
+            leaf = src
+            for key in name.split("."):
+                leaf = leaf[key]
+            yield f"blocks.{i}.{name}", p, pick(leaf)
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], device=None,

@@ -1,4 +1,4 @@
-"""The model stack in PyTorch: the ``attn+mlp`` decoder and xLSTM."""
+"""The model stack in PyTorch: the ``attn+mlp`` and ``attn+moe`` decoders and xLSTM."""
 
 from .config import (EncDecCfg, MambaCfg, MLACfg, ModelConfig, MoECfg, VLMCfg)
 from .lm import LM, decode_step, forward, init_caches, init_params, loss_fn

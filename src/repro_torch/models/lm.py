@@ -1,11 +1,17 @@
 """The decoder-only LM: init, full-sequence forward (prefill), loss and the
-cached decode step, for the block kinds ``attn+mlp``, ``mlstm`` and ``slstm``.
+cached decode step, for the block kinds ``attn+mlp``, ``attn+moe``,
+``mlstm`` and ``slstm``, with an optional dense first layer.
 
 Port of ``src/repro/models/lm.py``. The JAX package stacks each pattern
 entry's parameters over ``n_groups`` and ``lax.scan``s them; here the layers
 are an ``nn.ModuleList`` of per-layer blocks in layer order, layer i of kind
-``block_pattern[i % len(block_pattern)]``. Each layer's cache is its own
-dict: ``{"k", "v"}`` for attention, the recurrent state for xLSTM. Other
+``block_pattern[i % len(block_pattern)]``; with ``cfg.first_layer_dense``
+layer 0 is the reference's ``first`` block (``{mixer}+mlp``) and layer
+i >= 1 is of kind ``block_pattern[(i - 1) % len(block_pattern)]``. Each
+layer's cache is its own dict: ``{"k", "v"}`` for attention, the recurrent
+state for xLSTM. An MoE layer's router aux loss is
+summed over the layers into ``forward``'s ``aux``, as the reference's
+``_stack_forward`` sums it, and ``loss_fn`` adds it to the loss. Other
 mixers and wrappers are not ported yet and raise ``NotImplementedError``
 naming the ROADMAP.md item that ports them.
 
@@ -17,7 +23,8 @@ the reference remats a whole ``block_pattern`` group (the same numbers,
 less memory: one block's activations live at a time in the backward).
 Every ported block kind has a gradient: attention through the flash
 backward kernel, mLSTM through the mLSTM backward kernel (on the card), sLSTM
-by autograd through its step loop. Serving runs under ``torch.no_grad()``:
+by autograd through its step loop, MoE by autograd through its dispatch
+and combine gathers (``moe.py``). Serving runs under ``torch.no_grad()``:
 ``decode_step`` here, the prefill in the engine.
 """
 
@@ -36,21 +43,19 @@ from .attention import (Attention, attention_block, init_attention,
 from .config import ModelConfig
 from .layers import (MLP, apply_mlp, dense_init, init_mlp, init_norm, pdtype,
                      resolve_device, rms_norm)
+from .moe import MoE, apply_moe, init_moe
 from .xlstm import (MLSTM, SLSTM, apply_mlstm, apply_slstm, init_mlstm,
                     init_mlstm_state, init_slstm, init_slstm_state)
 
 # ROADMAP.md Queue 1 item that ports each block kind this module lacks
-_NOT_PORTED = {
-    "moe": "item 3 (MoE)", "mla": "item 4 (MLA)",
-    "mamba": "item 5 (Mamba)",
-}
-_PORTED = ("attn+mlp", "mlstm", "slstm")
+_NOT_PORTED = {"mla": "item 4 (MLA)", "mamba": "item 5 (Mamba)"}
+_PORTED = ("attn+mlp", "attn+moe", "mlstm", "slstm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless every layer of ``cfg`` is of a
-    ported kind: ``attn+mlp``, ``mlstm`` or ``slstm``."""
-    for blk in cfg.block_pattern:
+    ported kind: ``attn+mlp``, ``attn+moe``, ``mlstm`` or ``slstm``."""
+    for blk in dict.fromkeys(layer_kinds(cfg)):
         mixer, _, ffn = blk.partition("+")
         for part in (mixer, ffn):
             if part in _NOT_PORTED:
@@ -59,9 +64,6 @@ def check_ported(cfg: ModelConfig) -> None:
                     f"(ROADMAP.md Queue 1 {_NOT_PORTED[part]})")
         if blk not in _PORTED:
             raise NotImplementedError(f"{cfg.name}: unknown block {blk!r}")
-    if cfg.first_layer_dense:
-        raise NotImplementedError(f"{cfg.name}: a dense first layer is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 3)")
     if cfg.is_encdec or cfg.vlm is not None:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder and VLM "
                                   "wrappers are not ported yet (ROADMAP.md "
@@ -76,6 +78,15 @@ class Block(nn.Module):
                  mlp: MLP) -> None:
         super().__init__()
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+
+class MoEBlock(nn.Module):
+    """One ``attn+moe`` layer: ``ln1``, ``attn``, ``ln2``, ``moe``."""
+
+    def __init__(self, ln1: nn.Parameter, attn: Attention, ln2: nn.Parameter,
+                 moe: MoE) -> None:
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.moe = ln1, attn, ln2, moe
 
 
 class MLSTMBlock(nn.Module):
@@ -95,9 +106,12 @@ class SLSTMBlock(nn.Module):
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
-    """The block kind of each layer, in layer order."""
-    return [cfg.block_pattern[i % len(cfg.block_pattern)]
-            for i in range(cfg.n_layers)]
+    """The block kind of each layer, in layer order: with a dense first
+    layer, layer 0 is ``{mixer}+mlp`` and the pattern starts at layer 1."""
+    first = int(cfg.first_layer_dense)
+    pattern = [cfg.block_pattern[i % len(cfg.block_pattern)]
+               for i in range(cfg.n_layers - first)]
+    return [f"{cfg.block_pattern[0].partition('+')[0]}+mlp"] * first + pattern
 
 
 def init_block(gen: Optional[torch.Generator], cfg: ModelConfig, device,
@@ -106,6 +120,9 @@ def init_block(gen: Optional[torch.Generator], cfg: ModelConfig, device,
         return MLSTMBlock(init_norm(cfg, device), init_mlstm(gen, cfg, device))
     if kind == "slstm":
         return SLSTMBlock(init_norm(cfg, device), init_slstm(gen, cfg, device))
+    if kind == "attn+moe":
+        return MoEBlock(init_norm(cfg, device), init_attention(gen, cfg, device),
+                        init_norm(cfg, device), init_moe(gen, cfg, device))
     return Block(init_norm(cfg, device), init_attention(gen, cfg, device),
                  init_norm(cfg, device), init_mlp(gen, cfg, device))
 
@@ -151,7 +168,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     mLSTM and sLSTM (which ignore ``max_len``)."""
     check_ported(cfg)
     device = resolve_device(device)
-    init = {"attn+mlp": lambda: init_self_attn_cache(cfg, batch, max_len, device),
+    attn = lambda: init_self_attn_cache(cfg, batch, max_len, device)  # noqa: E731
+    init = {"attn+mlp": attn, "attn+moe": attn,
             "mlstm": lambda: init_mlstm_state(cfg, batch, device),
             "slstm": lambda: init_slstm_state(cfg, batch, device)}
     return {"layers": [init[kind]() for kind in layer_kinds(cfg)]}
@@ -160,20 +178,24 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 # ================================================================== forward
 def _apply_block(blk: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
                  cache=None, want_cache: bool = False, mlstm_impl=None, **kw):
+    """``(x, aux, cache)``: ``aux`` the MoE layer's router loss, else None."""
     h = rms_norm(x, blk.ln1, cfg.norm_eps)
     if isinstance(blk, MLSTMBlock):
         y, cache = apply_mlstm(blk.mlstm, h, cfg, state=cache,
                                want_state=want_cache, impl=mlstm_impl)
-        return x + y, cache
+        return x + y, None, cache
     if isinstance(blk, SLSTMBlock):
         y, cache = apply_slstm(blk.slstm, h, cfg, state=cache,
                                want_state=want_cache)
-        return x + y, cache
+        return x + y, None, cache
     y, cache = attention_block(blk.attn, h, cfg, cache=cache,
                                want_cache=want_cache, **kw)
     x = x + y
-    x = x + apply_mlp(blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps))
-    return x, cache
+    h = rms_norm(x, blk.ln2, cfg.norm_eps)
+    if isinstance(blk, MoEBlock):
+        y, aux = apply_moe(blk.moe, h, cfg)
+        return x + y, aux, cache
+    return x + apply_mlp(blk.mlp, h), None, cache
 
 
 # The matrix products that ``remat="dots"`` keeps, as the reference's
@@ -229,20 +251,22 @@ def forward(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     caches = [] if want_caches else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     grad = torch.is_grad_enabled()
     for blk in model.blocks:
         kw = dict(causal=True, positions=positions, want_cache=want_caches,
                   max_len=max_len, impl=attn_impl, mlstm_impl=mlstm_impl)
         if grad and x.requires_grad and not want_caches:
-            x = _remat(lambda x, blk=blk, kw=kw: _apply_block(blk, x, cfg, **kw)[0],
-                       cfg)(x)
+            x, a = _remat(lambda x, blk=blk, kw=kw: _apply_block(blk, x, cfg, **kw)[:2],
+                          cfg)(x)
             c = None
         else:
-            x, c = _apply_block(blk, x, cfg, **kw)
+            x, a, c = _apply_block(blk, x, cfg, **kw)
+        if a is not None:
+            aux = aux + a
         if want_caches:
             caches.append(c)
     logits = _logits(cfg, model, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, ({"layers": caches} if want_caches else None), 0
 
 
@@ -277,6 +301,6 @@ def decode_step(cfg: ModelConfig, model: LM, caches: Dict, tokens: torch.Tensor,
     x = _embed(cfg, model, tokens)
     positions = pos + torch.arange(x.shape[1], device=x.device)
     for blk, c in zip(model.blocks, caches["layers"]):
-        x, _ = _apply_block(blk, x, cfg, positions=positions, cache=c,
-                            cache_pos=pos)
+        x, _, _ = _apply_block(blk, x, cfg, positions=positions, cache=c,
+                               cache_pos=pos)
     return _logits(cfg, model, x), caches

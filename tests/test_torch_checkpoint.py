@@ -258,15 +258,20 @@ def test_trunk_saves_during_experiment_are_withheld_not_lost():
 # the real training loop: crash/resume trace audits clean
 # ---------------------------------------------------------------------------
 
-def test_train_checkpoint_restore_trace_audits_clean():
+@pytest.mark.parametrize("config", [None, "granite-moe-smoke"])
+def test_train_checkpoint_restore_trace_audits_clean(config):
     """Drive the port's launch driver through a crash/resume cycle on ONE
     shared-log service: checkpoint bytes audit against the §13 manifests
     over the whole trace, the resume picks up where the crashed client
-    stopped, and its losses equal an uninterrupted run's bit for bit."""
+    stopped, and its losses equal an uninterrupted run's bit for bit. The
+    small attn+mlp config, and granite's MoE smoke config (its router, expert
+    and aux-loss state through the checkpoint)."""
     from repro_torch.launch.train import run
 
     kw = dict(d_model=32, n_layers=2, batch=2, seq=32, vocab=256, log_every=10,
               device="cpu")
+    if config is not None:
+        kw["config"] = rt.get_smoke_config("granite-moe-3b-a800m")
     straight, _, _, _ = run(steps=30, system=BoltSystem(n_brokers=2), ckpt_every=100, **kw)
     system = BoltSystem(n_brokers=2, gc=True)
     first, _, _, _ = run(steps=20, system=system, ckpt_every=10, **kw)
@@ -276,6 +281,8 @@ def test_train_checkpoint_restore_trace_audits_clean():
     assert len(losses) == 10                      # resumed at step 20
     assert losses == straight[20:]                # exactly: same bits
     assert all(p.requires_grad for p in model.parameters())
+    if config is not None:
+        assert any(n.endswith("moe.e_in") for n, _ in model.named_parameters())
     ckpt = CheckpointManager(system)
     assert ckpt.latest_step() == 30
     _drain(system)

@@ -484,3 +484,73 @@ def test_flash_forward_lse_and_no_grad_path(dtype):
     s = s.masked_fill(pos[:, None] < torch.arange(Sk, device="cuda")[None], float("-inf"))
     want = torch.logsumexp(s, -1).reshape(B, H, Sq)
     torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_block_on_card_matches_cpu(dtype):
+    """One ``attn+moe`` block of granite's geometry, narrowed (6 q heads
+    padded to 8, 2 kv heads with kv_repeat 2, Dh 64; 10 experts padded to
+    12, top 4, capacity factor 0.25 at 777 tokens, so about half the
+    assignments drop): its forward (attention through the flash kernel) and
+    backward (the flash backward kernel, the dispatch's gathers) on the card
+    against the same block on the CPU (plain attention), and two calls on
+    the card equal bit for bit. fp32 to 1e-4 of each tensor's max; bf16 to
+    a relative RMS of 2e-2, with the (token, k) choices that differ shown."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+    from repro_torch import get_smoke_config, init_params
+    from repro_torch.models import moe
+    from repro_torch.models.lm import MoEBlock, _apply_block
+    base = get_smoke_config("granite-moe-3b-a800m")
+    cfg = base.with_(n_layers=1, d_model=256, n_heads=6, n_kv_heads=2, head_dim=64,
+                     pad_heads_to=8, kv_repeat=2, pad_experts_to=12, dtype=dtype,
+                     moe=dataclasses.replace(base.moe, n_experts=10, top_k=4,
+                                             d_expert=128, capacity_factor=0.25))
+    cpu = init_params(cfg, 21, device="cpu", trainable=True)
+    card = init_params(cfg, None, device="cuda", trainable=True)
+    with torch.no_grad():
+        for p, q in zip(card.parameters(), cpu.parameters()):
+            p.copy_(q)
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.normal(size=(1, 777, 256)).astype(np.float32)).to(
+        getattr(torch, dtype))
+    dy = torch.from_numpy(rng.normal(size=(1, 777, 256)).astype(np.float32)).to(x.dtype)
+    choices = []
+    route = moe._route
+
+    def recording(*args):
+        out = route(*args)
+        choices.append(out[2].cpu())
+        return out
+
+    def run(model, device):
+        blk = model.blocks[0]
+        assert isinstance(blk, MoEBlock)
+        xd = x.to(device).requires_grad_()
+        y, aux, _ = _apply_block(blk, xd, cfg, causal=True)
+        params = [xd, *blk.parameters()]
+        grads = torch.autograd.grad((y.float() * dy.to(device).float()).sum() + aux, params)
+        return [y.detach(), aux.detach(), *grads]
+
+    moe._route = recording
+    try:
+        fwd, bwd = flash_attention.launches, flash_attention.backward_launches
+        got, again = run(card, "cuda"), run(card, "cuda")
+        torch.cuda.synchronize()
+        assert (flash_attention.launches - fwd, flash_attention.backward_launches - bwd) == (2, 2)
+        want = run(cpu, "cpu")
+    finally:
+        moe._route = route
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    flips = int((choices[0].sort(-1).values != choices[2].sort(-1).values).any(-1).sum())
+    for name, a, b in zip(["y", "aux", "x", *(n for n, _ in card.blocks[0].named_parameters())],
+                          got, want):
+        a, b = a.cpu().float(), b.float()
+        if dtype == "float32":
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item(),
+                                       msg=f"{name}; {flips} tokens routed differently")
+        else:
+            rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            assert rel <= 2e-2, f"{name}: rel RMS {rel:.3e}; {flips} tokens routed differently"

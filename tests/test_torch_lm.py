@@ -1,6 +1,8 @@
 """The PyTorch port's LM (forward, loss, decode) against JAX on the smoke
 configs of the main path, with weights converted from JAX."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -17,11 +19,22 @@ pytestmark = pytest.mark.slow  # JAX tracing; fast lane: -m 'not slow'
 # fp32: matmul summation order differs between XLA's CPU and torch;
 # bf16: the frameworks round at different places (test_arch_smoke.py:94)
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.15}
+# the router's aux loss, relative: fp32 sums' order; bf16: the router reads
+# hidden states each framework rounds to bf16 at different places
+AUX_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 # Cases beyond a smoke config as it stands: starcoder2-15b's full CONFIG has a
-# 2-matrix GELU MLP (mlp_gated=False) where its SMOKE keeps SwiGLU.
-VARIANTS = {"starcoder2-15b-ungated": ("starcoder2-15b", {"mlp_gated": False})}
+# 2-matrix GELU MLP (mlp_gated=False) where its SMOKE keeps SwiGLU; the
+# granite MoE smoke config with deepseek-v2's dense first layer and a shared
+# expert, and 40 -> 48-style expert padding (8 -> 12).
+_GRANITE = get_smoke_config("granite-moe-3b-a800m")
+VARIANTS = {
+    "starcoder2-15b-ungated": ("starcoder2-15b", {"mlp_gated": False}),
+    "granite-moe-dense-first": ("granite-moe-3b-a800m", {
+        "first_layer_dense": True, "n_layers": 3, "pad_experts_to": 12,
+        "moe": dataclasses.replace(_GRANITE.moe, n_shared=1)}),
+}
 
 
 def _models(arch, dtype, seed=0):
@@ -40,17 +53,23 @@ def _tokens(cfg, B, S, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-8b",
                                   "deepseek-67b",        # kv_repeat=2
-                                  "starcoder2-15b", "starcoder2-15b-ungated"])
+                                  "starcoder2-15b", "starcoder2-15b-ungated",
+                                  "granite-moe-3b-a800m", "granite-moe-dense-first"])
 def test_forward_and_loss_match_jax(arch, dtype):
     cfg, jp, tm = _models(arch, dtype)
     toks, labels = _tokens(cfg, 2, 24, 1), _tokens(cfg, 2, 24, 2)
     jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
     tb = {"tokens": torch.from_numpy(toks).long(),
           "labels": torch.from_numpy(labels).long()}
-    jl, _, _, _ = jlm.forward(cfg, jp, jb)
+    jl, jaux, _, _ = jlm.forward(cfg, jp, jb)
     tl, aux, _, n_prefix = rt.forward(cfg, tm, tb)
     assert tl.shape == (2, 24, cfg.padded_vocab) and tl.dtype == tm.embed.dtype
-    assert n_prefix == 0 and float(aux) == 0.0
+    assert n_prefix == 0 and aux.dtype == torch.float32
+    if cfg.moe is None:
+        assert float(aux) == 0.0 == float(jaux)
+    else:                       # the router loss summed over the MoE layers
+        assert float(aux) > 0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=AUX_RTOL[dtype])
     tol = LOGIT_TOL[dtype]
     np.testing.assert_allclose(tl.float().numpy(), np.asarray(jl, np.float32),
                                rtol=tol, atol=tol)
@@ -59,6 +78,8 @@ def test_forward_and_loss_match_jax(arch, dtype):
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=tol, atol=tol)
     np.testing.assert_allclose(float(tmet["nll"]), float(jm["nll"]),
                                rtol=tol, atol=tol)
+    np.testing.assert_allclose(float(tmet["aux"]), float(jm["aux"]),
+                               rtol=AUX_RTOL[dtype])
 
 
 def test_forward_kv_repeat_matches_jax():
@@ -109,9 +130,12 @@ def test_prefill_then_decode_matches_teacher_forced(arch):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
 
 
-def test_decode_step_matches_jax():
-    """One cached decode step after a teacher-forced prefix, against JAX."""
-    cfg, jp, tm = _models("qwen3-8b", "float32", seed=8)
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-moe-3b-a800m",
+                                  "granite-moe-dense-first"])
+def test_decode_step_matches_jax(arch):
+    """One cached decode step after a teacher-forced prefix, against JAX;
+    MoE routes the B tokens of each step (no drops at this size)."""
+    cfg, jp, tm = _models(arch, "float32", seed=8)
     B, S = 2, 6
     toks = _tokens(cfg, B, S, 10)
     jc = jlm.init_caches(cfg, B, S)
@@ -123,14 +147,19 @@ def test_decode_step_matches_jax():
                                 torch.from_numpy(toks[:, t:t + 1]).long(), t)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                    atol=1e-4)
+    first = int(cfg.first_layer_dense)
     for i, layer in enumerate(tc["layers"]):
-        np.testing.assert_allclose(layer["k"].numpy(),
-                                   np.asarray(jc["groups"][0]["k"][i]),
+        want = jc["first"]["k"] if i < first else jc["groups"][0]["k"][i - first]
+        np.testing.assert_allclose(layer["k"].numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
 
 
 def test_unported_mixers_raise():
-    for arch in ("granite-moe-3b-a800m", "deepseek-v2-lite-16b",
-                 "jamba-1.5-large-398b", "whisper-small"):
+    """MoE is ported (granite-moe-3b-a800m builds); deepseek-v2-lite's MLA
+    still raises, naming its ROADMAP item, as do Mamba and the wrappers."""
+    rt.init_params(rt.get_smoke_config("granite-moe-3b-a800m"), 0, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 4 \(MLA\)"):
+        rt.init_params(rt.get_smoke_config("deepseek-v2-lite-16b"), 0, device="cpu")
+    for arch in ("jamba-1.5-large-398b", "whisper-small"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rt.init_params(rt.get_smoke_config(arch), 0, device="cpu")

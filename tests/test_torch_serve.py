@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from repro.configs import get_smoke_config  # noqa: E402
 from repro.core import BoltSystem as JaxBoltSystem  # noqa: E402
 from repro.models.config import ModelConfig  # noqa: E402
 from repro.models.lm import init_params as jax_init_params  # noqa: E402
@@ -56,10 +57,14 @@ def _serve(system, topic_cls, producer_cls, engine_cls, cfg, params, reqs,
     return req, resp, eng
 
 
-def test_serve_engine_roundtrip_matches_jax():
+@pytest.mark.parametrize("arch", ["tiny", "granite-moe-3b-a800m"])
+def test_serve_engine_roundtrip_matches_jax(arch):
     """The port of test_serve_and_checkpoint.py::test_serve_engine_roundtrip,
-    with the streams held equal to the JAX engine's (fp32)."""
-    cfg = _tiny_cfg(dtype="float32")
+    with the streams held equal to the JAX engine's (fp32); granite's MoE
+    smoke config routes the left-padded prefill batch where the JAX engine
+    routes one position at a time (no drops at this size)."""
+    cfg = (_tiny_cfg(dtype="float32") if arch == "tiny"
+           else get_smoke_config(arch).with_(dtype="float32"))
     jparams = jax_init_params(cfg, jax.random.key(0))
     model = rt.params_from_jax(cfg, jax.device_get(jparams), device="cpu")
     reqs = _requests(3)                      # prompts of 3, 5 and 7 tokens

@@ -13,6 +13,8 @@ Inputs come from numpy seeds; parameters and optimizer state cross through
 * and that serving still builds no graph.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -153,8 +155,17 @@ def test_adamw_init_and_unported_sharding():
 
 
 # -------------------------------------------------------------- train step
+# granite's MoE smoke config with a dense first layer, a shared expert and
+# padded experts (8 -> 12): every MoE leaf and the first block take a step
+_GRANITE = get_smoke_config("granite-moe-3b-a800m")
+VARIANTS = {"granite-moe-dense-first": ("granite-moe-3b-a800m", {
+    "first_layer_dense": True, "n_layers": 3, "pad_experts_to": 12,
+    "moe": dataclasses.replace(_GRANITE.moe, n_shared=1)})}
+
+
 def _step_inputs(arch, dtype, remat, seed=0, B=4, S=16):
-    cfg = get_smoke_config(arch).with_(dtype=dtype, remat=remat)
+    arch, overrides = VARIANTS.get(arch, (arch, {}))
+    cfg = get_smoke_config(arch).with_(dtype=dtype, remat=remat, **overrides)
     jp = jlm.init_params(cfg, jax.random.key(seed))
     rng = np.random.default_rng(seed + 1)
     toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
@@ -179,7 +190,8 @@ def _run_both(cfg, jp, toks, accum, grad_dtype):
 
 @pytest.mark.parametrize("accum", [1, 2])
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
-@pytest.mark.parametrize("arch", ["qwen3-8b", "smollm-135m"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "smollm-135m", "granite-moe-3b-a800m",
+                                  "granite-moe-dense-first"])
 def test_train_step_matches_jax(arch, remat, accum):
     cfg, jp, toks = _step_inputs(arch, "float32", remat)
     jm, tm, model, want, state = _run_both(cfg, jp, toks, accum, "float32")
@@ -192,8 +204,9 @@ def test_train_step_matches_jax(arch, remat, accum):
                                    atol=STEP_TOL, err_msg=name)
 
 
-def test_train_step_bf16_matches_jax():
-    cfg, jp, toks = _step_inputs("qwen3-8b", "bfloat16", "full")
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-moe-3b-a800m"])
+def test_train_step_bf16_matches_jax(arch):
+    cfg, jp, toks = _step_inputs(arch, "bfloat16", "full")
     old = rt.params_from_jax(cfg, jax.device_get(jp), device="cpu")
     jm, tm, model, want, _ = _run_both(cfg, jp, toks, 2, "bfloat16")
     tol, lr = BF16_STEP_TOL, 1e-3
@@ -203,7 +216,9 @@ def test_train_step_bf16_matches_jax():
     d2 = w2 = 0.0
     for (name, p), (_, w), (_, o) in zip(model.named_parameters(), want.named_parameters(),
                                          old.named_parameters()):
-        assert p.dtype == torch.bfloat16
+        # bf16 but for the fp32 MoE router, as the reference keeps it
+        assert p.dtype == w.dtype == (torch.float32 if name.endswith(".router")
+                                      else torch.bfloat16), name
         p, w, o = p.detach().float(), w.float(), o.float()
         agree = ((p - o) - (w - o)).abs().le(lr / 2).float().mean().item()
         assert agree >= tol["update_agree"], (name, agree)
