@@ -99,6 +99,24 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      fp32 and bf16, at train/step.py's tolerances; (d) 2 layers at batch 2 x
      512: 4 steps straight against 2, a checkpoint and 2 resumed, bit for
      bit. Every launcher run counts the flash kernels.
+ 12. mla: deepseek-v2-lite-16b at full width (bf16, seeded random weights;
+     Multi-head Latent Attention with 16 heads, keys of 128 + 64 rope dims
+     over values of 128, kv_lora_rank 512; a dense first layer and 26 MoE
+     layers of 64 experts, top 6, 2 shared). (k) The flash forward and
+     backward at head dims (192, 128) against the plain version in fp32
+     and bf16 on the edges of their tiles (Sq and Sk of 1 to 4097, a
+     q_offset, non-causal Sq != Sk, B > 1), a second call equal bit for
+     bit; timed at its training shape (B=1, H=KH=16, S=4096) beside the
+     plain version, SDPA (its backend named, and each backend's time) and
+     the bounds, the backward pass by pass; ptxas's registers and spills of
+     the (192, 128) instantiations; (a)-(d) as phase 11: (a) at full depth
+     (27 layers), each layer's flash call against plain, the logits
+     against plain within 3x the floor and routed alike, flips counted,
+     prefill and decode timed, 4 requests served; (b) the launcher trains
+     7 of its 27 layers (the dense one and 6 MoE; full depth's AdamW state
+     does not fit the card) 6 steps at 2 x 4096 in 2 microbatches; (c) one
+     step, kernels against plain, 2 layers, fp32 and bf16; (d) 2 layers at
+     2 x 512: 4 steps against 2, a checkpoint and 2 resumed, bit for bit.
 The line before the last lists the kernels as JSON, each with its launches
 on every main path (launches_by_path) and their sum (launches); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
@@ -215,6 +233,7 @@ SMOLLM_SHAPE = (4, 9, 3, 1024, 64)             # smollm-135m training, phase 9d'
 # the bf16 backward's two passes do seven products against the five of the
 # bound: the dQ pass recomputes S and dP (dK/dV: 4 products, dQ: 3)
 BWD_PASSES = {"dkdv": 4, "dq": 3}
+PRELUDE = 3000          # kernels that open each by-pass profile (backward_passes)
 # phase 9b: qwen3-8b at full width, depth cut to 8 of 36 layers (AdamW's fp32
 # master and moments for 36 layers, 8.2 B x 16 bytes = 131 GB, do not fit one
 # card; 8 layers, 2.8 B parameters, take ~45 GB); remat is the config's, full
@@ -289,6 +308,33 @@ MOE_TRAIN_RUN = dict(config="granite-moe-3b-a800m", n_layers=32, batch=2, seq=40
 # checkpoint and 2 resumed
 MOE_RESUME_RUN = dict(config="granite-moe-3b-a800m", n_layers=2, batch=2, seq=512)
 MOE_RESUME_K = 2
+# phase 12: deepseek-v2-lite-16b at full width: MLA's flash calls take head
+# dims (Dhk, Dhv) = (128 + 64, 128), 16 q and 16 kv heads (G = 1)
+MLA_DIMS = (192, 128)
+MLA_SHAPE = (1, 16, 16, 4096)                  # its training flash calls: B, H, KH, S
+# (k) against plain, fp32 and bf16, on the edges of the (192, 128) kernels'
+# tiles (forward: 128-row q and kv tiles; backward: 32-row query steps and
+# 128-key tiles, 128-row query tiles and 64-key steps) and TMA boxes:
+# (B, H, KH, Sq, Sk, causal, q_offset)
+MLA_CASES = [
+    *[(1, 4, 4, n, n, True, 0) for n in (1, 63, 64, 65, 127, 128, 129, 4097)],
+    *[(2, 4, 4, 129, n, False, 0) for n in (1, 63, 65, 127, 4097)],   # non-causal Sq != Sk
+    (2, 8, 8, 129, 300, True, 171),            # q_offset, Sq < Sk, B > 1
+    (1, 16, 16, 63, 1000, True, 937),          # the last 63 rows of a sequence
+    (2, 8, 4, 100, 100, True, 0),              # G = 2
+    (4, 16, 16, 32, 32, True, 0),              # the served deepseek prefill batch
+]
+# (b) full depth (15.71 B parameters x 16 bytes of bf16 weights and gradient
+# accumulator, fp32 master and moments = 251 GB) does not fit one card: 7 of
+# 27 layers (the dense first layer and 6 MoE, 4.01 B parameters). 6 layers
+# peaked at 61.41 GiB on an H100 80GB HBM3 at 700 W (PERF.md, phase 12's probe);
+# a 7th MoE layer adds 585 M x 16 bytes and a microbatch's bf16 gradients,
+# ~9.8 GiB, for ~71 GiB of the card's 79
+MLA_TRAIN_RUN = dict(config="deepseek-v2-lite-16b", n_layers=7, batch=2, seq=4096, accum=2,
+                     steps=6)
+# (d) full width, 2 layers (the dense one and one MoE), batch 2 x 512
+MLA_RESUME_RUN = dict(config="deepseek-v2-lite-16b", n_layers=2, batch=2, seq=512)
+MLA_RESUME_K = 2
 
 
 def say(*parts) -> None:
@@ -867,13 +913,26 @@ def sdpa_backward_ms(q, k, v, do, iters: int) -> float:
 def backward_passes(fn, calls: int = 3) -> dict:
     """Mean device ms of each pass (delta, dkdv, dq) of the backward kernel
     over ``calls`` calls of ``fn`` under torch.profiler; empty where the
-    profiler sees no device time."""
+    profiler sees no device time. Once earlier profiles have run, the
+    profiler on the card drops the first device events of a session (5
+    after phase 11 alone, all 9 of a 3-call window after phases 10 and
+    11), so each window opens with PRELUDE one-element kernels, which the
+    sums skip."""
+    import re
+    x = torch.zeros(1, device="cuda")
+
+    def window():
+        for _ in range(PRELUDE):
+            x.add_(1)
+        for _ in range(calls):
+            fn()
+
     sums = {}
-    for name, t in device_kernels(lambda: [fn() for _ in range(calls)]):
-        if "flash_bwd_" in name:
-            key = name.split("flash_bwd_")[1].split("<")[0].removesuffix("_bf16")
-            n, total = sums.get(key, (0, 0.0))
-            sums[key] = (n + 1, total + t)
+    for name, t in device_kernels(window):
+        found = re.search(r"flash_bwd_(delta|dkdv|dq)", name)
+        if found:
+            n, total = sums.get(found.group(1), (0, 0.0))
+            sums[found.group(1)] = (n + 1, total + t)
     return {key: total / n for key, (n, total) in sums.items()}
 
 
@@ -980,8 +1039,8 @@ def check_backward() -> dict:
 
 def counted_run(**kw) -> tuple:
     """One ``launch.train.run`` as a main path: every kernel's count is set
-    to 0 just before it and read just after. Per attention layer (``attn+mlp``
-    or ``attn+moe``), and per
+    to 0 just before it and read just after. Per attention layer (``attn+mlp``,
+    ``attn+moe``, ``mla+mlp`` or ``mla+moe``), and per
     mLSTM layer, each microbatch launches its forward kernel once (twice under
     remat full, which recomputes it in the backward) and its backward kernel
     once; the other kernel family not at all. Returns run's result and the
@@ -1001,7 +1060,7 @@ def counted_run(**kw) -> tuple:
            (mlstm_chunk.launches, mlstm_chunk.backward_launches))
     calls = kw.get("accum", 1) * len(out[0])
     remat = {"none": 1, "full": 2}[cfg.remat]
-    n_attn = sum(kind.partition("+")[0] == "attn" for kind in kinds)
+    n_attn = sum(kind.partition("+")[0] in ("attn", "mla") for kind in kinds)
     want = tuple((remat * n * calls, n * calls) for n in (n_attn, kinds.count("mlstm")))
     say(f"[train] {cfg.name} {cfg.n_layers} layers, {len(out[0])} steps: flash forward "
         f"launches {got[0][0]} (want {want[0][0]}), backward {got[0][1]} (want "
@@ -1720,7 +1779,7 @@ def attention_split_sum(q, k, v, *, causal: bool, impl=None) -> torch.Tensor:
     """``flash_attention_plain`` with its P V sum over the keys taken in two
     halves: the same function, one sum in another order (the floor of (a))."""
     B, H, S, Dh = q.shape
-    KH = k.shape[1]
+    KH, Dhv = k.shape[1], v.shape[-1]
     qg = q.reshape(B, KH, H // KH, S, Dh).float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * Dh ** -0.5
     if causal:
@@ -1731,7 +1790,7 @@ def attention_split_sum(q, k, v, *, causal: bool, impl=None) -> torch.Tensor:
     h = S // 2
     out = (torch.einsum("bkgqs,bksd->bkgqd", p[..., :h], v[:, :, :h].float())
            + torch.einsum("bkgqs,bksd->bkgqd", p[..., h:], v[:, :, h:].float()))
-    return out.reshape(B, H, S, Dh).to(q.dtype)
+    return out.reshape(B, H, S, Dhv).to(q.dtype)
 
 
 def flash_at_granite() -> None:
@@ -1781,7 +1840,7 @@ def flash_at_granite() -> None:
 
 
 @torch.no_grad()
-def check_moe_prefill(cfg, model, tag: str) -> None:
+def check_moe_prefill(cfg, model, tag: str, label: str = "moe prefill") -> None:
     """(a): one full-depth forward of 4 prompts x 32 tokens through the
     kernel (launched once a layer), each layer's flash call held against the
     plain version on the inputs it sees; the logits against a plain forward,
@@ -1790,6 +1849,7 @@ def check_moe_prefill(cfg, model, tag: str) -> None:
     kernel's was; the (token, layer) expert choices that differ counted."""
     from repro_torch import forward
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.lm import layer_kinds
     tokens = prefill_tokens(cfg)
     batch = {"tokens": tokens}
     errs, routes = [], {key: [] for key in ("kernel", "plain", "split")}
@@ -1815,9 +1875,9 @@ def check_moe_prefill(cfg, model, tag: str) -> None:
     if logits.shape != (*tokens.shape, cfg.padded_vocab) or not torch.isfinite(logits).all():
         raise AssertionError(f"bad logits {tuple(logits.shape)}")
     d, floor, dp = logit_diff(logits, plain), logit_diff(split, plain), logit_diff(logits, pinned)
-    n = tokens.numel() * cfg.n_layers
+    n = tokens.numel() * sum(kind.endswith("+moe") for kind in layer_kinds(cfg))
     tol = PREFILL_TOL[logits.dtype]
-    say(f"[moe prefill] {tag} B=4 S=32: {cfg.n_layers} layers, each layer's flash call vs "
+    say(f"[{label}] {tag} B=4 S=32: {cfg.n_layers} layers, each layer's flash call vs "
         f"plain on its inputs max_abs_err {max(errs):.3e} (tol {TOL[logits.dtype]}); logits "
         f"{tuple(logits.shape)} finite; kernel vs plain max_abs {d['max_abs']:.3e}, rel_rms "
         f"{d['rel_rms']:.3e}, argmax agree {d['argmax_agree']:.4f}, expert choices differing "
@@ -1857,15 +1917,16 @@ def moe_layer_ms(cfg, blk, seq: int) -> tuple:
             len(kernels))
 
 
-def train_moe() -> tuple:
-    """(b): the launcher trains granite-moe-3b-a800m at full width and depth,
-    the flash kernels' launches counted; then one more step of the shape
-    timed and profiled (device only) for the busy and idle shares, the
-    flash kernels' shares, and from one MoE layer's work alone the expert
-    products' and the dispatch's."""
+def train_moe(run: dict = MOE_TRAIN_RUN, label: str = "moe train") -> tuple:
+    """(b): the launcher trains ``run`` (granite-moe-3b-a800m at full width
+    and depth, or deepseek-v2-lite-16b's depth cut), the flash kernels'
+    launches counted; then one more step of the shape timed and profiled
+    (device only) for the busy and idle shares, the flash kernels' shares,
+    and from one MoE layer's work alone the expert products' and the
+    dispatch's."""
     from repro_torch import get_config
     from repro_torch.models.lm import layer_kinds
-    run_kw = dict(MOE_TRAIN_RUN)
+    run_kw = dict(run)
     cfg = get_config(run_kw["config"]).with_(n_layers=run_kw["n_layers"])
     steps, accum = run_kw["steps"], run_kw["accum"]
     torch.cuda.reset_peak_memory_stats()
@@ -1874,7 +1935,7 @@ def train_moe() -> tuple:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_params = sum(p.numel() for p in model.parameters())
     ln_v = math.log(cfg.vocab_size)
-    say(f"[moe train] granite-moe-3b-a800m {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+    say(f"[{label}] {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
         f"parameters, batch {run_kw['batch']} x {run_kw['seq']} in {accum} microbatches, "
         f"remat {cfg.remat}, bf16, AdamW fp32 master and moments: losses "
         + ", ".join(f"{x:.4f}" for x in losses) + f" (ln V = {ln_v:.4f}, plus the router's "
@@ -1883,7 +1944,7 @@ def train_moe() -> tuple:
     # right is (c)'s check and the CPU tests' (the step against the reference)
     if not (len(losses) == steps and all(math.isfinite(x) for x in losses)
             and abs(losses[0] - ln_v) <= 1.0):
-        raise AssertionError(f"granite training losses off: {losses}")
+        raise AssertionError(f"{cfg.name} training losses off: {losses}")
     tokens = run_kw["batch"] * run_kw["seq"]
     step_s = statistics.median(seconds[1:])
     wall, kernels = one_more_step(cfg, model, run_kw, cpu=False)
@@ -1891,8 +1952,9 @@ def train_moe() -> tuple:
     fwd_s = sum(t for name, t in kernels if "flash_fwd" in name) / 1e3
     bwd_s = sum(t for name, t in kernels if "flash_bwd" in name) / 1e3
     gemm = sum(t for name, t in kernels if "gemm" in name.lower() or "nvjet" in name) / 1e3
-    n_moe = layer_kinds(cfg).count("attn+moe")
-    m_ms, m_gemm, m_n = moe_layer_ms(cfg, model.blocks[0], run_kw["seq"])
+    n_moe = sum(kind.endswith("+moe") for kind in layer_kinds(cfg))
+    m_ms, m_gemm, m_n = moe_layer_ms(cfg, next(b for b in model.blocks if hasattr(b, "moe")),
+                                     run_kw["seq"])
     calls = n_moe * accum / 1e3
     per = {}
     for name, t in kernels:
@@ -1909,11 +1971,11 @@ def train_moe() -> tuple:
         f"{m_gemm:.2f} ms: over {n_moe} layers x {accum} microbatches the expert products "
         f"{m_gemm * calls / busy:.4f} of busy, the routing, dispatch and combine "
         f"{(m_ms - m_gemm) * calls / busy:.4f}")
-    say(f"[moe train] step times " + ", ".join(f"{t:.3f}" for t in seconds)
+    say(f"[{label}] step times " + ", ".join(f"{t:.3f}" for t in seconds)
         + f" s; median after the first {step_s:.3f} s, {tokens / step_s:.0f} tokens/s; "
         f"peak memory {peak:.2f} GiB; {share}")
     top = sorted(per.items(), key=lambda x: -x[1])[:10]
-    say(f"[moe train] profiled step, device ms by kernel (top 10): "
+    say(f"[{label}] profiled step, device ms by kernel (top 10): "
         + "; ".join(f"{name[:60]} {t:.1f}" for name, t in top))
     return fwd, bwd
 
@@ -1955,12 +2017,213 @@ def phase_moe() -> tuple:
             {path: n[1] for path, n in paths.items()})
 
 
+def ptxas_summary(name: str, sources, match: str) -> list:
+    """(kernel, registers, spill stores, spill loads) of each entry of a
+    built library whose mangled name holds ``match``, from ptxas's report."""
+    import re
+    from repro_torch.kernels import build
+    out, entry, spills = [], None, None
+    for line in build.report(name, sources).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry is not None:
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+        elif "Used" in line and "registers" in line and entry is not None:
+            if match in entry:
+                kernel = re.search(r"\d+(flash_\w+?)I", entry).group(1)
+                out.append((kernel, int(re.search(r"Used (\d+) registers", line).group(1)),
+                            *(spills or (0, 0))))
+            entry, spills = None, None
+    return out
+
+
+def sdpa_ms(q, k, v, do, iters: int) -> dict:
+    """SDPA (causal, H = KH) on these tensors: the default call's forward
+    and backward ms and the backend it takes, and each backend's forward
+    and backward ms or why it refused."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def times():
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        y = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        return (cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                        iters=2 * iters),
+                cuda_ms(lambda: torch.autograd.grad(y, (qs, ks, vs), do, retain_graph=True),
+                        iters=iters))
+
+    names = {int(b.value): key for key, b in SDPBackend.__members__.items()}
+    try:
+        default = names.get(int(torch._fused_sdp_choice(q, k, v, is_causal=True)), "unknown")
+    except (AttributeError, RuntimeError, TypeError):
+        default = "not named"
+    fwd, bwd = times()
+    res = {"backend": default, "ms": fwd, "backward_ms": bwd, "backends": {}}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([be]):
+                f, b = times()
+            res["backends"][be.name] = f"{f:.4f} / {b:.4f} ms"
+        except RuntimeError as e:
+            res["backends"][be.name] = "refused (" + str(e).splitlines()[0][:60] + ")"
+    return res
+
+
+def mla_bounds(B, H, KH, S) -> dict:
+    """Least times (ms) of the causal flash at MLA's head dims on an H100 SXM
+    (bf16): the forward's two products, B H S^2 (Dhk + Dhv) operations,
+    against q, k, v, o once each; the backward's five, B H S^2 (3 Dhk + 2
+    Dhv), against q, k, v, o, dO, dQ, dK, dV and lse; the two-pass design's
+    seven, B H S^2 (4 Dhk + 3 Dhv): its dK/dV pass four (2 Dhk + 2 Dhv), its
+    dQ pass three (2 Dhk + Dhv)."""
+    Dhk, Dhv = MLA_DIMS
+    sq = B * H * S * S
+    f_bytes = 2 * (B * H * S * (Dhk + Dhv) + B * KH * S * (Dhk + Dhv))
+    b_bytes = 2 * 2 * (B * H * S * (Dhk + Dhv) + B * KH * S * (Dhk + Dhv)) + 4 * B * H * S
+    ms = lambda flops: flops / PEAK_BF16_FLOPS * 1e3  # noqa: E731
+    return {"fwd_ops": ms(sq * (Dhk + Dhv)), "fwd_bytes": f_bytes / PEAK_BYTES * 1e3,
+            "bwd_ops": ms(sq * (3 * Dhk + 2 * Dhv)), "bwd_bytes": b_bytes / PEAK_BYTES * 1e3,
+            "design": ms(sq * (4 * Dhk + 3 * Dhv)),
+            "dkdv": ms(sq * (2 * Dhk + 2 * Dhv)), "dq": ms(sq * (2 * Dhk + Dhv))}
+
+
+def flash_at_mla() -> None:
+    """(k): the flash forward and backward at MLA's head dims (192, 128)
+    against the plain version on MLA_CASES in fp32 and bf16, each twice and
+    equal bit for bit; ptxas's registers and spills of the (192, 128)
+    instantiations; then timed at deepseek-v2-lite's training shape beside
+    the plain version, SDPA and the bounds, the backward pass by pass."""
+    from repro_torch.kernels.flash_attention import (BWD_SOURCES, SOURCES, _forward_kernel,
+                                                     backward_errors, flash_attention,
+                                                     flash_attention_backward,
+                                                     flash_attention_backward_plain)
+    Dhk, Dhv = MLA_DIMS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    worst = {}
+    for B, H, KH, Sq, Sk, causal, q_offset in MLA_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = randn(gen, (B, H, Sq, Dhk), dtype), randn(gen, (B, H, Sq, Dhv), dtype)
+            k, v = randn(gen, (B, KH, Sk, Dhk), dtype), randn(gen, (B, KH, Sk, Dhv), dtype)
+            kw = dict(causal=causal, q_offset=q_offset)
+            out, again = flash_attention(q, k, v, **kw), flash_attention(q, k, v, **kw)
+            f_err = (out.float() - flash_attention(q, k, v, impl="plain", **kw).float()
+                     ).abs().max().item()
+            qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+            got = torch.autograd.grad(flash_attention(*qkv, **kw), qkv, do)
+            got2 = torch.autograd.grad(flash_attention(*qkv, **kw), qkv, do)
+            b_err, b_scaled = max(backward_errors(
+                got, flash_attention_backward_plain(q, k, v, do, **kw)), key=lambda e: e[1])
+            torch.cuda.synchronize()
+            same = torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(got, got2))
+            say(f"[mla kernel] B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} ({Dhk}, {Dhv}) causal={causal} "
+                f"q_offset={q_offset} {str(dtype)[6:]}: forward max_abs_err {f_err:.3e} (tol "
+                f"{TOL[dtype]}), backward {'max_abs/max' if dtype == torch.float32 else 'rel_rms'}"
+                f" {b_err:.3e} ({b_scaled:.3f} of its tolerance); second call equal: {same}")
+            if not (f_err <= TOL[dtype] and b_scaled <= 1 and same):
+                raise AssertionError(f"flash at (192, 128) disagrees or repeats unequally: "
+                                     f"forward {f_err}, backward {b_err}")
+            key = str(dtype)[6:]
+            worst[key] = (max(worst.get(key, (0, 0))[0], f_err), max(worst.get(key, (0, 0))[1],
+                                                                       b_err))
+    del q, k, v, do, out, again, qkv, got, got2
+    for name, sources in (("flash_attention", SOURCES), ("flash_attention_bwd", BWD_SOURCES)):
+        for kernel, regs, st, ld in ptxas_summary(name, sources, f"ILi{Dhk}ELi{Dhv}E"):
+            say(f"[mla kernel] ptxas {kernel}<{Dhk}, {Dhv}>: {regs} registers at launch, spill "
+                f"stores {st} bytes, spill loads {ld} bytes")
+
+    B, H, KH, S = MLA_SHAPE
+    q, do = randn(gen, (B, H, S, Dhk), torch.bfloat16), randn(gen, (B, H, S, Dhv), torch.bfloat16)
+    k, v = randn(gen, (B, KH, S, Dhk), torch.bfloat16), randn(gen, (B, KH, S, Dhv), torch.bfloat16)
+    err = (flash_attention(q, k, v, causal=True).float()
+           - flash_attention(q, k, v, causal=True, impl="plain").float()).abs().max().item()
+    o, lse = _forward_kernel(q, k, v, True, 0, with_lse=True)
+    got = flash_attention_backward(q, k, v, o, do, lse, causal=True)
+    b_err, b_scaled = max(backward_errors(got, flash_attention_backward_plain(
+        q, k, v, do, causal=True)), key=lambda e: e[1])
+    same = all(torch.equal(a, b) for a, b in zip(
+        got, flash_attention_backward(q, k, v, o, do, lse, causal=True)))
+    if not (err <= TOL[torch.bfloat16] and b_scaled <= 1 and same):
+        raise AssertionError(f"flash at deepseek's training shape: forward {err}, backward "
+                             f"{b_err}, repeat equal {same}")
+    del got
+    fwd = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)
+    plain = cuda_ms(lambda: flash_attention(q, k, v, causal=True, impl="plain"), iters=3,
+                    warmup=1)
+    bwd = cuda_ms(lambda: flash_attention_backward(q, k, v, o, do, lse, causal=True), iters=10)
+    b_plain = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, do, causal=True),
+                      iters=3, warmup=1)
+    sdpa = sdpa_ms(q, k, v, do, iters=10)
+    passes = backward_passes(lambda: flash_attention_backward(q, k, v, o, do, lse, causal=True))
+    bd = mla_bounds(B, H, KH, S)
+    fwd_bound, bwd_bound = max(bd["fwd_ops"], bd["fwd_bytes"]), max(bd["bwd_ops"], bd["bwd_bytes"])
+    say(f"[mla kernel] training shape B={B} H={H} KH={KH} S={S} ({Dhk}, {Dhv}) bf16 causal: "
+        f"forward kernel {fwd:.4f} ms, plain {plain:.4f} ms, sdpa {sdpa['ms']:.4f} ms "
+        f"(backend {sdpa['backend']}), bound {fwd_bound:.4f} ms (ops {bd['fwd_ops']:.4f}, bytes "
+        f"{bd['fwd_bytes']:.4f}), kernel/sdpa {fwd / sdpa['ms']:.3f}, max_abs_err {err:.3e}; "
+        f"backward kernel {bwd:.4f} ms, plain {b_plain:.4f} ms (autograd of the plain forward, "
+        f"forward included), sdpa backward {sdpa['backward_ms']:.4f} ms, bound "
+        f"{bwd_bound:.4f} ms (ops {bd['bwd_ops']:.4f}, bytes {bd['bwd_bytes']:.4f}), two-pass "
+        f"design bound {bd['design']:.4f} ms (seven products), kernel/sdpa "
+        f"{bwd / sdpa['backward_ms']:.3f}, rel_rms {b_err:.3e}, two calls equal; SDPA by "
+        f"backend (forward / backward): {sdpa['backends']}")
+    say("[mla kernel] backward by pass at the training shape (torch.profiler, mean of 3 calls): "
+        + ("device time not measured" if not passes else
+           f"delta {passes.get('delta', float('nan')):.4f} ms, "
+           + ", ".join(f"{key} {passes.get(key, float('nan')):.4f} ms (its share of the design "
+                       f"bound {bd[key]:.4f})" for key in ("dkdv", "dq"))
+           + f"; sum {sum(passes.values()):.4f} ms")
+        + f"; worst over the cases (forward max_abs, backward): {worst}")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+
+def phase_mla() -> tuple:
+    """Phase 12: deepseek-v2-lite-16b. Returns the flash forward's and
+    backward's launches on each deepseek path."""
+    from repro_torch import get_config, init_params
+    from repro_torch.kernels.flash_attention import flash_attention
+    t0 = time.perf_counter()
+    flash_at_mla()
+    tk = time.perf_counter()
+    cfg = get_config("deepseek-v2-lite-16b")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[mla prefill] deepseek-v2-lite-16b: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+        f"parameters ({torch.cuda.memory_allocated() / 1e9:.1f} GB bf16; MLA {cfg.n_heads} "
+        f"heads, kv_lora_rank {cfg.mla.kv_lora_rank}, head dims {MLA_DIMS}; "
+        f"{cfg.moe.n_experts} experts a layer, top {cfg.moe.top_k}, {cfg.moe.n_shared} shared)")
+    check_moe_prefill(cfg, model, "deepseek-v2-lite-16b bf16", label="mla prefill")
+    time_prefill_and_decode(cfg, model, "mla prefill", prefill_tokens(cfg))
+    served, _ = phase_serve(cfg, model, flash_attention, cfg.n_layers, SERVE_PROMPTS,
+                            "mla serve")
+    say(f"[mla serve] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    trained = train_moe(MLA_TRAIN_RUN, "mla train")
+    t2 = time.perf_counter()
+    step_kernel_vs_plain("deepseek-v2-lite-16b")
+    t3 = time.perf_counter()
+    resumed = resume_exactly(MLA_RESUME_RUN, MLA_RESUME_K,
+                             "deepseek-v2-lite-16b (2 layers, full width)")
+    say(f"[mla] phase times: (k) {tk - t0:.1f} s, (a) {t1 - tk:.1f} s, (b) {t2 - t1:.1f} s, "
+        f"(c) {t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
+    paths = {"train deepseek-v2-lite-16b": trained,
+             "train deepseek-v2-lite-16b 2 layers (resume)": resumed}
+    return ({"serve deepseek-v2-lite-16b": served, **{path: n[0] for path, n in paths.items()}},
+            {path: n[1] for path, n in paths.items()})
+
+
 def serve_timing(repeats: int) -> None:
     """``--serve-timing N``: only the served paths' times, N times each, to
     compare two commits' packages in alternating processes (this script
     copied beside each; no kernel checks and no "ok" line). For qwen3-8b
-    (phases 3-4) and xlstm-1.3b (phases 7-8): the eager prefill and decode
-    step of the timed prompts, and one served batch, as the phases time them;
+    (phases 3-4), xlstm-1.3b (phases 7-8), granite-moe-3b-a800m (phase 11)
+    and deepseek-v2-lite-16b (phase 12): the eager prefill and decode step
+    of the timed prompts, and one served batch, as the phases time them;
     prints each series and a JSON line of them."""
     from repro_torch import decode_step, forward, get_config, init_params
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1969,7 +2232,9 @@ def serve_timing(repeats: int) -> None:
     result = {}
     for name, kernel, prompts, shape in (
             ("qwen3-8b", flash_attention, SERVE_PROMPTS, (4, 32)),
-            ("xlstm-1.3b", mlstm_chunk, XLSTM_SERVE_PROMPTS, XLSTM_PROMPT)):
+            ("xlstm-1.3b", mlstm_chunk, XLSTM_SERVE_PROMPTS, XLSTM_PROMPT),
+            ("granite-moe-3b-a800m", flash_attention, SERVE_PROMPTS, (4, 32)),
+            ("deepseek-v2-lite-16b", flash_attention, SERVE_PROMPTS, (4, 32))):
         cfg = get_config(name)
         model = init_params(cfg, seed=0)
         n_launches = (cfg.n_layers if kernel is flash_attention
@@ -2037,8 +2302,10 @@ def main() -> int:
     mlstm_bwd, xlstm_fwd, xlstm_bwd = phase_train_xlstm()
     torch.cuda.empty_cache()
     moe_fwd, moe_bwd = phase_moe()
-    kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd}
-    backward["launches_by_path"] = {**trained_bwd, **moe_bwd}
+    torch.cuda.empty_cache()
+    mla_fwd, mla_bwd = phase_mla()
+    kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd, **mla_fwd}
+    backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd}
     mlstm["launches_by_path"].update(xlstm_fwd)
     mlstm_bwd["launches_by_path"] = xlstm_bwd
     kernels = [kernel, backward, mlstm, mlstm_bwd]

@@ -3,13 +3,17 @@
 // Replaces the Pallas TPU kernel `_flash_kernel`
 // (src/repro/kernels/flash_attention.py:25, launched by `flash_attention`
 // at :73 through `pl.pallas_call` at :94). It computes
-//     O = softmax(Q K^T * Dh^-0.5 [+ causal mask]) V
-// with q (B, H, Sq, Dh), k and v (B, KH, Sk, Dh), H = KH * G: q head h reads
-// kv head h / G, so a kv tile serves every q head of its group without a
-// copy of K or V. Beyond the TPU kernel it takes a query offset (query row i
-// sits at position q_offset + i under the causal mask), any Sq and Sk (the
-// ragged edge is masked here, where the Pallas kernel asserted S % block == 0
-// and Sq == Sk), Dh of 32, 64 or 128, and bf16 or fp32 inputs. Sums are fp32.
+//     O = softmax(Q K^T * Dhk^-0.5 [+ causal mask]) V
+// with q (B, H, Sq, Dhk), k (B, KH, Sk, Dhk) and v (B, KH, Sk, Dhv), H = KH *
+// G: q head h reads kv head h / G, so a kv tile serves every q head of its
+// group without a copy of K or V. Beyond the TPU kernel it takes a query
+// offset (query row i sits at position q_offset + i under the causal mask),
+// any Sq and Sk (the ragged edge is masked here, where the Pallas kernel
+// asserted S % block == 0 and Sq == Sk), head dims (Dhk, Dhv) of (32, 32),
+// (64, 64), (128, 128) or MLA's (192, 128) (a key head of 128 + 64 rope dims
+// over a value head of 128, as the JAX model's flash takes them at
+// src/repro/models/attention.py:70; the Pallas kernel takes one Dh), and
+// bf16 or fp32 inputs. Sums are fp32.
 //
 // The Pallas grid walks the kv blocks of one q block in order and carries
 // (m, l, acc) in VMEM scratch between grid steps; CUDA blocks run in no
@@ -23,7 +27,9 @@
 // Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): the causal prefill
 // does 2*B*H*S^2*Dh operations on 2*(2*B*H + 2*B*KH)*S*Dh bytes, so at the
 // qwen3-8b prefill shape (H=32, KH=8, Dh=128, S=4096) it is bound by the
-// operations: 0.139 ms against 0.025 ms for the bytes. Only wgmma reaches
+// operations: 0.139 ms against 0.025 ms for the bytes. With Dhk != Dhv the
+// products are B*H*S^2*(Dhk + Dhv): 85.9 GFLOP, 0.0869 ms at deepseek-v2-lite's
+// training shape (H = KH = 16, S = 4096, (192, 128)). Only wgmma reaches
 // the tensor cores' full rate; it wants its operands in shared memory ahead
 // of time, and the softmax's exponentials, on units with 1/256 of the
 // tensor cores' rate (3.9 against 989 TFLOP/s, per the FlashAttention-3
@@ -33,8 +39,10 @@
 //   * Warp specialisation. A CTA is three warpgroups over 128 q rows: a
 //     producer (setmaxnreg down to 40 registers) and two consumers of 64
 //     rows each (up to 232). One producer thread loads Q once per q tile and
-//     each kv tile's K and V by TMA into a ring of STAGES stages (3 at every
-//     Dh: Q 32 KiB + 3 x (K 32 KiB + V 32 KiB) at Dh = 128). Each stage has
+//     each kv tile's K and V by TMA into a ring of STAGES stages (3 where
+//     Dhk = Dhv: Q 32 KiB + 3 x (K 32 KiB + V 32 KiB) at Dh = 128; 2 at
+//     (192, 128): Q 48 KiB + 2 x (K 48 KiB + V 32 KiB), as three stages would
+//     take 288 KiB of the 227 a CTA may use). Each stage has
 //     a full barrier for K and one for V (mbarrier transaction counts) and
 //     an empty one that the consumers' eight warps arrive on when done with
 //     it; Q has a full and an empty barrier likewise.
@@ -43,7 +51,8 @@
 //     masks still decide what counts. Rows land in 128-byte swizzled column
 //     blocks (64-byte for Dh = 32), the layout the wgmma descriptors name.
 //   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
-//     K-major as they lie. O += P V is wgmma m64nDhk16 with P in registers:
+//     K-major as they lie, Dhk / 16 k-steps. O += P V is wgmma m64nDhvk16
+//     with P in registers:
 //     the fp32 score accumulator's layout is the A-fragment layout, so P is
 //     rounded to bf16 in place (as the JAX model's flash rounds P to v's
 //     dtype, src/repro/models/attention.py:113), and V is read MN-major
@@ -108,16 +117,17 @@ constexpr int THREADS = 3 * WG;
 constexpr int PRODUCER_REGS = 40;   // setmaxnreg: 128 x 40 + 256 x 232 <= 64K
 constexpr int CONSUMER_REGS = 232;
 
-template <int DH>
+template <int DHK, int DHV>
 struct Tile {
-  static constexpr int SW = Swizzle<DH>::SW;         // swizzle span, bytes
-  static constexpr int ATOM = Swizzle<DH>::ATOM;     // bf16 columns per span
-  static constexpr int STAGES = 3;                   // K/V ring depth
-  static constexpr int Q_BYTES = BM * DH * 2;
-  static constexpr int KV_BYTES = BN * DH * 2;       // one K or V tile
+  static constexpr int Q_BYTES = BM * DHK * 2;
+  static constexpr int K_BYTES = BN * DHK * 2;       // one K tile
+  static constexpr int V_BYTES = BN * DHV * 2;       // one V tile
   static constexpr int BAR_BYTES = 1024;             // barriers, then 1 KiB-aligned tiles
-  // 1 KiB of slack to align the dynamic shared memory, then barriers and tiles
-  static constexpr int SMEM = 1024 + BAR_BYTES + Q_BYTES + 2 * STAGES * KV_BYTES;
+  // 1 KiB of slack to align the dynamic shared memory, then barriers and
+  // Q, then the K/V ring: 3 stages where they fit (every Dhk = Dhv), else 2
+  static constexpr int FIXED = 1024 + BAR_BYTES + Q_BYTES;
+  static constexpr int STAGES = FIXED + 3 * (K_BYTES + V_BYTES) <= 232448 ? 3 : 2;
+  static constexpr int SMEM = FIXED + STAGES * (K_BYTES + V_BYTES);
   static_assert(SMEM <= 232448, "over the 227 KiB a CTA may use");
 };
 
@@ -125,7 +135,7 @@ struct BfArgs {
   __nv_bfloat16* o;
   float* lse;                // (B, H, Sq) or nullptr
   int B, H, KH, Sq, Sk, q_offset, causal;
-  float scale_log2;          // Dh^-0.5 * log2(e)
+  float scale_log2;          // Dhk^-0.5 * log2(e)
 };
 
 // Online softmax of one 64 x BN score tile in the wgmma accumulator layout:
@@ -189,13 +199,15 @@ __device__ __forceinline__ bool next_item(int r, int n_qt, int BH, Item& it) {
   return true;
 }
 
-template <int DH>
+template <int DHK, int DHV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, const BfArgs a) {
-  using T = Tile<DH>;
-  constexpr int STAGES = T::STAGES, SW = T::SW, ATOM = T::ATOM;
+  using T = Tile<DHK, DHV>;
+  constexpr int STAGES = T::STAGES;
+  constexpr int SWK = Swizzle<DHK>::SW, ATOMK = Swizzle<DHK>::ATOM;   // Q and K
+  constexpr int SWV = Swizzle<DHV>::SW, ATOMV = Swizzle<DHV>::ATOM;   // V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // 1 KiB alignment: the swizzle pattern repeats every 1024 (512) bytes, and
   // TMA and wgmma agree on it only from such a boundary
@@ -205,9 +217,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_k = base + 16;                     // [STAGES] K landed
   const uint32_t bar_v = bar_k + 8 * STAGES;            // [STAGES] V landed
   const uint32_t bar_e = bar_v + 8 * STAGES;            // [STAGES] stage free
-  const uint32_t sq = base + T::BAR_BYTES;              // Q: DH/ATOM blocks of BM x SW bytes
-  const uint32_t sk = sq + T::Q_BYTES;                  // K stages, BN x SW-byte blocks
-  const uint32_t sv = sk + STAGES * T::KV_BYTES;        // V stages
+  const uint32_t sq = base + T::BAR_BYTES;              // Q: DHK/ATOMK blocks of BM x SWK bytes
+  const uint32_t sk = sq + T::Q_BYTES;                  // K stages, BN x SWK-byte blocks
+  const uint32_t sv = sk + STAGES * T::K_BYTES;         // V stages, BN x SWV-byte blocks
 
   const int Sq = a.Sq, Sk = a.Sk, q_offset = a.q_offset, causal = a.causal;
   const int BH = a.B * a.H, n_qt = (Sq + BM - 1) / BM;
@@ -241,19 +253,19 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
         const int kv_slab = (it.bh / a.H) * a.KH + h / (a.H / a.KH);
         mbar_wait(bar_qe, (r & 1) ^ 1);                 // round 0 passes
         mbar_expect_tx(bar_q, T::Q_BYTES);
-        for (int c = 0; c < DH / ATOM; ++c)
-          tma_load_3d(sq + c * BM * SW, &tm_q, c * ATOM, it.q0, it.bh, bar_q);
+        for (int c = 0; c < DHK / ATOMK; ++c)
+          tma_load_3d(sq + c * BM * SWK, &tm_q, c * ATOMK, it.q0, it.bh, bar_q);
         const int n_tiles = (extent(it.q0 + BM) + BN - 1) / BN;
         for (int j = 0; j < n_tiles; ++j, ++t) {
           const int s = t % STAGES;
           mbar_wait(bar_e + 8 * s, ((t / STAGES) & 1) ^ 1);
-          mbar_expect_tx(bar_k + 8 * s, T::KV_BYTES);
-          for (int c = 0; c < DH / ATOM; ++c)
-            tma_load_3d(sk + s * T::KV_BYTES + c * BN * SW, &tm_k, c * ATOM, j * BN,
+          mbar_expect_tx(bar_k + 8 * s, T::K_BYTES);
+          for (int c = 0; c < DHK / ATOMK; ++c)
+            tma_load_3d(sk + s * T::K_BYTES + c * BN * SWK, &tm_k, c * ATOMK, j * BN,
                         kv_slab, bar_k + 8 * s);
-          mbar_expect_tx(bar_v + 8 * s, T::KV_BYTES);
-          for (int c = 0; c < DH / ATOM; ++c)
-            tma_load_3d(sv + s * T::KV_BYTES + c * BN * SW, &tm_v, c * ATOM, j * BN,
+          mbar_expect_tx(bar_v + 8 * s, T::V_BYTES);
+          for (int c = 0; c < DHV / ATOMV; ++c)
+            tma_load_3d(sv + s * T::V_BYTES + c * BN * SWV, &tm_v, c * ATOMV, j * BN,
                         kv_slab, bar_v + 8 * s);
         }
       }
@@ -268,9 +280,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
 
     // descriptors: Q and K K-major (8-row groups SW * 8 bytes apart); V
     // MN-major (column blocks BN * SW bytes apart, 8-row groups SW * 8)
-    auto desc_q = [&](int kk) { return desc_kmajor<DH>(sq, BM, w * 64, kk); };
-    auto desc_k = [&](int s, int kk) { return desc_kmajor<DH>(sk + s * T::KV_BYTES, BN, 0, kk); };
-    auto desc_v = [&](int s, int kk) { return desc_mnmajor<DH>(sv + s * T::KV_BYTES, BN, kk); };
+    auto desc_q = [&](int kk) { return desc_kmajor<DHK>(sq, BM, w * 64, kk); };
+    auto desc_k = [&](int s, int kk) { return desc_kmajor<DHK>(sk + s * T::K_BYTES, BN, 0, kk); };
+    auto desc_v = [&](int s, int kk) { return desc_mnmajor<DHV>(sv + s * T::V_BYTES, BN, kk); };
     auto release = [&](uint32_t bar) { mbar_arrive_if(bar, lane == 0); };
     // Ping-pong: the consumers take turns to issue their wgmma (one turn is
     // a tile's Q K^T and the previous tile's P V), so one's softmax runs
@@ -280,18 +292,18 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     auto turn_end = [&] { bar_arrive(2 - w, 2 * WG); };
     if (w == 1) bar_arrive(1, 2 * WG);
 
-    float o[DH / 2];
+    float o[DHV / 2];
     float s[BN / 2];
     uint32_t p[BN / 16][4];
     float m[2], l[2], corr[2];
     auto issue_qk = [&](int st) {
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss_n128(s, desc_q(kk), desc_k(st, kk), kk > 0);
+      for (int kk = 0; kk < DHK / 16; ++kk) wgmma_ss_n128(s, desc_q(kk), desc_k(st, kk), kk > 0);
       wgmma_commit();
     };
     auto issue_pv = [&](int st) {
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<DH>(o, p[kk], desc_v(st, kk));
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<DHV>(o, p[kk], desc_v(st, kk));
       wgmma_commit();
     };
 
@@ -310,7 +322,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
         else softmax_tile<true>(s, m, l, corr, a, j * BN + t2, qpos);
       };
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < DHV / 2; ++i) o[i] = 0.f;
       m[0] = m[1] = -INFINITY;
       l[0] = l[1] = 0.f;
 
@@ -350,7 +362,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
         pin(p);
         release(bar_e + 8 * prev);
 #pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
+        for (int n = 0; n < DHV / 8; ++n) {
           o[4 * n] *= corr[0];
           o[4 * n + 1] *= corr[0];
           o[4 * n + 2] *= corr[1];
@@ -400,9 +412,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < 2; ++i) {
         const int row = q0 + r0 + 8 * i;
         if (row >= Sq) continue;
-        __nv_bfloat16* orow = a.o + ((size_t)it.bh * Sq + row) * DH + t2;
+        __nv_bfloat16* orow = a.o + ((size_t)it.bh * Sq + row) * DHV + t2;
 #pragma unroll
-        for (int n = 0; n < DH / 8; ++n)
+        for (int n = 0; n < DHV / 8; ++n)
           *reinterpret_cast<uint32_t*>(orow + 8 * n) =
               pack_bf16(o[4 * n + 2 * i] * l[i], o[4 * n + 2 * i + 1] * l[i]);
       }
@@ -413,44 +425,47 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
 
 // ------------------------------------------------------------------ fp32
 
-template <int DH>
+template <int DHK, int DHV>
 __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
-  constexpr int LDQ = DH + 1, LDK = DH + 1, LDP = BKF + 1;
+  constexpr int LDQ = DHK + 1, LDK = DHK + 1, LDP = BKF + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);   // BQ x LDQ
   float* Ks = Qs + BQ * LDQ;                        // BKF x LDK
-  float* Vs = Ks + BKF * LDK;                       // BKF x DH
-  float* Ps = Vs + BKF * DH;                        // BQ x LDP
+  float* Vs = Ks + BKF * LDK;                       // BKF x DHV
+  float* Ps = Vs + BKF * DHV;                       // BQ x LDP
 
   const int row = threadIdx.x >> 2, sub = threadIdx.x & 3;   // 4 threads a row
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const int kvh = h / (p.H / p.KH);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const float* qg = static_cast<const float*>(p.q) + (size_t)bh * p.Sq * DH;
-  const size_t kv_off = ((size_t)b * p.KH + kvh) * p.Sk * DH;
-  const float* kg = static_cast<const float*>(p.k) + kv_off;
-  const float* vg = static_cast<const float*>(p.v) + kv_off;
-  float* og = static_cast<float*>(p.o) + (size_t)bh * p.Sq * DH;
+  const float* qg = static_cast<const float*>(p.q) + (size_t)bh * p.Sq * DHK;
+  const size_t kv_slab = (size_t)b * p.KH + kvh;
+  const float* kg = static_cast<const float*>(p.k) + kv_slab * p.Sk * DHK;
+  const float* vg = static_cast<const float*>(p.v) + kv_slab * p.Sk * DHV;
+  float* og = static_cast<float*>(p.o) + (size_t)bh * p.Sq * DHV;
 
-  for (int i = threadIdx.x; i < BQ * DH; i += 256) {
-    const int r = i / DH, d = i % DH;
-    Qs[r * LDQ + d] = q0 + r < p.Sq ? qg[(size_t)(q0 + r) * DH + d] : 0.f;
+  for (int i = threadIdx.x; i < BQ * DHK; i += 256) {
+    const int r = i / DHK, d = i % DHK;
+    Qs[r * LDQ + d] = q0 + r < p.Sq ? qg[(size_t)(q0 + r) * DHK + d] : 0.f;
   }
 
-  float o[DH / 4];
+  float o[DHV / 4];
 #pragma unroll
-  for (int i = 0; i < DH / 4; ++i) o[i] = 0.f;
+  for (int i = 0; i < DHV / 4; ++i) o[i] = 0.f;
   float m = -INFINITY, l = 0.f;
   const int qpos = p.q_offset + q0 + row;
   const int kv_end = kv_extent(p, q0);
 
   for (int k0 = 0; k0 < kv_end; k0 += BKF) {
     __syncthreads();
-    for (int i = threadIdx.x; i < BKF * DH; i += 256) {
-      const int r = i / DH, d = i % DH;
+    // one loop over the wider of K and V rows, each column guarded
+    // (compile-time where Dhk = Dhv)
+    constexpr int DW = DHK > DHV ? DHK : DHV;
+    for (int i = threadIdx.x; i < BKF * DW; i += 256) {
+      const int r = i / DW, d = i % DW;
       const bool in = k0 + r < p.Sk;
-      Ks[r * LDK + d] = in ? kg[(size_t)(k0 + r) * DH + d] : 0.f;
-      Vs[r * DH + d] = in ? vg[(size_t)(k0 + r) * DH + d] : 0.f;
+      if (DHK == DW || d < DHK) Ks[r * LDK + d] = in ? kg[(size_t)(k0 + r) * DHK + d] : 0.f;
+      if (DHV == DW || d < DHV) Vs[r * DHV + d] = in ? vg[(size_t)(k0 + r) * DHV + d] : 0.f;
     }
     __syncthreads();
 
@@ -461,7 +476,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
       const int c = sub + 4 * j;
       float acc = 0.f;
 #pragma unroll 16
-      for (int d = 0; d < DH; ++d) acc = fmaf(Qs[row * LDQ + d], Ks[c * LDK + d], acc);
+      for (int d = 0; d < DHK; ++d) acc = fmaf(Qs[row * LDQ + d], Ks[c * LDK + d], acc);
       s[j] = visible(p, qpos, k0 + c) ? acc * p.scale : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
@@ -480,13 +495,13 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
     }
     l = l * corr + ls;
 #pragma unroll
-    for (int i = 0; i < DH / 4; ++i) o[i] *= corr;
+    for (int i = 0; i < DHV / 4; ++i) o[i] *= corr;
     __syncwarp();                           // a row's P is written within its warp
 #pragma unroll 4
     for (int c = 0; c < BKF; ++c) {
       const float pc = Ps[row * LDP + c];
 #pragma unroll
-      for (int i = 0; i < DH / 4; ++i) o[i] = fmaf(pc, Vs[c * DH + sub + 4 * i], o[i]);
+      for (int i = 0; i < DHV / 4; ++i) o[i] = fmaf(pc, Vs[c * DHV + sub + 4 * i], o[i]);
     }
   }
 
@@ -495,8 +510,8 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
   const float inv = 1.f / fmaxf(l, 1e-30f);
   if (q0 + row < p.Sq) {
 #pragma unroll
-    for (int i = 0; i < DH / 4; ++i)
-      og[(size_t)(q0 + row) * DH + sub + 4 * i] = o[i] * inv;
+    for (int i = 0; i < DHV / 4; ++i)
+      og[(size_t)(q0 + row) * DHV + sub + 4 * i] = o[i] * inv;
     if (p.lse != nullptr && sub == 0)
       p.lse[(size_t)bh * p.Sq + q0 + row] = (m == -INFINITY ? 0.f : m) + logf(fmaxf(l, 1e-30f));
   }
@@ -521,7 +536,7 @@ cudaError_t launch(Kernel kernel, const Params& p, int B, int threads,
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DHK, int DHV>
 cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   if (p.Sk == 0) {                        // every score masked: O = 0
     const long long rows = (long long)B * p.H * p.Sq;
@@ -530,15 +545,16 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return e;
     }
-    return cudaMemsetAsync(p.o, 0, (size_t)rows * DH * 2, stream);
+    return cudaMemsetAsync(p.o, 0, (size_t)rows * DHV * 2, stream);
   }
   CUtensorMap tq, tk, tv;
-  if (!tensor_map<DH>(&tq, p.q, p.Sq, B * p.H, BM) ||
-      !tensor_map<DH>(&tk, p.k, p.Sk, B * p.KH, BN) ||
-      !tensor_map<DH>(&tv, p.v, p.Sk, B * p.KH, BN))
+  if (!tensor_map<DHK>(&tq, p.q, p.Sq, B * p.H, BM) ||
+      !tensor_map<DHK>(&tk, p.k, p.Sk, B * p.KH, BN) ||
+      !tensor_map<DHV>(&tv, p.v, p.Sk, B * p.KH, BN))
     return cudaErrorInvalidValue;
   static const cudaError_t set = cudaFuncSetAttribute(
-      flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<DH>::SMEM);
+      flash_fwd_bf16<DHK, DHV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile<DHK, DHV>::SMEM);
   if (set != cudaSuccess) return set;
   int n_sm;
   const cudaError_t e = sm_count(&n_sm);
@@ -548,38 +564,40 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   // persistent: at most one CTA an SM, each walking items (next_item)
   const long long n_items = (long long)B * p.H * ((p.Sq + BM - 1) / BM);
   const int grid = (int)(n_items < n_sm ? n_items : n_sm);
-  flash_fwd_bf16<DH><<<grid, THREADS, Tile<DH>::SMEM, stream>>>(tq, tk, tv, a);
+  flash_fwd_bf16<DHK, DHV><<<grid, THREADS, Tile<DHK, DHV>::SMEM, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DHK, int DHV>
 cudaError_t dispatch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) return launch_bf16<DH>(p, B, stream);
-  return launch(flash_fwd_f32<DH>, p, B, 256,
-                (size_t)(BQ * (DH + 1) + BKF * (DH + 1) + BKF * DH + BQ * (BKF + 1)) *
+  if (is_bf16) return launch_bf16<DHK, DHV>(p, B, stream);
+  return launch(flash_fwd_f32<DHK, DHV>, p, B, 256,
+                (size_t)(BQ * (DHK + 1) + BKF * (DHK + 1) + BKF * DHV + BQ * (BKF + 1)) *
                     sizeof(float),
                 stream);
 }
 
 }  // namespace
 
-// q (B, H, Sq, Dh), k and v (B, KH, Sk, Dh), o (B, H, Sq, Dh): contiguous,
-// 16-byte aligned, on the current device, all bf16 (is_bf16 = 1) or all
-// fp32. H % KH == 0. lse, (B, H, Sq) fp32, receives each row's log-sum-exp
-// where it is not nullptr. Launches on `stream` and does not synchronise. Returns
-// the cudaError_t of the launch (0 on success); Dh outside {32, 64, 128}, or
-// a bf16 array that no TMA tensor map can describe, returns
-// cudaErrorInvalidValue.
+// q (B, H, Sq, Dh), k (B, KH, Sk, Dh), v (B, KH, Sk, Dhv), o (B, H, Sq, Dhv):
+// contiguous, 16-byte aligned, on the current device, all bf16 (is_bf16 = 1)
+// or all fp32. H % KH == 0. lse, (B, H, Sq) fp32, receives each row's
+// log-sum-exp where it is not nullptr. Launches on `stream` and does not
+// synchronise. Returns the cudaError_t of the launch (0 on success); (Dh, Dhv)
+// other than (32, 32), (64, 64), (128, 128) and (192, 128), or a bf16 array
+// that no TMA tensor map can describe, returns cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int B, int H, int KH, int Sq, int Sk, int Dh,
-                                   int q_offset, int causal, float scale, int is_bf16,
+                                   int Dhv, int q_offset, int causal, float scale, int is_bf16,
                                    void* stream) {
   const Params p{q, k, v, o, lse, H, KH, Sq, Sk, q_offset, causal, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dh == 192 && Dhv == 128) return dispatch<192, 128>(p, B, is_bf16, st);
+  if (Dh != Dhv) return cudaErrorInvalidValue;
   switch (Dh) {
-    case 32: return dispatch<32>(p, B, is_bf16, st);
-    case 64: return dispatch<64>(p, B, is_bf16, st);
-    case 128: return dispatch<128>(p, B, is_bf16, st);
+    case 32: return dispatch<32, 32>(p, B, is_bf16, st);
+    case 64: return dispatch<64, 64>(p, B, is_bf16, st);
+    case 128: return dispatch<128, 128>(p, B, is_bf16, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -11,8 +11,11 @@ fallback from the kernel to the plain version.
 
 The function, beyond the TPU kernel's: ``q_offset`` places query row i at
 position ``q_offset + i`` under the causal mask; Sq and Sk are free (no
-block-multiple assertion); Dh is 32, 64 or 128; inputs are bf16 or fp32 with
-fp32 sums; the output has q's dtype. A row whose every score is masked is 0.
+block-multiple assertion); the key and value head dims (Dhk, Dhv) are one of
+``HEAD_DIMS``: (32, 32), (64, 64), (128, 128), or MLA's (192, 128) (a key of
+128 + 64 rope dims, as the JAX model's flash takes Dhk > Dhv), and the scores
+are scaled by Dhk^-1/2; inputs are bf16 or fp32 with fp32 sums; the output,
+(B, H, Sq, Dhv), has q's dtype. A row whose every score is masked is 0.
 
 Its gradient: where q, k or v requires grad on a CUDA tensor,
 ``flash_attention`` runs ``FlashAttentionFunction``, whose forward is the
@@ -38,7 +41,7 @@ from . import build
 
 SOURCES = ("flash_attention.cu",)
 BWD_SOURCES = ("flash_attention_bwd.cu",)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))   # (Dhk, Dhv)
 DTYPES = (torch.bfloat16, torch.float32)
 # The backward kernel against autograd through the plain version on the same
 # inputs. fp32: 1e-4 of each gradient's max |value| (the sums' order only);
@@ -52,10 +55,11 @@ ZERO_GRAD = 1e-3
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool, q_offset: int = 0) -> torch.Tensor:
-    """q: (B, H, Sq, Dh); k, v: (B, KH, Sk, Dh) with H = KH * G; q head h
-    reads kv head h // G. fp32 softmax attention, output in q's dtype."""
+    """q: (B, H, Sq, Dhk); k: (B, KH, Sk, Dhk); v: (B, KH, Sk, Dhv) with
+    H = KH * G; q head h reads kv head h // G. fp32 softmax attention scaled
+    by Dhk^-1/2, output (B, H, Sq, Dhv) in q's dtype."""
     B, H, Sq, Dh = q.shape
-    KH, Sk = k.shape[1], k.shape[2]
+    KH, Sk, Dhv = k.shape[1], k.shape[2], v.shape[-1]
     qg = q.reshape(B, KH, H // KH, Sq, Dh).float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * Dh ** -0.5
     if causal:
@@ -66,7 +70,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bkgqs,bksd->bkgqd", p / l, v.float())
-    return out.reshape(B, H, Sq, Dh).to(q.dtype)
+    return out.reshape(B, H, Sq, Dhv).to(q.dtype)
 
 
 @functools.cache
@@ -75,7 +79,7 @@ def _library() -> ctypes.CDLL:
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
     lib.flash_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr,
-                                        i32, i32, i32, i32, i32, i32,
+                                        i32, i32, i32, i32, i32, i32, i32,
                                         i32, i32, ctypes.c_float, i32, ptr]
     lib.flash_attention_fwd.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
@@ -88,7 +92,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = build.load("flash_attention_bwd", BWD_SOURCES)
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
-    lib.flash_attention_bwd.argtypes = [ptr] * 10 + [i32] * 8 + [ctypes.c_float, i32, ptr]
+    lib.flash_attention_bwd.argtypes = [ptr] * 10 + [i32] * 9 + [ctypes.c_float, i32, ptr]
     lib.flash_attention_bwd.restype = i32
     lib.flash_attention_bwd_error_string.argtypes = [i32]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -97,15 +101,16 @@ def _bwd_library() -> ctypes.CDLL:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: int) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"want q (B,H,Sq,Dh), k = v (B,KH,Sk,Dh); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"want q (B,H,Sq,Dhk), k (B,KH,Sk,Dhk), v (B,KH,Sk,Dhv); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, _, Dh = q.shape
     if k.shape[0] != B or k.shape[3] != Dh or H % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"share B and Dh with KH dividing H")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {Dh} not in {HEAD_DIMS}")
+    if (Dh, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"head dims (Dhk, Dhv) = {(Dh, v.shape[3])} not in "
+                         f"{HEAD_DIMS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one dtype of {DTYPES}; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -122,8 +127,8 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, q_offset: int, with_lse: bool):
     """Launch the forward kernel: (out, lse), lse (B, H, Sq) fp32 or None."""
     B, H, Sq, Dh = q.shape
-    KH, Sk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    KH, Sk, Dhv = k.shape[1], k.shape[2], v.shape[3]
+    out = q.new_empty((B, H, Sq, Dhv))
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
@@ -134,7 +139,7 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            B, H, KH, Sq, Sk, Dh, q_offset, int(causal), Dh ** -0.5,
+            B, H, KH, Sq, Sk, Dh, Dhv, q_offset, int(causal), Dh ** -0.5,
             int(q.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
@@ -169,10 +174,12 @@ def backward_errors(got, ref) -> list:
 
 def _check_backward(q, k, v, o, dout, lse, q_offset: int) -> None:
     _check(q, k, v, q_offset)
+    want = (*q.shape[:3], v.shape[3])                     # (B, H, Sq, Dhv)
     for name, t in (("o", o), ("dout", dout)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must match q: {tuple(t.shape)} {t.dtype} "
-                             f"{t.device} against {tuple(q.shape)} {q.dtype}")
+        if t.shape != want or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q's (B, H, Sq) and v's Dhv: "
+                             f"{tuple(t.shape)} {t.dtype} {t.device} against "
+                             f"{want} {q.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if (lse.shape != q.shape[:3] or lse.dtype != torch.float32
@@ -197,7 +204,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"no kernel for device {q.device}")
     _check_backward(q, k, v, o, dout, lse, q_offset)
     B, H, Sq, Dh = q.shape
-    KH, Sk = k.shape[1], k.shape[2]
+    KH, Sk, Dhv = k.shape[1], k.shape[2], v.shape[3]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _bwd_library()
@@ -206,7 +213,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, H, KH, Sq, Sk, Dh, q_offset,
+            dk.data_ptr(), dv.data_ptr(), B, H, KH, Sq, Sk, Dh, Dhv, q_offset,
             int(causal), Dh ** -0.5, int(q.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError("flash_attention backward kernel launch failed: "
@@ -239,7 +246,8 @@ class FlashAttentionFunction(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset: int = 0,
                     impl: Optional[str] = None) -> torch.Tensor:
-    """q: (B, H, Sq, Dh); k, v: (B, KH, Sk, Dh). Returns (B, H, Sq, Dh).
+    """q: (B, H, Sq, Dhk); k: (B, KH, Sk, Dhk); v: (B, KH, Sk, Dhv), (Dhk, Dhv)
+    one of ``HEAD_DIMS``. Returns (B, H, Sq, Dhv).
 
     A CUDA tensor launches the Hopper kernel on the current stream (counted
     in ``flash_attention.launches``), through ``FlashAttentionFunction``

@@ -1,12 +1,16 @@
-"""GQA attention: the full-sequence block through the flash kernel, and the
-cached decode step with a log-sum-exp combine over cache shards.
+"""GQA attention and Multi-head Latent Attention (MLA): the full-sequence
+blocks through the flash kernel, and the cached decode steps with a
+log-sum-exp combine over cache shards.
 
-Port of the GQA path of ``src/repro/models/attention.py``. Parameters keep
-the JAX layouts ``wq (D, H, Dh)``, ``wk``/``wv (D, KH, Dh)``,
-``wo (H, Dh, D)``. ``flash_attention`` here is the kernel wrapper of
-``kernels/flash_attention.py``: the model's full-sequence attention runs
-the Hopper kernel on the card. Caches hold the original (unrepeated) kv
-heads after qk-norm and RoPE, in the layout the decode step reads.
+Port of ``src/repro/models/attention.py``. Parameters keep the JAX layouts:
+GQA's ``wq (D, H, Dh)``, ``wk``/``wv (D, KH, Dh)``, ``wo (H, Dh, D)``;
+MLA's ``w_dkv (D, r + rope)``, ``kv_norm (r)``, ``w_uk``/``w_uv (r, H, Dh)``,
+``wq (D, H, Dh + rope)``, ``wo (H, Dh, D)``. ``flash_attention`` here is the
+kernel wrapper of ``kernels/flash_attention.py``: the model's full-sequence
+attention runs the Hopper kernel on the card, MLA's at head dims (Dh + rope,
+Dh). GQA caches hold the original (unrepeated) kv heads after qk-norm and
+RoPE, in the layout the decode step reads; MLA's hold the compressed
+``c_kv`` (r) and the rope key (rope) of each position.
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, pdtype, rms_norm
 
-__all__ = ["Attention", "init_attention", "flash_attention", "decode_attention",
-           "attention_block", "init_self_attn_cache"]
+__all__ = ["Attention", "MLA", "init_attention", "init_mla", "flash_attention",
+           "decode_attention", "attention_block", "mla_block", "init_self_attn_cache"]
 
 
 # ------------------------------------------------------------------ init
@@ -59,6 +63,37 @@ def init_attention(gen: Optional[torch.Generator], cfg: ModelConfig,
         k_norm = nn.Parameter(torch.zeros(Dh, dtype=dt, device=device),
                               requires_grad=False)
     return Attention(wq, wk, wv, wo, q_norm, k_norm)
+
+
+class MLA(nn.Module):
+    """``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``, ``wq`` and ``wo``; see
+    ``init_mla``."""
+
+    def __init__(self, w_dkv, kv_norm, w_uk, w_uv, wq, wo) -> None:
+        super().__init__()
+        self.w_dkv, self.kv_norm = w_dkv, kv_norm
+        self.w_uk, self.w_uv = w_uk, w_uv
+        self.wq, self.wo = wq, wo
+
+
+def init_mla(gen: Optional[torch.Generator], cfg: ModelConfig, device) -> MLA:
+    """Port of ``init_mla`` (``src/repro/models/attention.py:53``): the joint
+    kv down-projection ``w_dkv`` (D, r + rope) with the RMSNorm scale of its
+    first r columns, the up-projections ``w_uk``/``w_uv`` (r, H, Dh), the
+    query projection ``wq`` (D, H, Dh + rope) and ``wo`` with the
+    depth-scaled std. No q-LoRA (the reference reads no ``q_lora_rank``)."""
+    m = cfg.mla
+    D, Dh, H = cfg.d_model, cfg.head_dim_, cfg.n_heads_padded
+    dt = pdtype(cfg)
+    w_dkv = dense_init(gen, (D, m.kv_lora_rank + m.rope_head_dim), dtype=dt, device=device)
+    kv_norm = nn.Parameter(torch.zeros(m.kv_lora_rank, dtype=dt, device=device),
+                           requires_grad=False)
+    w_uk = dense_init(gen, (m.kv_lora_rank, H, Dh), dtype=dt, device=device)
+    w_uv = dense_init(gen, (m.kv_lora_rank, H, Dh), dtype=dt, device=device)
+    wq = dense_init(gen, (D, H, Dh + m.rope_head_dim), dtype=dt, device=device)
+    wo = dense_init(gen, (H, Dh, D), std=0.02 / (2 * cfg.n_layers) ** 0.5,
+                    dtype=dt, device=device)
+    return MLA(w_dkv, kv_norm, w_uk, w_uv, wq, wo)
 
 
 # ------------------------------------------------------- flash-decode (serve)
@@ -150,10 +185,79 @@ def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     return y, new_cache
 
 
+# ------------------------------------------------------------------ MLA block
+def mla_block(p: MLA, x: torch.Tensor, cfg: ModelConfig, *,
+              causal: bool = True,
+              positions: Optional[torch.Tensor] = None,
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              cache_pos: int = 0,
+              max_len: Optional[int] = None,
+              want_cache: bool = False,
+              impl: Optional[str] = None,
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Multi-head Latent Attention over x (B, S, D), port of ``mla_block``
+    (``src/repro/models/attention.py:249``); always causal, as the reference.
+
+    Without ``cache``: keys [k_nope, the rope key broadcast over the H heads]
+    of Dh + rope dims and values of Dh through ``flash_attention`` (the
+    kernel at (192, 128) on the card at deepseek-v2-lite's widths; ``impl``
+    is passed on); ``want_cache`` then returns ``{"c_kv", "k_rope"}``
+    zero-padded to ``max_len`` along the sequence. With ``cache``, the
+    absorbed decode: c_kv and k_rope of x are written into the cache at
+    ``cache_pos`` in place; q_nope is taken into latent space by ``w_uk``,
+    attends over [c_kv, k_rope] with values c_kv (r + rope key dims, r value
+    dims) and comes back by ``w_uv``. Its scores are scaled by
+    (r + rope)^-1/2, where the full-sequence path scales by (Dh + rope)^-1/2:
+    the reference's ``decode_attention`` takes its scale from q's last dim,
+    and the port carries that over (ROADMAP.md Queue 3, quirk 13)."""
+    m = cfg.mla
+    B, S, D = x.shape
+    Dh, H, r = cfg.head_dim_, cfg.n_heads_padded, m.kv_lora_rank
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    qfull = torch.einsum("bsd,dhq->bhsq", x, p.wq)              # (B,H,S,Dh+rope)
+    q_nope, q_rope = qfull[..., :Dh], qfull[..., Dh:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    dkv = torch.einsum("bsd,dr->bsr", x, p.w_dkv)               # (B,S,r+rope)
+    c_kv = rms_norm(dkv[..., :r], p.kv_norm, cfg.norm_eps)
+    k_rope = apply_rope(dkv[:, None, :, r:], positions, cfg.rope_theta)  # (B,1,S,rope)
+
+    if cache is not None:
+        cache["c_kv"][:, cache_pos:cache_pos + S] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, cache_pos:cache_pos + S] = k_rope[:, 0].to(cache["k_rope"].dtype)
+        q_lat = torch.einsum("bhsq,rhq->bhsr", q_nope, p.w_uk)   # (B,H,1,r)
+        q_cat = torch.cat([q_lat, q_rope], dim=-1)               # (B,H,1,r+rope)
+        k_cat = torch.cat([cache["c_kv"], cache["k_rope"]], dim=-1)[:, None]
+        out_lat = decode_attention(q_cat, k_cat, cache["c_kv"][:, None],
+                                   cache_pos + S, cfg.decode_seq_shards)  # (B,H,1,r)
+        out = torch.einsum("bhsr,rhq->bhsq", out_lat, p.w_uv)
+        new_cache = cache
+    else:
+        k_nope = torch.einsum("bsr,rhq->bhsq", c_kv, p.w_uk)
+        v = torch.einsum("bsr,rhq->bhsq", c_kv, p.w_uv)
+        k = torch.cat([k_nope, k_rope.expand(B, H, S, m.rope_head_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, impl=impl)
+        new_cache = None
+        if want_cache:
+            pad = (max_len or S) - S
+            new_cache = {"c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
+                         "k_rope": torch.nn.functional.pad(k_rope[:, 0], (0, 0, 0, pad))}
+    y = torch.einsum("bhsq,hqd->bsd", out, p.wo)
+    return y, new_cache
+
+
 def init_self_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
                          device) -> Dict[str, torch.Tensor]:
-    """Zero k and v caches (B, KH, max_len, Dh) of the original kv heads."""
-    shp = (batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
+    """Zero k and v caches (B, KH, max_len, Dh) of the original kv heads; for
+    an MLA config, ``c_kv`` (B, max_len, r) and ``k_rope`` (B, max_len, rope)."""
     dt = pdtype(cfg)
+    if cfg.mla is not None:
+        base = (batch, max_len)
+        return {"c_kv": torch.zeros(base + (cfg.mla.kv_lora_rank,), dtype=dt, device=device),
+                "k_rope": torch.zeros(base + (cfg.mla.rope_head_dim,), dtype=dt,
+                                      device=device)}
+    shp = (batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
     return {"k": torch.zeros(shp, dtype=dt, device=device),
             "v": torch.zeros(shp, dtype=dt, device=device)}

@@ -1,6 +1,7 @@
 """The decoder-only LM: init, full-sequence forward (prefill), loss and the
 cached decode step, for the block kinds ``attn+mlp``, ``attn+moe``,
-``mlstm`` and ``slstm``, with an optional dense first layer.
+``mla+mlp``, ``mla+moe``, ``mlstm`` and ``slstm``, with an optional dense
+first layer.
 
 Port of ``src/repro/models/lm.py``. The JAX package stacks each pattern
 entry's parameters over ``n_groups`` and ``lax.scan``s them; here the layers
@@ -8,9 +9,9 @@ are an ``nn.ModuleList`` of per-layer blocks in layer order, layer i of kind
 ``block_pattern[i % len(block_pattern)]``; with ``cfg.first_layer_dense``
 layer 0 is the reference's ``first`` block (``{mixer}+mlp``) and layer
 i >= 1 is of kind ``block_pattern[(i - 1) % len(block_pattern)]``. Each
-layer's cache is its own dict: ``{"k", "v"}`` for attention, the recurrent
-state for xLSTM. An MoE layer's router aux loss is
-summed over the layers into ``forward``'s ``aux``, as the reference's
+layer's cache is its own dict: ``{"k", "v"}`` for attention, ``{"c_kv",
+"k_rope"}`` for MLA, the recurrent state for xLSTM. An MoE layer's router
+aux loss is summed over the layers into ``forward``'s ``aux``, as the reference's
 ``_stack_forward`` sums it, and ``loss_fn`` adds it to the loss. Other
 mixers and wrappers are not ported yet and raise ``NotImplementedError``
 naming the ROADMAP.md item that ports them.
@@ -21,7 +22,7 @@ recomputes each block's activations in the backward as the reference's
 ``_remat`` does (``src/repro/models/lm.py:156``), but block by block where
 the reference remats a whole ``block_pattern`` group (the same numbers,
 less memory: one block's activations live at a time in the backward).
-Every ported block kind has a gradient: attention through the flash
+Every ported block kind has a gradient: attention and MLA through the flash
 backward kernel, mLSTM through the mLSTM backward kernel (on the card), sLSTM
 by autograd through its step loop, MoE by autograd through its dispatch
 and combine gathers (``moe.py``). Serving runs under ``torch.no_grad()``:
@@ -38,8 +39,8 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from .attention import (Attention, attention_block, init_attention,
-                        init_self_attn_cache)
+from .attention import (MLA, Attention, attention_block, init_attention, init_mla,
+                        init_self_attn_cache, mla_block)
 from .config import ModelConfig
 from .layers import (MLP, apply_mlp, dense_init, init_mlp, init_norm, pdtype,
                      resolve_device, rms_norm)
@@ -48,13 +49,14 @@ from .xlstm import (MLSTM, SLSTM, apply_mlstm, apply_slstm, init_mlstm,
                     init_mlstm_state, init_slstm, init_slstm_state)
 
 # ROADMAP.md Queue 1 item that ports each block kind this module lacks
-_NOT_PORTED = {"mla": "item 4 (MLA)", "mamba": "item 5 (Mamba)"}
-_PORTED = ("attn+mlp", "attn+moe", "mlstm", "slstm")
+_NOT_PORTED = {"mamba": "item 5 (Mamba)"}
+_PORTED = ("attn+mlp", "attn+moe", "mla+mlp", "mla+moe", "mlstm", "slstm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless every layer of ``cfg`` is of a
-    ported kind: ``attn+mlp``, ``attn+moe``, ``mlstm`` or ``slstm``."""
+    ported kind: ``attn+mlp``, ``attn+moe``, ``mla+mlp``, ``mla+moe``,
+    ``mlstm`` or ``slstm``."""
     for blk in dict.fromkeys(layer_kinds(cfg)):
         mixer, _, ffn = blk.partition("+")
         for part in (mixer, ffn):
@@ -87,6 +89,24 @@ class MoEBlock(nn.Module):
                  moe: MoE) -> None:
         super().__init__()
         self.ln1, self.attn, self.ln2, self.moe = ln1, attn, ln2, moe
+
+
+class MLABlock(nn.Module):
+    """One ``mla+mlp`` layer: ``ln1``, ``mla``, ``ln2``, ``mlp``."""
+
+    def __init__(self, ln1: nn.Parameter, mla: MLA, ln2: nn.Parameter,
+                 mlp: MLP) -> None:
+        super().__init__()
+        self.ln1, self.mla, self.ln2, self.mlp = ln1, mla, ln2, mlp
+
+
+class MLAMoEBlock(nn.Module):
+    """One ``mla+moe`` layer: ``ln1``, ``mla``, ``ln2``, ``moe``."""
+
+    def __init__(self, ln1: nn.Parameter, mla: MLA, ln2: nn.Parameter,
+                 moe: MoE) -> None:
+        super().__init__()
+        self.ln1, self.mla, self.ln2, self.moe = ln1, mla, ln2, moe
 
 
 class MLSTMBlock(nn.Module):
@@ -123,6 +143,12 @@ def init_block(gen: Optional[torch.Generator], cfg: ModelConfig, device,
     if kind == "attn+moe":
         return MoEBlock(init_norm(cfg, device), init_attention(gen, cfg, device),
                         init_norm(cfg, device), init_moe(gen, cfg, device))
+    if kind == "mla+moe":
+        return MLAMoEBlock(init_norm(cfg, device), init_mla(gen, cfg, device),
+                           init_norm(cfg, device), init_moe(gen, cfg, device))
+    if kind == "mla+mlp":
+        return MLABlock(init_norm(cfg, device), init_mla(gen, cfg, device),
+                        init_norm(cfg, device), init_mlp(gen, cfg, device))
     return Block(init_norm(cfg, device), init_attention(gen, cfg, device),
                  init_norm(cfg, device), init_mlp(gen, cfg, device))
 
@@ -163,13 +189,14 @@ def init_params(cfg: ModelConfig, seed: Optional[int] = 0, device=None,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> Dict[str, List[Dict[str, torch.Tensor]]]:
     """Empty caches, one per layer, on the card unless ``device`` names
-    another: zero ``{"k", "v"}`` of ``max_len`` positions for attention, the
-    initial state ``{"C", "n", "m"}`` or ``{"sc", "sn", "sh", "sm"}`` for
-    mLSTM and sLSTM (which ignore ``max_len``)."""
+    another: zero ``{"k", "v"}`` of ``max_len`` positions for attention (and
+    ``{"c_kv", "k_rope"}`` for MLA), the initial state ``{"C", "n", "m"}`` or
+    ``{"sc", "sn", "sh", "sm"}`` for mLSTM and sLSTM (which ignore
+    ``max_len``)."""
     check_ported(cfg)
     device = resolve_device(device)
     attn = lambda: init_self_attn_cache(cfg, batch, max_len, device)  # noqa: E731
-    init = {"attn+mlp": attn, "attn+moe": attn,
+    init = {"attn+mlp": attn, "attn+moe": attn, "mla+mlp": attn, "mla+moe": attn,
             "mlstm": lambda: init_mlstm_state(cfg, batch, device),
             "slstm": lambda: init_slstm_state(cfg, batch, device)}
     return {"layers": [init[kind]() for kind in layer_kinds(cfg)]}
@@ -188,11 +215,13 @@ def _apply_block(blk: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
         y, cache = apply_slstm(blk.slstm, h, cfg, state=cache,
                                want_state=want_cache)
         return x + y, None, cache
-    y, cache = attention_block(blk.attn, h, cfg, cache=cache,
-                               want_cache=want_cache, **kw)
+    mixer = (functools.partial(mla_block, blk.mla)
+             if isinstance(blk, (MLABlock, MLAMoEBlock))
+             else functools.partial(attention_block, blk.attn))
+    y, cache = mixer(h, cfg, cache=cache, want_cache=want_cache, **kw)
     x = x + y
     h = rms_norm(x, blk.ln2, cfg.norm_eps)
-    if isinstance(blk, MoEBlock):
+    if isinstance(blk, (MoEBlock, MLAMoEBlock)):
         y, aux = apply_moe(blk.moe, h, cfg)
         return x + y, aux, cache
     return x + apply_mlp(blk.mlp, h), None, cache

@@ -258,20 +258,23 @@ def test_trunk_saves_during_experiment_are_withheld_not_lost():
 # the real training loop: crash/resume trace audits clean
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("config", [None, "granite-moe-smoke"])
+@pytest.mark.parametrize("config", [None, "granite-moe-smoke", "deepseek-v2-lite-smoke"])
 def test_train_checkpoint_restore_trace_audits_clean(config):
     """Drive the port's launch driver through a crash/resume cycle on ONE
     shared-log service: checkpoint bytes audit against the §13 manifests
     over the whole trace, the resume picks up where the crashed client
     stopped, and its losses equal an uninterrupted run's bit for bit. The
-    small attn+mlp config, and granite's MoE smoke config (its router, expert
-    and aux-loss state through the checkpoint)."""
+    small attn+mlp config, granite's MoE smoke config (its router, expert
+    and aux-loss state through the checkpoint), and deepseek-v2-lite's (MLA
+    leaves, a dense first layer and a shared expert)."""
     from repro_torch.launch.train import run
 
     kw = dict(d_model=32, n_layers=2, batch=2, seq=32, vocab=256, log_every=10,
               device="cpu")
     if config is not None:
-        kw["config"] = rt.get_smoke_config("granite-moe-3b-a800m")
+        kw["config"] = rt.get_smoke_config({"granite-moe-smoke": "granite-moe-3b-a800m",
+                                            "deepseek-v2-lite-smoke": "deepseek-v2-lite-16b"}
+                                           [config])
     straight, _, _, _ = run(steps=30, system=BoltSystem(n_brokers=2), ckpt_every=100, **kw)
     system = BoltSystem(n_brokers=2, gc=True)
     first, _, _, _ = run(steps=20, system=system, ckpt_every=10, **kw)
@@ -283,6 +286,9 @@ def test_train_checkpoint_restore_trace_audits_clean(config):
     assert all(p.requires_grad for p in model.parameters())
     if config is not None:
         assert any(n.endswith("moe.e_in") for n, _ in model.named_parameters())
+    if config == "deepseek-v2-lite-smoke":
+        assert {n.rsplit(".", 1)[1] for n, _ in model.named_parameters() if ".mla." in n} == {
+            "w_dkv", "kv_norm", "w_uk", "w_uv", "wq", "wo"}
     ckpt = CheckpointManager(system)
     assert ckpt.latest_step() == 30
     _drain(system)

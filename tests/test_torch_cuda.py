@@ -98,13 +98,18 @@ def _transposed():
     (lambda: _qkv(dtype=torch.float16), TypeError, "dtype"),
     (lambda: (*_qkv()[:2], _qkv()[2].float()), TypeError, "dtype"),
     (lambda: _qkv(Dh=96), ValueError, "head dim"),
+    (lambda: (_qkv(Dh=192)[0], _qkv(Dh=192)[1], _qkv(Dh=128)[2]), None, None),
+    (lambda: (*_qkv(Dh=128)[:2], _qkv(Dh=64)[2]), ValueError, "head dims"),
+    (lambda: (*_qkv(Dh=192)[:2], _qkv(Dh=192)[2]), ValueError, "head dims"),
+    (lambda: (*_qkv()[:2], _qkv(Sq=9)[2]), ValueError, "want q"),
     (lambda: (_qkv()[0][0], *_qkv()[1:]), ValueError, "want q"),
     (lambda: _qkv(H=4, KH=3), ValueError, "KH dividing H"),
     (lambda: (*_qkv()[:2], _qkv()[2].to("meta")), ValueError, "one device"),
     (_misaligned, ValueError, "16-byte aligned"),
     (_transposed, ValueError, "contiguous"),
-], ids=["bf16", "fp32", "fp16", "mixed-dtype", "dh96", "q-3d", "kh-not-dividing",
-        "two-devices", "misaligned", "non-contiguous"])
+], ids=["bf16", "fp32", "fp16", "mixed-dtype", "dh96", "mla-192-128", "dhv-differs-128-64",
+        "mla-192-192", "v-length-differs", "q-3d", "kh-not-dividing", "two-devices", "misaligned",
+        "non-contiguous"])
 def test_flash_wrapper_checks(make, error, match):
     q, k, v = make()
     if error is None:
@@ -554,3 +559,151 @@ def test_moe_block_on_card_matches_cpu(dtype):
         else:
             rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
             assert rel <= 2e-2, f"{name}: rel RMS {rel:.3e}; {flips} tokens routed differently"
+
+
+# ----------------------------------------------------- MLA's head dims
+# (Dhk, Dhv) = (192, 128), deepseek-v2-lite's: the forward's two-stage K/V
+# ring and twelve k-steps of S = Q K^T over 128-row tiles; the backward's
+# 32-row query steps of the dK/dV pass (dK += dS^T Q on m64n192k16) and the
+# dQ pass's 128-row tiles and 64-key steps; their TMA boxes at either edge
+MLA_DIMS = (192, 128)
+MLA_CASES = [
+    *[(1, 4, 4, n, n, 0, True) for n in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 4097)],
+    *[(1, 4, 4, 129, n, 0, False) for n in (1, 63, 65, 127, 4097)],
+    *[(1, 4, 4, n, 129, 0, False) for n in (31, 33, 63, 65, 128)],
+    (2, 4, 4, 129, 300, 171, True),         # q_offset, Sq < Sk, B > 1
+    (1, 8, 8, 63, 1000, 937, True),         # the last 63 rows of a sequence
+    (2, 8, 4, 100, 100, 0, True),           # G = 2
+    (1, 16, 16, 256, 256, 0, True),         # deepseek-v2-lite's 16 heads
+]
+
+
+def _mla_inputs(seed, B, H, KH, Sq, Sk, dtype):
+    rng = np.random.default_rng(seed)
+    Dhk, Dhv = MLA_DIMS
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to("cuda", getattr(torch, dtype))
+            for s in ((B, H, Sq, Dhk), (B, KH, Sk, Dhk), (B, KH, Sk, Dhv), (B, H, Sq, Dhv))]
+
+
+@cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,q_offset,causal", MLA_CASES)
+def test_flash_mla_kernel_matches_plain(B, H, KH, Sq, Sk, q_offset, causal, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, _ = _mla_inputs(Sq + 2 * Sk, B, H, KH, Sq, Sk, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    again = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert out.shape == (B, H, Sq, MLA_DIMS[1]) and torch.equal(out, again)
+    ref = flash_attention(q, k, v, causal=causal, q_offset=q_offset, impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,q_offset,causal", MLA_CASES)
+def test_flash_mla_backward_matches_plain(B, H, KH, Sq, Sk, q_offset, causal, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention_backward_plain
+    q, k, v, do = _mla_inputs(3 * Sq + Sk, B, H, KH, Sq, Sk, dtype)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    bwd = flash_attention.backward_launches
+    got = torch.autograd.grad(flash_attention(*qkv, causal=causal, q_offset=q_offset), qkv, do)
+    again = torch.autograd.grad(flash_attention(*qkv, causal=causal, q_offset=q_offset),
+                                qkv, do)
+    torch.cuda.synchronize()
+    assert flash_attention.backward_launches == bwd + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))      # no atomics
+    _grads_close(got, flash_attention_backward_plain(q, k, v, do, causal=causal,
+                                                     q_offset=q_offset))
+
+
+@cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_mla_lse(dtype):
+    """The forward's log-sum-exp at (192, 128), scaled by Dhk^-1/2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import _forward_kernel
+    B, H, KH, Sq, Sk = 2, 4, 4, 129, 300
+    q, k, v, _ = _mla_inputs(4, B, H, KH, Sq, Sk, dtype)
+    out, lse = _forward_kernel(q, k, v, True, 171, with_lse=True)
+    with torch.no_grad():
+        assert torch.equal(out, flash_attention(q, k, v, causal=True, q_offset=171))
+    s = torch.einsum("bhqd,bhsd->bhqs", q.float(), k.float()) * MLA_DIMS[0] ** -0.5
+    pos = torch.arange(Sq, device="cuda") + 171
+    s = s.masked_fill(pos[:, None] < torch.arange(Sk, device="cuda")[None], float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5, atol=1e-5)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_block_on_card_matches_cpu(dtype):
+    """One ``mla+moe`` block of deepseek-v2-lite's head geometry, narrowed
+    (4 heads of Dh 128 + rope 64, so the flash kernels run at (192, 128);
+    kv_lora_rank 64; 8 experts, top 2, a shared one): its forward and
+    backward on the card (the flash forward and backward kernels, the rope
+    key's gradient summed over the heads) against the same block on the
+    CPU (plain attention), and two calls on the card equal bit for bit;
+    then teacher-forced absorbed decode steps on the card against the CPU.
+    fp32 to 1e-4 of each tensor's max; bf16 to a relative RMS of 2e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+    from repro_torch import get_smoke_config, init_params
+    from repro_torch.models.attention import init_self_attn_cache
+    from repro_torch.models.lm import MLAMoEBlock, _apply_block
+    base = get_smoke_config("deepseek-v2-lite-16b")
+    cfg = base.with_(n_layers=1, first_layer_dense=False, d_model=256, n_heads=4, n_kv_heads=4,
+                     head_dim=128, dtype=dtype,
+                     mla=dataclasses.replace(base.mla, kv_lora_rank=64, rope_head_dim=64),
+                     moe=dataclasses.replace(base.moe, n_experts=8, top_k=2, d_expert=64))
+    cpu = init_params(cfg, 23, device="cpu", trainable=True)
+    card = init_params(cfg, None, device="cuda", trainable=True)
+    with torch.no_grad():
+        for p, q in zip(card.parameters(), cpu.parameters()):
+            p.copy_(q)
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(rng.normal(size=(2, 333, 256)).astype(np.float32)).to(
+        getattr(torch, dtype))
+    dy = torch.from_numpy(rng.normal(size=(2, 333, 256)).astype(np.float32)).to(x.dtype)
+
+    def run(model, device):
+        blk = model.blocks[0]
+        assert isinstance(blk, MLAMoEBlock)
+        xd = x.to(device).requires_grad_()
+        y, aux, _ = _apply_block(blk, xd, cfg, causal=True)
+        params = [xd, *blk.parameters()]
+        grads = torch.autograd.grad((y.float() * dy.to(device).float()).sum() + aux, params)
+        return [y.detach(), aux.detach(), *grads]
+
+    def decode(model, device):
+        blk, out = model.blocks[0], []
+        cache = init_self_attn_cache(cfg, 2, 8, device)
+        with torch.no_grad():
+            for t in range(6):
+                y, _, cache = _apply_block(blk, x[:, t:t + 1].to(device), cfg,
+                                           positions=torch.tensor([t], device=device),
+                                           cache=cache, cache_pos=t)
+                out.append(y)
+        return [torch.cat(out, 1)]
+
+    fwd, bwd = flash_attention.launches, flash_attention.backward_launches
+    got, again = run(card, "cuda"), run(card, "cuda")
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - fwd, flash_attention.backward_launches - bwd) == (2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    names = ["y", "aux", "x", *(n for n, _ in card.blocks[0].named_parameters()), "decode"]
+    for name, a, b in zip(names, got + decode(card, "cuda"), run(cpu, "cpu") + decode(cpu, "cpu")):
+        a, b = a.cpu().float(), b.float()
+        if dtype == "float32":
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item(),
+                                       msg=name)
+        else:
+            rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            assert rel <= 2e-2, f"{name}: rel RMS {rel:.3e}"

@@ -3,8 +3,10 @@
 On the CPU the wrapper takes the kernel's plain version; it is held against
 the Pallas kernel (interpret mode) on the cases of ``test_kernels.py`` and
 against the JAX model's XLA flash on the cases the model needs beyond them:
-a query offset, a sequence no block divides, G = 3, and G = 4 reached through
-``kv_repeat``. The CUDA kernel itself is held against the plain version on
+a query offset, a sequence no block divides, G = 3, G = 4 reached through
+``kv_repeat``, and MLA's key head wider than its value head (Dhk, Dhv) at
+deepseek-v2-lite-smoke's (24, 16) and deepseek-v2-lite's (192, 128). The CUDA
+kernel itself is held against the plain version on
 the card (``test_torch_cuda.py`` and ``chip_smoke.py``)."""
 
 import numpy as np
@@ -36,11 +38,11 @@ FLASH_CASES = [
 ]
 
 
-def _qkv(seed, B, H, KH, Sq, Sk, Dh):
+def _qkv(seed, B, H, KH, Sq, Sk, Dh, Dhv=None):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(B, H, Sq, Dh)).astype(np.float32),
             rng.normal(size=(B, KH, Sk, Dh)).astype(np.float32),
-            rng.normal(size=(B, KH, Sk, Dh)).astype(np.float32))
+            rng.normal(size=(B, KH, Sk, Dhv or Dh)).astype(np.float32))
 
 
 def _both(arrs, dtype):
@@ -66,7 +68,8 @@ def test_plain_matches_pallas_kernel(B, H, KH, S, Dh, dtype, causal, bq, bk):
     _close(ref, out, TOL[dtype])
 
 
-# (B, H, KH, Sq, Sk, Dh, q_offset, kv_repeat, dtype, causal)
+# (B, H, KH, Sq, Sk, Dh, q_offset, kv_repeat, dtype, causal); Dh is one head
+# dim, or MLA's pair (Dhk, Dhv)
 XLA_CASES = [
     (1, 4, 2, 16, 48, 64, 32, 1, "float32", True),    # q_offset: a later chunk
     (2, 4, 2, 100, 100, 64, 0, 1, "float32", True),   # S no block divides
@@ -74,6 +77,14 @@ XLA_CASES = [
     (2, 8, 2, 64, 64, 64, 0, 2, "float32", True),     # G = 4 via kv_repeat=2
     (2, 8, 2, 100, 100, 128, 0, 2, "bfloat16", True),
     (1, 4, 4, 100, 100, 64, 0, 1, "float32", False),
+    (1, 4, 4, 32, 32, (24, 16), 0, 1, "float32", True),       # deepseek-v2-lite-smoke
+    (2, 4, 4, 37, 37, (24, 16), 0, 1, "float32", True),       # ragged
+    (1, 4, 4, 16, 48, (24, 16), 32, 1, "float32", True),      # q_offset
+    (2, 4, 4, 20, 33, (24, 16), 0, 1, "float32", False),      # non-causal Sq != Sk
+    (1, 2, 2, 32, 32, (192, 128), 0, 1, "float32", True),     # deepseek-v2-lite
+    (1, 2, 2, 45, 45, (192, 128), 0, 1, "float32", True),     # ragged
+    (1, 2, 2, 13, 40, (192, 128), 27, 1, "float32", True),    # q_offset
+    (1, 4, 4, 40, 40, (192, 128), 0, 1, "bfloat16", True),
 ]
 
 
@@ -81,12 +92,14 @@ XLA_CASES = [
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,Dh,q_offset,rep,dtype,causal", XLA_CASES)
 def test_plain_matches_model_flash(B, H, KH, Sq, Sk, Dh, q_offset, rep, dtype,
                                    causal):
-    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(Sq + Dh, B, H, KH, Sq, Sk, Dh), dtype)
+    Dh, Dhv = Dh if isinstance(Dh, tuple) else (Dh, Dh)
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(Sq + Dh, B, H, KH, Sq, Sk, Dh, Dhv), dtype)
     # the reference model repeats kv heads before its flash; the port's
     # kernel takes the original heads with G = H / KH
     ref = xla_flash(jq, jnp.repeat(jk, rep, axis=1), jnp.repeat(jv, rep, axis=1),
                     causal=causal, chunk=32, q_offset=q_offset)
     out = flash_attention(tq, tk, tv, causal=causal, q_offset=q_offset)
+    assert out.shape == (B, H, Sq, Dhv)
     _close(ref, out, TOL[dtype])
 
 

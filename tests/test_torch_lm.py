@@ -54,7 +54,8 @@ def _tokens(cfg, B, S, seed):
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-8b",
                                   "deepseek-67b",        # kv_repeat=2
                                   "starcoder2-15b", "starcoder2-15b-ungated",
-                                  "granite-moe-3b-a800m", "granite-moe-dense-first"])
+                                  "granite-moe-3b-a800m", "granite-moe-dense-first",
+                                  "deepseek-v2-lite-16b"])    # MLA, shared experts
 def test_forward_and_loss_match_jax(arch, dtype):
     cfg, jp, tm = _models(arch, dtype)
     toks, labels = _tokens(cfg, 2, 24, 1), _tokens(cfg, 2, 24, 2)
@@ -131,10 +132,11 @@ def test_prefill_then_decode_matches_teacher_forced(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "granite-moe-3b-a800m",
-                                  "granite-moe-dense-first"])
+                                  "granite-moe-dense-first", "deepseek-v2-lite-16b"])
 def test_decode_step_matches_jax(arch):
     """One cached decode step after a teacher-forced prefix, against JAX;
-    MoE routes the B tokens of each step (no drops at this size)."""
+    MoE routes the B tokens of each step (no drops at this size); MLA's
+    absorbed decode, its (c_kv, k_rope) cache held as attention's (k, v)."""
     cfg, jp, tm = _models(arch, "float32", seed=8)
     B, S = 2, 6
     toks = _tokens(cfg, B, S, 10)
@@ -148,18 +150,21 @@ def test_decode_step_matches_jax(arch):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                    atol=1e-4)
     first = int(cfg.first_layer_dense)
+    key = "k" if cfg.mla is None else "c_kv"
     for i, layer in enumerate(tc["layers"]):
-        want = jc["first"]["k"] if i < first else jc["groups"][0]["k"][i - first]
-        np.testing.assert_allclose(layer["k"].numpy(), np.asarray(want),
+        want = jc["first"][key] if i < first else jc["groups"][0][key][i - first]
+        np.testing.assert_allclose(layer[key].numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
 
 
 def test_unported_mixers_raise():
-    """MoE is ported (granite-moe-3b-a800m builds); deepseek-v2-lite's MLA
-    still raises, naming its ROADMAP item, as do Mamba and the wrappers."""
+    """MoE and MLA are ported (granite-moe-3b-a800m and deepseek-v2-lite
+    build); jamba's Mamba still raises, naming its ROADMAP item, as do the
+    wrappers."""
     rt.init_params(rt.get_smoke_config("granite-moe-3b-a800m"), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 4 \(MLA\)"):
-        rt.init_params(rt.get_smoke_config("deepseek-v2-lite-16b"), 0, device="cpu")
-    for arch in ("jamba-1.5-large-398b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    rt.init_params(rt.get_smoke_config("deepseek-v2-lite-16b"), 0, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5 \(Mamba\)"):
+        rt.init_params(rt.get_smoke_config("jamba-1.5-large-398b"), 0, device="cpu")
+    for arch in ("whisper-small", "llava-next-34b"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 6"):
             rt.init_params(rt.get_smoke_config(arch), 0, device="cpu")

@@ -3,7 +3,12 @@
 The port's ``ServeEngine`` runs on the port's own ``BoltSystem``; with fp32
 weights converted from JAX its greedy token streams equal the JAX engine's
 token for token, although it prefills in one forward pass where the JAX
-engine teacher-forces the prompt through its decode step."""
+engine teacher-forces the prompt through its decode step. On MLA the two
+score the first new token at different scales (the reference's absorbed
+decode scales by (r + rope)^-1/2, its forward by (Dh + rope)^-1/2; ROADMAP.md
+Queue 3, quirk 13): on deepseek-v2-lite-smoke the streams still match token
+for token, and the port's engine equals the port's own teacher-forced
+decode as well."""
 
 import numpy as np
 import pytest
@@ -44,6 +49,25 @@ def _requests(n):
             for i in range(n)]
 
 
+def _teacher_forced(cfg, model, reqs, gen_tokens):
+    """The JAX engine's schedule in the port: the left-padded prompts fed
+    through ``decode_step`` one position at a time, then greedy decode."""
+    B, plen = len(reqs), max(len(r["prompt"]) for r in reqs)
+    toks = np.full((B, plen), 1, np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r["prompt"]):] = r["prompt"]
+    caches = rt.init_caches(cfg, B, plen + gen_tokens, device="cpu")
+    tokens = torch.from_numpy(toks)
+    for t in range(plen):
+        logits, caches = rt.decode_step(cfg, model, caches, tokens[:, t:t + 1], t)
+    outs = [logits[:, -1, :cfg.vocab_size].argmax(-1)]
+    for t in range(plen, plen + gen_tokens - 1):
+        logits, caches = rt.decode_step(cfg, model, caches, outs[-1][:, None], t)
+        outs.append(logits[:, -1, :cfg.vocab_size].argmax(-1))
+    gen = torch.stack(outs, 1).numpy()
+    return {r["id"]: [int(x) for x in gen[i]] for i, r in enumerate(reqs)}
+
+
 def _serve(system, topic_cls, producer_cls, engine_cls, cfg, params, reqs,
            gen_tokens):
     req = topic_cls.create(system, "req")
@@ -57,12 +81,14 @@ def _serve(system, topic_cls, producer_cls, engine_cls, cfg, params, reqs,
     return req, resp, eng
 
 
-@pytest.mark.parametrize("arch", ["tiny", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["tiny", "granite-moe-3b-a800m", "deepseek-v2-lite-16b"])
 def test_serve_engine_roundtrip_matches_jax(arch):
     """The port of test_serve_and_checkpoint.py::test_serve_engine_roundtrip,
-    with the streams held equal to the JAX engine's (fp32); granite's MoE
-    smoke config routes the left-padded prefill batch where the JAX engine
-    routes one position at a time (no drops at this size)."""
+    with the streams held equal to the JAX engine's (fp32) and to the port's
+    own teacher-forced decode; granite's MoE smoke config routes the
+    left-padded prefill batch where the JAX engine routes one position at a
+    time (no drops at this size); deepseek-v2-lite's MLA prefills at another
+    scale than its decode (quirk 13), and its streams match all the same."""
     cfg = (_tiny_cfg(dtype="float32") if arch == "tiny"
            else get_smoke_config(arch).with_(dtype="float32"))
     jparams = jax_init_params(cfg, jax.random.key(0))
@@ -76,6 +102,7 @@ def test_serve_engine_roundtrip_matches_jax(arch):
     assert set(out) == {"r0", "r1", "r2"}
     assert all(len(toks) == 6 for toks in out.values())
     assert all(0 <= t < cfg.vocab_size for toks in out.values() for t in toks)
+    assert out == _teacher_forced(cfg, model, reqs, gen_tokens=6)
     # durable request cursor: nothing left to serve...
     assert eng.poll_and_serve() == 0
     # ...even for a RESTARTED engine in the same consumer group

@@ -9,7 +9,8 @@ Inputs come from numpy seeds; parameters and optimizer state cross through
   gradient) against ``jax.grad`` of the model's XLA flash;
 * one ``adamw_update`` from a non-trivial state;
 * one whole ``make_train_step`` (loss, grad norm, every updated parameter)
-  on two smoke configs, for every remat mode and 1 or 2 microbatches;
+  on the dense, MoE and MLA smoke configs, for every remat mode and 1 or 2
+  microbatches;
 * and that serving still builds no graph.
 """
 
@@ -56,7 +57,8 @@ def _one_thread():
 
 
 # ------------------------------------------------------- flash attention grad
-# (B, H, KH, Sq, Sk, Dh, q_offset, causal): G = 1, 2, 4, ragged S, an offset
+# (B, H, KH, Sq, Sk, Dh, q_offset, causal): G = 1, 2, 4, ragged S, an offset;
+# Dh is one head dim, or MLA's pair (Dhk, Dhv)
 GRAD_CASES = [
     (1, 2, 2, 37, 37, 16, 0, True),
     (2, 4, 2, 50, 50, 32, 0, True),
@@ -64,15 +66,21 @@ GRAD_CASES = [
     (1, 4, 2, 19, 45, 16, 26, True),
     (2, 4, 1, 40, 24, 32, 0, False),
     (1, 4, 4, 17, 31, 16, 0, False),
+    (2, 4, 4, 29, 29, (24, 16), 0, True),      # deepseek-v2-lite-smoke
+    (1, 4, 4, 11, 30, (24, 16), 19, True),
+    (1, 2, 2, 21, 21, (192, 128), 0, True),    # deepseek-v2-lite
+    (1, 2, 2, 9, 26, (192, 128), 17, True),
+    (1, 2, 2, 14, 23, (192, 128), 0, False),
 ]
 
 
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,Dh,q_offset,causal", GRAD_CASES)
 def test_flash_grad_matches_jax(B, H, KH, Sq, Sk, Dh, q_offset, causal):
+    Dh, Dhv = Dh if isinstance(Dh, tuple) else (Dh, Dh)
     rng = np.random.default_rng(Sq * 3 + Sk + H)
     q, k, v = (rng.normal(size=s).astype(np.float32)
-               for s in ((B, H, Sq, Dh), (B, KH, Sk, Dh), (B, KH, Sk, Dh)))
-    do = rng.normal(size=(B, H, Sq, Dh)).astype(np.float32)
+               for s in ((B, H, Sq, Dh), (B, KH, Sk, Dh), (B, KH, Sk, Dhv)))
+    do = rng.normal(size=(B, H, Sq, Dhv)).astype(np.float32)
     G = H // KH
 
     def jax_loss(q, k, v):
@@ -191,7 +199,7 @@ def _run_both(cfg, jp, toks, accum, grad_dtype):
 @pytest.mark.parametrize("accum", [1, 2])
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
 @pytest.mark.parametrize("arch", ["qwen3-8b", "smollm-135m", "granite-moe-3b-a800m",
-                                  "granite-moe-dense-first"])
+                                  "granite-moe-dense-first", "deepseek-v2-lite-16b"])
 def test_train_step_matches_jax(arch, remat, accum):
     cfg, jp, toks = _step_inputs(arch, "float32", remat)
     jm, tm, model, want, state = _run_both(cfg, jp, toks, accum, "float32")
@@ -204,7 +212,7 @@ def test_train_step_matches_jax(arch, remat, accum):
                                    atol=STEP_TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-moe-3b-a800m", "deepseek-v2-lite-16b"])
 def test_train_step_bf16_matches_jax(arch):
     cfg, jp, toks = _step_inputs(arch, "bfloat16", "full")
     old = rt.params_from_jax(cfg, jax.device_get(jp), device="cpu")
