@@ -13,9 +13,12 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      (the cases of tests/test_kernels.py, ragged S, a query offset, G = 4; fp32
      and bf16), and the bf16 kernel on the edges of its tiles and TMA boxes
      (Sq and Sk of 1 to 4097, q_offset, non-causal Sq != Sk, G = 1/4/8, Dh =
-     32/64/128, B > 1 with KH > 1); then time it at the qwen3-8b prefill shape
-     beside the plain version, F.scaled_dot_product_attention, and the card's
-     bound, and beside SDPA at S = 512-8192 and at the served batch;
+     32/64/128, B > 1 with KH > 1), jamba's G = 8 (64 q heads over 8 kv);
+     then time it at the qwen3-8b prefill shape beside the plain version,
+     F.scaled_dot_product_attention, and the card's bound, beside SDPA at S =
+     512-8192 and at the served batch, and at jamba's long-prompt shape (B=1,
+     H=64, KH=8, S=4096, Dh=128) beside the plain version, SDPA with
+     enable_gqa and the bound;
   3. prefill: qwen3-8b at full width and depth (36 layers, bf16, seeded random
      weights), one forward over 4 prompts of 32 tokens through the kernel and
      through the plain version, logits compared; the eager prefill and decode
@@ -117,6 +120,20 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      does not fit the card) 6 steps at 2 x 4096 in 2 microbatches; (c) one
      step, kernels against plain, 2 layers, fp32 and bf16; (d) 2 layers at
      2 x 512: 4 steps against 2, a checkpoint and 2 resumed, bit for bit.
+ 13. jamba: jamba-1.5-large-398b at full width (bf16, seeded random weights;
+     Mamba mixers of d_inner 16384 and d_state 16, 64 q heads over 8 kv, 16
+     experts of 24576, top 2), depth cut to 5 of 72 layers (mamba+moe,
+     mamba+mlp, mamba+moe, mamba+mlp, attn+moe: 33.11 B parameters, 61.66
+     GiB), served only. (a) the build's parameters, time and peak memory;
+     (b) one forward of 4 prompts x 32 tokens, the flash kernel launched
+     once (its one attention layer) and held against plain on its inputs,
+     the logits against plain within 3x the floor and routed alike, flips
+     counted; (d) the eager prefill and decode step timed, one of each
+     profiled into the Mamba mixers', the MoE's, the matrix products' and
+     the flash kernel's shares of busy time, 4 requests served on the
+     port's log; (c) one full-width Mamba layer alone: the log-depth scan's
+     prefill against the recurrence in fp32 and bf16, its prefill at 1 x
+     2048 and a decode step timed.
 The line before the last lists the kernels as JSON, each with its launches
 on every main path (launches_by_path) and their sum (launches); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
@@ -166,6 +183,8 @@ KERNEL_CASES = [
     (1, 8, 2, 64, 192, 128, True, 128),        # q_offset: a later chunk of a sequence
     (2, 16, 4, 256, 256, 128, True, 0),        # G = 4
     (4, 32, 8, 32, 32, 128, True, 0),          # the served qwen3-8b prefill batch
+    (4, 64, 8, 32, 32, 128, True, 0),          # the served jamba prefill batch: G = 8
+    (1, 64, 8, 1024, 1024, 128, True, 0),      # jamba's heads at S = 1024
 ]
 # bf16 kernel against plain on the edges of its 128-row q and kv tiles and
 # of its TMA boxes: (B, H, KH, Sq, Sk, Dh, causal, q_offset)
@@ -335,6 +354,24 @@ MLA_TRAIN_RUN = dict(config="deepseek-v2-lite-16b", n_layers=7, batch=2, seq=409
 # (d) full width, 2 layers (the dense one and one MoE), batch 2 x 512
 MLA_RESUME_RUN = dict(config="deepseek-v2-lite-16b", n_layers=2, batch=2, seq=512)
 MLA_RESUME_K = 2
+# phase 13: jamba-1.5-large-398b at full width (d 8192; Mamba Di 16384, N 16,
+# dt_rank 512, conv 4; 64 q heads over 8 kv heads, Dh 128: G = 8; 16 experts
+# of 24576, top 2; vocab 65536, untied), depth cut to 5 of its 72 layers: the
+# least depth that reaches its one attention layer in 8 (pattern index 4),
+# 33.11 B parameters, 61.66 GiB in bf16; 8 layers would take 84.26 GiB. Its
+# 16 x 8192 x 24576 expert tensors are drawn one fp32 temporary at a time
+# (layers.dense_init), a 73.7 GiB peak. Served only: AdamW's 16 bytes a
+# parameter put one full-width MoE layer (9.66 B) at 155 GB
+JAMBA_LAYERS = 5
+JAMBA_SHAPE = (1, 64, 8, 4096, 128)            # its long-prompt flash call: B, H, KH, S, Dh
+# (c) one full-width Mamba layer: the log-depth scan's prefill against the
+# recurrence's steps on MAMBA_CHECK, in fp32 to MAMBA_TOL of each tensor's
+# largest entry (the same function, products in another order) and in bf16
+# to PREFILL_TOL; then its prefill timed at MAMBA_TIMED, where dA, dBx and h
+# are (1, 2048, 16384, 16) fp32, 2 GiB each
+MAMBA_CHECK = (4, 32)
+MAMBA_TOL = 1e-5
+MAMBA_TIMED = (1, 2048)
 
 
 def say(*parts) -> None:
@@ -371,6 +408,41 @@ def device_kernels(fn, cpu: bool = True) -> list:
                 for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
     return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
             if e.device_type == cuda]
+
+
+def busy_shares(fn, ranges) -> tuple:
+    """One synchronised call of ``fn`` under torch.profiler (CPU and CUDA):
+    (device busy ms, kernels, {range: device ms of the kernels launched
+    inside each range of that name}, [(kernel, ms)]). The window opens with
+    PRELUDE one-element kernels in a range of their own, which the sums skip
+    (the card's profiler drops a session's first device events once earlier
+    profiles have run; backward_passes)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.zeros(1, device="cuda")
+
+    def launched(e) -> int:              # kernels of e's ops (not its own annotation)
+        return sum(len(c.kernels) + launched(c) for c in e.cpu_children)
+
+    def window():
+        with torch.profiler.record_function("prelude"):
+            for _ in range(PRELUDE):
+                x.add_(1)
+        fn()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    names = {"prelude", *ranges}
+    events = prof.events()
+    inside = {name: sum(e.device_time_total for e in events
+                        if e.name == name and e.device_type != cuda) / 1e3 for name in names}
+    kernels = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
+               if e.device_type == cuda and e.name not in names]
+    n_prelude = sum(launched(e) for e in events
+                    if e.name == "prelude" and e.device_type != cuda)
+    busy = sum(t for _, t in kernels) - inside["prelude"]
+    return busy, len(kernels) - n_prelude, {r: inside[r] for r in ranges}, kernels
 
 
 def short_name(name: str) -> str:
@@ -484,6 +556,7 @@ def phase_kernel() -> dict:
             f"({fl / s_ms / 1e9:.1f} TFLOP/s), kernel/sdpa {k_ms / s_ms:.3f}")
         del q, k, v, ke, ve
     torch.cuda.empty_cache()
+    flash_at_jamba(gen)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:25",
@@ -491,6 +564,42 @@ def phase_kernel() -> dict:
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
+
+
+def flash_at_jamba(gen: torch.Generator) -> None:
+    """The bf16 kernel at jamba's long-prompt shape (H = 64 over KH = 8: G =
+    8, Dh = 128, S = 4096), against the plain version, timed beside it,
+    SDPA with ``enable_gqa`` and the bound (2 B H S^2 Dh operations at the
+    bf16 peak; Q, K, V and O once at the memory rate)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, H, KH, S, Dh = JAMBA_SHAPE
+    q = randn(gen, (B, H, S, Dh), torch.bfloat16)
+    k, v = randn(gen, (B, KH, S, Dh), torch.bfloat16), randn(gen, (B, KH, S, Dh), torch.bfloat16)
+    err = (flash_attention(q, k, v, causal=True).float()
+           - flash_attention(q, k, v, causal=True, impl="plain").float()).abs().max().item()
+    if not err <= TOL[torch.bfloat16]:
+        raise AssertionError(f"kernel disagrees at jamba's shape: {err}")
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)
+    plain_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, impl="plain"),
+                       iters=3, warmup=1)
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True), iters=20)
+    ms_again = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)
+    flops = 2 * B * H * S * S * Dh
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = 2 * (2 * B * H * S * Dh + 2 * B * KH * S * Dh) / PEAK_BYTES * 1e3
+    say(f"[kernel] jamba shape B={B} H={H} KH={KH} (G = {H // KH}) S={S} Dh={Dh} bf16 causal: "
+        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; again {ms_again:.4f}), plain "
+        f"{plain_ms:.4f} ms, sdpa (enable_gqa) {sdpa:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+        f"(ops {t_ops:.4f}, bytes {t_bytes:.4f}); max_abs_err {err:.3e}")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def attention_layers(cfg) -> int:
+    """The layers whose prefill calls the flash kernel: attention and MLA."""
+    from repro_torch.models.lm import layer_kinds
+    return sum(kind.partition("+")[0] in ("attn", "mla") for kind in layer_kinds(cfg))
 
 
 def prefill_tokens(cfg, shape=(4, 32)) -> torch.Tensor:
@@ -524,7 +633,8 @@ def check_prefill(cfg, model, tag: str) -> None:
 
 @torch.no_grad()
 def time_prefill_and_decode(cfg, model, tag: str, tokens) -> None:
-    """The eager prefill and one decode step, each timed and profiled."""
+    """The eager prefill and one decode step, each timed and profiled
+    (``busy_shares``' window, so no dropped event shortens the busy time)."""
     from repro_torch import decode_step, forward
     S = tokens.shape[1]
     logits, _, caches, _ = forward(cfg, model, {"tokens": tokens}, want_caches=True,
@@ -535,10 +645,9 @@ def time_prefill_and_decode(cfg, model, tag: str, tokens) -> None:
     decode = lambda: decode_step(cfg, model, caches, nxt, S)  # noqa: E731
     for name, fn in (("forward(want_caches)", prefill), ("decode_step", decode)):
         ms = cuda_ms(fn, iters=5, warmup=1)
-        kernels = device_kernels(fn)
-        busy = sum(t for _, t in kernels)
+        busy, n, _, kernels = busy_shares(fn, ())
         share = "device time not measured" if not kernels else (
-            f"device busy {busy:.2f} ms in {len(kernels)} kernels, idle share "
+            f"device busy {busy:.2f} ms in {n} kernels, idle share "
             f"{1 - busy / ms:.3f}")
         say(f"[{tag}] {name} B={tokens.shape[0]} S={S}: {ms:.2f} ms eager; {share}")
 
@@ -1842,8 +1951,11 @@ def flash_at_granite() -> None:
 @torch.no_grad()
 def check_moe_prefill(cfg, model, tag: str, label: str = "moe prefill") -> None:
     """(a): one full-depth forward of 4 prompts x 32 tokens through the
-    kernel (launched once a layer), each layer's flash call held against the
-    plain version on the inputs it sees; the logits against a plain forward,
+    kernel (launched once an attention or MLA layer), each layer's flash
+    call held against the plain version on the inputs it sees at rtol =
+    atol = TOL, as tests/test_torch_cuda.py holds the kernel (bf16 outputs
+    past 2.56 in magnitude, as jamba's attention gives, are more than one
+    ulp apart at 2e-2 absolute); the logits against a plain forward,
     within MOE_FLOOR_FACTOR of the floor of two plain forwards that differ
     in the order of one sum, and against a plain forward routed as the
     kernel's was; the (token, layer) expert choices that differ counted."""
@@ -1852,19 +1964,22 @@ def check_moe_prefill(cfg, model, tag: str, label: str = "moe prefill") -> None:
     from repro_torch.models.lm import layer_kinds
     tokens = prefill_tokens(cfg)
     batch = {"tokens": tokens}
-    errs, routes = [], {key: [] for key in ("kernel", "plain", "split")}
+    errs, scaled, routes = [], [], {key: [] for key in ("kernel", "plain", "split")}
+    rtol = atol = TOL[model.embed.dtype]
 
     def held(flash, q, k, v, *, causal, impl=None):
         out = flash(q, k, v, causal=causal, impl=impl)
-        errs.append((out.float() - flash(q, k, v, causal=causal, impl="plain").float())
-                    .abs().max().item())
+        ref = flash(q, k, v, causal=causal, impl="plain").float()
+        d = (out.float() - ref).abs()
+        errs.append(d.max().item())
+        scaled.append((d / (atol + rtol * ref.abs())).max().item())
         return out
 
     before = flash_attention.launches
     with flash_calls(held), moe_routes(routes["kernel"]):
         logits, _, _, _ = forward(cfg, model, batch)
-    if flash_attention.launches - before != cfg.n_layers:
-        raise AssertionError("the prefill did not launch the kernel once a layer")
+    if flash_attention.launches - before != attention_layers(cfg):
+        raise AssertionError("the prefill did not launch the kernel once an attention layer")
     with moe_routes(routes["plain"]):
         plain, _, _, _ = forward(cfg, model, batch, attn_impl="plain")
     with flash_calls(lambda flash, *args, **kw: attention_split_sum(*args, **kw)), \
@@ -1877,8 +1992,10 @@ def check_moe_prefill(cfg, model, tag: str, label: str = "moe prefill") -> None:
     d, floor, dp = logit_diff(logits, plain), logit_diff(split, plain), logit_diff(logits, pinned)
     n = tokens.numel() * sum(kind.endswith("+moe") for kind in layer_kinds(cfg))
     tol = PREFILL_TOL[logits.dtype]
-    say(f"[{label}] {tag} B=4 S=32: {cfg.n_layers} layers, each layer's flash call vs "
-        f"plain on its inputs max_abs_err {max(errs):.3e} (tol {TOL[logits.dtype]}); logits "
+    say(f"[{label}] {tag} B=4 S=32: {cfg.n_layers} layers, {attention_layers(cfg)} flash "
+        f"calls, each attention layer's vs "
+        f"plain on its inputs max_abs_err {max(errs):.3e}, at most {max(scaled):.3f} of rtol "
+        f"= atol = {TOL[logits.dtype]} (tests/test_torch_cuda.py's criterion); logits "
         f"{tuple(logits.shape)} finite; kernel vs plain max_abs {d['max_abs']:.3e}, rel_rms "
         f"{d['rel_rms']:.3e}, argmax agree {d['argmax_agree']:.4f}, expert choices differing "
         f"{flips(routes['kernel'], routes['plain'])} of {n} (token, layer); plain split sum vs "
@@ -1887,7 +2004,7 @@ def check_moe_prefill(cfg, model, tag: str, label: str = "moe prefill") -> None:
         f"{flips(routes['split'], routes['plain'])} (tol {MOE_FLOOR_FACTOR}x floor or {tol}); "
         f"plain routed as the kernel: max_abs {dp['max_abs']:.3e}, rel_rms {dp['rel_rms']:.3e} "
         f"(tol {tol})")
-    if not (max(errs) <= TOL[logits.dtype] and all(dp[key] <= tol[key] for key in tol)
+    if not (max(scaled) <= 1 and all(dp[key] <= tol[key] for key in tol)
             and all(d[key] <= max(MOE_FLOOR_FACTOR * floor[key], tol[key]) for key in tol)):
         raise AssertionError(f"{tag} prefill disagrees: layers {errs}, logits {d} against "
                              f"floor {floor}, pinned {dp}")
@@ -2217,6 +2334,178 @@ def phase_mla() -> tuple:
             {path: n[1] for path, n in paths.items()})
 
 
+@contextmanager
+def annotated(module, names):
+    """Run each function ``module.<name>`` inside a torch.profiler range of
+    that name, so a profile can sum the device time of the kernels each
+    call launched."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def inner(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return inner
+
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+@torch.no_grad()
+def jamba_shares(cfg, model, tokens) -> None:
+    """(d): one profiled prefill of ``tokens`` and one profiled decode step,
+    each one's device busy time split into the Mamba mixers'
+    (``apply_mamba``) and the MoE layers' (``apply_moe``) kernels, the
+    matrix products (all layers) and the flash kernel."""
+    from repro_torch import decode_step, forward
+    from repro_torch.models import lm
+    S = tokens.shape[1]
+    logits, _, caches, _ = forward(cfg, model, {"tokens": tokens}, want_caches=True,
+                                   max_len=S + 1)
+    nxt = logits[:, -1:, :cfg.vocab_size].argmax(-1)
+    calls = (("prefill", lambda: forward(cfg, model, {"tokens": tokens}, want_caches=True,
+                                         max_len=S + 1)),
+             ("decode step", lambda: decode_step(cfg, model, caches, nxt, S)))
+    for name, fn in calls:
+        with annotated(lm, ("apply_mamba", "apply_moe")):
+            busy, _, inside, kernels = busy_shares(fn, ("apply_mamba", "apply_moe"))
+        if not kernels:
+            say(f"[jamba shares] {name}: device time not measured")
+            continue
+        gemm = sum(t for k, t in kernels if "gemm" in k.lower() or "nvjet" in k)
+        flash = sum(t for k, t in kernels if "flash_fwd" in k)
+        say(f"[jamba shares] {name} B={tokens.shape[0]} S={S}: device busy {busy:.2f} ms; of "
+            f"busy: Mamba mixers {inside['apply_mamba'] / busy:.4f} "
+            f"({inside['apply_mamba']:.2f} ms), MoE {inside['apply_moe'] / busy:.4f} "
+            f"({inside['apply_moe']:.2f} ms), matrix products (all layers) {gemm / busy:.4f} "
+            f"({gemm:.2f} ms), flash kernel {flash / busy:.4f} ({flash:.3f} ms)")
+
+
+@torch.no_grad()
+def mamba_alone() -> None:
+    """(c): one full-width Mamba layer of jamba (Di 16384, N 16), seeded
+    random weights. The log-depth scan's prefill of MAMBA_CHECK (output,
+    final ssm and conv states) against as many steps of the recurrence from
+    a zero state, in fp32 (MAMBA_TOL of each tensor's largest entry) and
+    bf16 (PREFILL_TOL); then, in bf16, the prefill of MAMBA_TIMED timed
+    (device ms, kernels, peak memory above the inputs, the scan's own time)
+    and one decode step."""
+    from repro_torch import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import pdtype
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    base = get_config("jamba-1.5-large-398b").with_(n_layers=JAMBA_LAYERS)
+    B, S = MAMBA_CHECK
+    for dtype in ("float32", "bfloat16"):
+        cfg = base.with_(dtype=dtype)
+        p = ssm.init_mamba(gen, cfg, "cuda")
+        x = randn(gen, (B, S, cfg.d_model), pdtype(cfg))
+        y, st = ssm.apply_mamba(p, x, cfg, want_state=True)
+        state = ssm.init_mamba_state(cfg, B, "cuda")
+        steps = torch.cat([ssm.apply_mamba(p, x[:, t:t + 1], cfg, state=state)[0]
+                           for t in range(S)], dim=1)
+        errs = {}
+        for key, a, b in (("y", y, steps), ("ssm", st["ssm"], state["ssm"]),
+                          ("conv", st["conv"], state["conv"])):
+            d = (a.float() - b.float())
+            errs[key] = {"rel_max": (d.abs().max() / b.float().abs().max()).item(),
+                         "max_abs": d.abs().max().item(),
+                         "rel_rms": (d.norm() / b.float().norm()).item()}
+        if dtype == "float32":
+            ok = all(e["rel_max"] <= MAMBA_TOL for e in errs.values())
+            tol = f"rel_max {MAMBA_TOL}"
+        else:
+            tol = PREFILL_TOL[torch.bfloat16]
+            ok = all(e[key] <= limit for e in errs.values() for key, limit in tol.items())
+        n_params = sum(t.numel() for t in p.parameters())
+        say(f"[jamba mamba] one full-width layer ({n_params / 1e9:.3f} B parameters) {dtype} "
+            f"B={B} S={S}: scan prefill vs {S} recurrence steps "
+            + "; ".join(f"{key} rel_max {e['rel_max']:.3e} max_abs {e['max_abs']:.3e} rel_rms "
+                        f"{e['rel_rms']:.3e}" for key, e in errs.items()) + f" (tol {tol})")
+        if not ok:
+            raise AssertionError(f"Mamba's scan disagrees with its recurrence ({dtype}): {errs}")
+        del p, x, y, st, state, steps
+    torch.cuda.empty_cache()
+
+    cfg = base
+    p = ssm.init_mamba(gen, cfg, "cuda")
+    B, S = MAMBA_TIMED
+    x = randn(gen, (B, S, cfg.d_model), torch.bfloat16)
+    prefill = lambda: ssm.apply_mamba(p, x, cfg, want_state=True)  # noqa: E731
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, state = prefill()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    ms = cuda_ms(prefill, iters=3, warmup=1)
+    busy, n, _, kernels = busy_shares(prefill, ())
+    Di, _, N = ssm._dims(cfg)
+    dA = torch.rand((B, S, Di, N), generator=gen, device="cuda")
+    dBx = torch.randn((B, S, Di, N), generator=gen, device="cuda")
+    scan_ms = cuda_ms(lambda: ssm.selective_scan(dA, dBx), iters=3, warmup=1)
+    del dA, dBx
+    x1 = randn(gen, (B, 1, cfg.d_model), torch.bfloat16)
+    decode = lambda: ssm.apply_mamba(p, x1, cfg, state=state)  # noqa: E731
+    d_ms = cuda_ms(decode, iters=20)
+    d_busy, d_n, _, d_kernels = busy_shares(decode, ())
+    flops = 2 * B * S * sum(t.numel() for t in (p.m_in, p.m_xproj, p.m_dt, p.m_out))
+    say(f"[jamba mamba] prefill B={B} S={S} bf16: {ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+        f"in its projections, whose bound is {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms); "
+        + ("device time not measured" if not kernels else
+           f"device busy {busy:.2f} ms in {n} kernels")
+        + f"; peak memory {peak:.2f} GiB above its inputs; the log-depth scan alone on "
+        f"(1, {S}, {Di}, {N}) fp32 {scan_ms:.2f} ms ({math.ceil(math.log2(S))} steps); "
+        f"one decode step {d_ms:.3f} ms, "
+        + ("device time not measured" if not d_kernels else
+           f"busy {d_busy:.3f} ms in {d_n} kernels"))
+    del p, x, x1, state
+    torch.cuda.empty_cache()
+
+
+def phase_jamba() -> int:
+    """Phase 13: jamba-1.5-large-398b at full width, 5 of 72 layers, served.
+    Returns the flash forward's launches on its served path."""
+    from repro_torch import get_config, init_params
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.lm import layer_kinds
+    cfg = get_config("jamba-1.5-large-398b").with_(n_layers=JAMBA_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[jamba] {cfg.name}: {cfg.n_layers} of 72 layers ({', '.join(layer_kinds(cfg))}), "
+        f"{n_params / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"bf16, made in {t_build:.1f} s, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB while made (d_model {cfg.d_model}, Mamba d_inner "
+        f"{cfg.mamba.expand * cfg.d_model} d_state {cfg.mamba.d_state}; {cfg.n_heads} q heads "
+        f"over {cfg.n_kv_heads} kv; {cfg.moe.n_experts} experts of {cfg.moe.d_expert}, top "
+        f"{cfg.moe.top_k})")
+    check_moe_prefill(cfg, model, "jamba-1.5-large-398b bf16", label="jamba prefill")
+    t1 = time.perf_counter()
+    tokens = prefill_tokens(cfg)
+    time_prefill_and_decode(cfg, model, "jamba prefill", tokens)
+    jamba_shares(cfg, model, tokens)
+    torch.cuda.reset_peak_memory_stats()
+    served, _ = phase_serve(cfg, model, flash_attention, attention_layers(cfg), SERVE_PROMPTS,
+                            "jamba serve")
+    say(f"[jamba serve] peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    mamba_alone()
+    say(f"[jamba] phase times: (a, b) {t1 - t0:.1f} s, (d) {t2 - t1:.1f} s, (c) "
+        f"{time.perf_counter() - t2:.1f} s")
+    return served
+
+
 def serve_timing(repeats: int) -> None:
     """``--serve-timing N``: only the served paths' times, N times each, to
     compare two commits' packages in alternating processes (this script
@@ -2224,20 +2513,23 @@ def serve_timing(repeats: int) -> None:
     (phases 3-4), xlstm-1.3b (phases 7-8), granite-moe-3b-a800m (phase 11)
     and deepseek-v2-lite-16b (phase 12): the eager prefill and decode step
     of the timed prompts, and one served batch, as the phases time them;
-    prints each series and a JSON line of them."""
+    prints each series and a JSON line of them. jamba-1.5-large-398b (phase
+    13) at its 5 layers."""
     from repro_torch import decode_step, forward, get_config, init_params
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mlstm_chunk import mlstm_chunk
     from repro_torch.models.lm import layer_kinds
     result = {}
-    for name, kernel, prompts, shape in (
-            ("qwen3-8b", flash_attention, SERVE_PROMPTS, (4, 32)),
-            ("xlstm-1.3b", mlstm_chunk, XLSTM_SERVE_PROMPTS, XLSTM_PROMPT),
-            ("granite-moe-3b-a800m", flash_attention, SERVE_PROMPTS, (4, 32)),
-            ("deepseek-v2-lite-16b", flash_attention, SERVE_PROMPTS, (4, 32))):
-        cfg = get_config(name)
+    for name, kernel, prompts, shape, cut in (
+            ("qwen3-8b", flash_attention, SERVE_PROMPTS, (4, 32), {}),
+            ("xlstm-1.3b", mlstm_chunk, XLSTM_SERVE_PROMPTS, XLSTM_PROMPT, {}),
+            ("granite-moe-3b-a800m", flash_attention, SERVE_PROMPTS, (4, 32), {}),
+            ("deepseek-v2-lite-16b", flash_attention, SERVE_PROMPTS, (4, 32), {}),
+            ("jamba-1.5-large-398b", flash_attention, SERVE_PROMPTS, (4, 32),
+             {"n_layers": JAMBA_LAYERS})):
+        cfg = get_config(name).with_(**cut)
         model = init_params(cfg, seed=0)
-        n_launches = (cfg.n_layers if kernel is flash_attention
+        n_launches = (attention_layers(cfg) if kernel is flash_attention
                       else layer_kinds(cfg).count("mlstm"))
         tokens = prefill_tokens(cfg, shape)
         S = tokens.shape[1]
@@ -2304,7 +2596,10 @@ def main() -> int:
     moe_fwd, moe_bwd = phase_moe()
     torch.cuda.empty_cache()
     mla_fwd, mla_bwd = phase_mla()
-    kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd, **mla_fwd}
+    torch.cuda.empty_cache()
+    jamba = phase_jamba()
+    kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd, **mla_fwd,
+                                  "serve jamba-1.5-large-398b": jamba}
     backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd}
     mlstm["launches_by_path"].update(xlstm_fwd)
     mlstm_bwd["launches_by_path"] = xlstm_bwd

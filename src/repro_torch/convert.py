@@ -11,10 +11,13 @@ nested dicts: ``ln1``, ``attn``, ``ln2`` and ``mlp`` for ``attn+mlp``;
 ``moe.router``, ``moe.e_in``, ``moe.e_gate``, ``moe.e_out`` (the padded
 experts included) and ``moe.shared.*`` for ``attn+moe``; ``mla.w_dkv``,
 ``mla.kv_norm``, ``mla.w_uk``, ``mla.w_uv``, ``mla.wq`` and ``mla.wo`` in
-place of ``attn`` for ``mla+mlp`` and ``mla+moe``; ``ln1`` and the mixer's
-leaves (``x_up`` .. ``x_out``, ``s_gates`` .. ``s_out``) for ``mlstm`` and
-``slstm``. bf16 arrays arrive through their ``uint16`` view, so this module
-needs neither JAX nor ``ml_dtypes``.
+place of ``attn`` for ``mla+mlp`` and ``mla+moe``; ``mamba.m_in``,
+``mamba.m_conv``, ``mamba.m_xproj``, ``mamba.m_dt``, ``mamba.m_dtb``,
+``mamba.m_alog`` (fp32 in either dtype), ``mamba.m_d`` and ``mamba.m_out``
+in place of ``attn`` for ``mamba+mlp`` and ``mamba+moe``; ``ln1`` and the
+mixer's leaves (``x_up`` .. ``x_out``, ``s_gates`` .. ``s_out``) for
+``mlstm`` and ``slstm``. bf16 arrays arrive through their ``uint16`` view,
+so this module needs neither JAX nor ``ml_dtypes``.
 
 ``opt_state_from_jax(cfg, model, state)`` does the same for the state of
 ``repro.train.optimizer.adamw_init`` / ``adamw_update``: its ``m``, ``v`` and

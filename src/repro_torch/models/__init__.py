@@ -1,8 +1,10 @@
-"""The model stack in PyTorch: the ``attn+mlp`` and ``attn+moe`` decoders and xLSTM."""
+"""The model stack in PyTorch: the attention, MLA, MoE, Mamba and xLSTM
+decoders, and the Mamba mixer."""
 
 from .config import (EncDecCfg, MambaCfg, MLACfg, ModelConfig, MoECfg, VLMCfg)
 from .lm import LM, decode_step, forward, init_caches, init_params, loss_fn
+from .ssm import Mamba, apply_mamba, init_mamba, init_mamba_state
 
 __all__ = ["ModelConfig", "MoECfg", "MLACfg", "MambaCfg", "EncDecCfg",
            "VLMCfg", "LM", "init_params", "init_caches", "forward", "loss_fn",
-           "decode_step"]
+           "decode_step", "Mamba", "init_mamba", "apply_mamba", "init_mamba_state"]

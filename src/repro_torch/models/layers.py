@@ -10,7 +10,7 @@ uninitialised for the converter to fill. Parameters are made frozen;
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,13 +35,36 @@ def resolve_device(device=None) -> torch.device:
 
 def dense_init(gen: Optional[torch.Generator], shape, std: float = 0.02,
                dtype: torch.dtype = torch.bfloat16, device=None) -> nn.Parameter:
-    """normal * std drawn in fp32 from ``gen``, cast to ``dtype``."""
+    """normal * std drawn in fp32 from ``gen``, cast to ``dtype``. Drawn and
+    scaled in place: one fp32 temporary, where ``randn(...) * std`` held two
+    (24 GiB at once for one of jamba's expert tensors), the same bits."""
     if gen is None:
         w = torch.empty(shape, dtype=dtype, device=device)
     else:
-        w = (torch.randn(shape, generator=gen, dtype=torch.float32,
-                         device=device) * std).to(dtype)
+        w = torch.empty(shape, dtype=torch.float32, device=device).normal_(
+            generator=gen).mul_(std).to(dtype)
     return nn.Parameter(w, requires_grad=False)
+
+
+def check_no_graph(state: Optional[Dict[str, torch.Tensor]], x: torch.Tensor,
+                   p: nn.Module) -> None:
+    """A recurrent block's state is updated in place: refuse one where a
+    graph is built."""
+    if state is not None and torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in p.parameters())
+            or any(t.requires_grad for t in state.values())):
+        raise ValueError("a state given to a recurrent block (xLSTM, Mamba) is "
+                         "updated in place, which would break the graph autograd "
+                         "builds: pass no state under grad (want_state returns "
+                         "the final one), or run under torch.no_grad()")
+
+
+def copy_into(state: Dict[str, torch.Tensor],
+              new: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Copy ``new`` into ``state``'s tensors; returns ``state``."""
+    for key, t in new.items():
+        state[key].copy_(t)
+    return state
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

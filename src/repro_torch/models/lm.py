@@ -1,20 +1,23 @@
 """The decoder-only LM: init, full-sequence forward (prefill), loss and the
 cached decode step, for the block kinds ``attn+mlp``, ``attn+moe``,
-``mla+mlp``, ``mla+moe``, ``mlstm`` and ``slstm``, with an optional dense
-first layer.
+``mla+mlp``, ``mla+moe``, ``mamba+mlp``, ``mamba+moe``, ``mlstm`` and
+``slstm``, with an optional dense first layer.
 
 Port of ``src/repro/models/lm.py``. The JAX package stacks each pattern
 entry's parameters over ``n_groups`` and ``lax.scan``s them; here the layers
 are an ``nn.ModuleList`` of per-layer blocks in layer order, layer i of kind
 ``block_pattern[i % len(block_pattern)]``; with ``cfg.first_layer_dense``
 layer 0 is the reference's ``first`` block (``{mixer}+mlp``) and layer
-i >= 1 is of kind ``block_pattern[(i - 1) % len(block_pattern)]``. Each
-layer's cache is its own dict: ``{"k", "v"}`` for attention, ``{"c_kv",
-"k_rope"}`` for MLA, the recurrent state for xLSTM. An MoE layer's router
-aux loss is summed over the layers into ``forward``'s ``aux``, as the reference's
-``_stack_forward`` sums it, and ``loss_fn`` adds it to the loss. Other
-mixers and wrappers are not ported yet and raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them.
+i >= 1 is of kind ``block_pattern[(i - 1) % len(block_pattern)]``. The
+layer count need not divide by the pattern (the reference asserts it
+does), so jamba runs at any depth. Each layer's cache is its own dict:
+``{"k", "v"}`` for attention, ``{"c_kv", "k_rope"}`` for MLA, ``{"ssm",
+"conv"}`` for Mamba, the recurrent state for xLSTM. An MoE layer's router
+aux loss is summed
+over the layers into ``forward``'s ``aux``, as the reference's
+``_stack_forward`` sums it, and ``loss_fn`` adds it to the loss. The
+encoder-decoder and VLM wrappers are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
 ``forward`` and ``loss_fn`` build a graph where grad is enabled, so a model
 made with ``init_params(..., trainable=True)`` trains; ``cfg.remat`` then
@@ -24,8 +27,9 @@ the reference remats a whole ``block_pattern`` group (the same numbers,
 less memory: one block's activations live at a time in the backward).
 Every ported block kind has a gradient: attention and MLA through the flash
 backward kernel, mLSTM through the mLSTM backward kernel (on the card), sLSTM
-by autograd through its step loop, MoE by autograd through its dispatch
-and combine gathers (``moe.py``). Serving runs under ``torch.no_grad()``:
+by autograd through its step loop, Mamba by autograd through its log-depth
+scan (``ssm.py``), MoE by autograd through its dispatch and combine gathers
+(``moe.py``). Serving runs under ``torch.no_grad()``:
 ``decode_step`` here, the prefill in the engine.
 """
 
@@ -45,25 +49,18 @@ from .config import ModelConfig
 from .layers import (MLP, apply_mlp, dense_init, init_mlp, init_norm, pdtype,
                      resolve_device, rms_norm)
 from .moe import MoE, apply_moe, init_moe
+from .ssm import Mamba, apply_mamba, init_mamba, init_mamba_state
 from .xlstm import (MLSTM, SLSTM, apply_mlstm, apply_slstm, init_mlstm,
                     init_mlstm_state, init_slstm, init_slstm_state)
 
-# ROADMAP.md Queue 1 item that ports each block kind this module lacks
-_NOT_PORTED = {"mamba": "item 5 (Mamba)"}
-_PORTED = ("attn+mlp", "attn+moe", "mla+mlp", "mla+moe", "mlstm", "slstm")
+_PORTED = ("attn+mlp", "attn+moe", "mla+mlp", "mla+moe", "mamba+mlp", "mamba+moe",
+           "mlstm", "slstm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless every layer of ``cfg`` is of a
-    ported kind: ``attn+mlp``, ``attn+moe``, ``mla+mlp``, ``mla+moe``,
-    ``mlstm`` or ``slstm``."""
+    ported kind (``_PORTED``) and the model needs no wrapper."""
     for blk in dict.fromkeys(layer_kinds(cfg)):
-        mixer, _, ffn = blk.partition("+")
-        for part in (mixer, ffn):
-            if part in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: block {blk!r} is not ported yet "
-                    f"(ROADMAP.md Queue 1 {_NOT_PORTED[part]})")
         if blk not in _PORTED:
             raise NotImplementedError(f"{cfg.name}: unknown block {blk!r}")
     if cfg.is_encdec or cfg.vlm is not None:
@@ -109,6 +106,24 @@ class MLAMoEBlock(nn.Module):
         self.ln1, self.mla, self.ln2, self.moe = ln1, mla, ln2, moe
 
 
+class MambaBlock(nn.Module):
+    """One ``mamba+mlp`` layer: ``ln1``, ``mamba``, ``ln2``, ``mlp``."""
+
+    def __init__(self, ln1: nn.Parameter, mamba: Mamba, ln2: nn.Parameter,
+                 mlp: MLP) -> None:
+        super().__init__()
+        self.ln1, self.mamba, self.ln2, self.mlp = ln1, mamba, ln2, mlp
+
+
+class MambaMoEBlock(nn.Module):
+    """One ``mamba+moe`` layer: ``ln1``, ``mamba``, ``ln2``, ``moe``."""
+
+    def __init__(self, ln1: nn.Parameter, mamba: Mamba, ln2: nn.Parameter,
+                 moe: MoE) -> None:
+        super().__init__()
+        self.ln1, self.mamba, self.ln2, self.moe = ln1, mamba, ln2, moe
+
+
 class MLSTMBlock(nn.Module):
     """One ``mlstm`` layer: ``ln1``, ``mlstm``; no FFN."""
 
@@ -149,6 +164,12 @@ def init_block(gen: Optional[torch.Generator], cfg: ModelConfig, device,
     if kind == "mla+mlp":
         return MLABlock(init_norm(cfg, device), init_mla(gen, cfg, device),
                         init_norm(cfg, device), init_mlp(gen, cfg, device))
+    if kind == "mamba+moe":
+        return MambaMoEBlock(init_norm(cfg, device), init_mamba(gen, cfg, device),
+                             init_norm(cfg, device), init_moe(gen, cfg, device))
+    if kind == "mamba+mlp":
+        return MambaBlock(init_norm(cfg, device), init_mamba(gen, cfg, device),
+                          init_norm(cfg, device), init_mlp(gen, cfg, device))
     return Block(init_norm(cfg, device), init_attention(gen, cfg, device),
                  init_norm(cfg, device), init_mlp(gen, cfg, device))
 
@@ -190,13 +211,15 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> Dict[str, List[Dict[str, torch.Tensor]]]:
     """Empty caches, one per layer, on the card unless ``device`` names
     another: zero ``{"k", "v"}`` of ``max_len`` positions for attention (and
-    ``{"c_kv", "k_rope"}`` for MLA), the initial state ``{"C", "n", "m"}`` or
-    ``{"sc", "sn", "sh", "sm"}`` for mLSTM and sLSTM (which ignore
-    ``max_len``)."""
+    ``{"c_kv", "k_rope"}`` for MLA), the initial state ``{"ssm", "conv"}``,
+    ``{"C", "n", "m"}`` or ``{"sc", "sn", "sh", "sm"}`` for Mamba, mLSTM and
+    sLSTM (which ignore ``max_len``)."""
     check_ported(cfg)
     device = resolve_device(device)
     attn = lambda: init_self_attn_cache(cfg, batch, max_len, device)  # noqa: E731
+    mamba = lambda: init_mamba_state(cfg, batch, device)  # noqa: E731
     init = {"attn+mlp": attn, "attn+moe": attn, "mla+mlp": attn, "mla+moe": attn,
+            "mamba+mlp": mamba, "mamba+moe": mamba,
             "mlstm": lambda: init_mlstm_state(cfg, batch, device),
             "slstm": lambda: init_slstm_state(cfg, batch, device)}
     return {"layers": [init[kind]() for kind in layer_kinds(cfg)]}
@@ -215,13 +238,16 @@ def _apply_block(blk: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
         y, cache = apply_slstm(blk.slstm, h, cfg, state=cache,
                                want_state=want_cache)
         return x + y, None, cache
-    mixer = (functools.partial(mla_block, blk.mla)
-             if isinstance(blk, (MLABlock, MLAMoEBlock))
-             else functools.partial(attention_block, blk.attn))
-    y, cache = mixer(h, cfg, cache=cache, want_cache=want_cache, **kw)
+    if isinstance(blk, (MambaBlock, MambaMoEBlock)):
+        y, cache = apply_mamba(blk.mamba, h, cfg, state=cache, want_state=want_cache)
+    else:
+        mixer = (functools.partial(mla_block, blk.mla)
+                 if isinstance(blk, (MLABlock, MLAMoEBlock))
+                 else functools.partial(attention_block, blk.attn))
+        y, cache = mixer(h, cfg, cache=cache, want_cache=want_cache, **kw)
     x = x + y
     h = rms_norm(x, blk.ln2, cfg.norm_eps)
-    if isinstance(blk, (MoEBlock, MLAMoEBlock)):
+    if isinstance(blk, (MoEBlock, MLAMoEBlock, MambaMoEBlock)):
         y, aux = apply_moe(blk.moe, h, cfg)
         return x + y, aux, cache
     return x + apply_mlp(blk.mlp, h), None, cache

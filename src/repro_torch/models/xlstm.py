@@ -28,7 +28,7 @@ from torch import nn
 
 from ..kernels.mlstm_chunk import init_state, mlstm_chunk
 from .config import ModelConfig
-from .layers import dense_init, pdtype
+from .layers import check_no_graph, copy_into, dense_init, pdtype
 
 QKV_BLOCK = 4  # xLSTM block-diagonal qkv projection block size
 
@@ -44,23 +44,6 @@ def _dims(cfg: ModelConfig) -> Tuple[int, int]:
 def _sdims(cfg: ModelConfig) -> Tuple[int, int]:
     """sLSTM inner dims (proj factor 1)."""
     return cfg.d_model, cfg.d_model // cfg.n_heads
-
-
-def _check_no_graph(state: Optional[State], x: torch.Tensor, p: nn.Module) -> None:
-    """A state is updated in place: refuse one where a graph is built."""
-    if state is not None and torch.is_grad_enabled() and (
-            x.requires_grad or any(t.requires_grad for t in p.parameters())
-            or any(t.requires_grad for t in state.values())):
-        raise ValueError("a state given to an xLSTM block is updated in place, "
-                         "which would break the graph autograd builds: pass no "
-                         "state under grad (want_state returns the final one), "
-                         "or run under torch.no_grad()")
-
-
-def _copy_into(state: State, new: State) -> State:
-    for key, t in new.items():
-        state[key].copy_(t)
-    return state
 
 
 # ===================================================================== mLSTM
@@ -128,7 +111,7 @@ def apply_mlstm(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     the chunkwise scan (``impl`` is passed to the kernel's wrapper). A given
     state is updated in place, and refused where a graph is built;
     ``want_state`` returns the final state."""
-    _check_no_graph(state, x, p)
+    check_no_graph(state, x, p)
     Di, Dh = _dims(cfg)
     B, S, D = x.shape
     H = cfg.n_heads
@@ -150,7 +133,7 @@ def apply_mlstm(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     else:
         h, new_state = mlstm_sequence(q, k, v, li, lf, state, chunk, impl)
         if state is not None:
-            new_state = _copy_into(state, new_state)
+            new_state = copy_into(state, new_state)
     h = h.transpose(1, 2).reshape(B, S, Di).to(x.dtype)
     out = h * F.silu(z.float()).to(x.dtype)
     out = torch.einsum("bsi,id->bsd", out, p.x_out)
@@ -189,7 +172,7 @@ def apply_slstm(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
     """x (B,S,D); a loop over the S steps, all in fp32. A given state is
     updated in place, and refused where a graph is built; ``want_state``
     returns the final state."""
-    _check_no_graph(state, x, p)
+    check_no_graph(state, x, p)
     Di, Dh = _sdims(cfg)
     B, S, D = x.shape
     H = cfg.n_heads
@@ -216,7 +199,7 @@ def apply_slstm(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
     out = torch.einsum("bsi,id->bsd", out, p.s_out)
     new_state = {"sc": c, "sn": n, "sh": h, "sm": m}
     if state is not None:
-        return out, _copy_into(state, new_state)
+        return out, copy_into(state, new_state)
     return out, (new_state if want_state else None)
 
 

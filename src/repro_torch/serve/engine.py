@@ -10,7 +10,10 @@ One difference from the reference: the prompt batch is prefilled by ONE
 full-sequence ``forward(want_caches=True)`` (through the flash-attention
 kernel on the card), not by teacher-forcing the prompt through
 ``decode_step`` one position at a time. For the left-padded batch with no pad
-mask the causal pass gives the same logits and the same cache. Decoding then
+mask the causal pass gives the same logits and the same cache; a Mamba
+layer passes the pads through its conv and scan from a zero state as the
+reference's decode steps do, and decode continues from the prefill's final
+``{ssm, conv}`` state. Decoding then
 runs one eager ``decode_step`` a token. ``ModelTarget`` / ``ModelDraft``
 adapt the model to the speculative driver (``serve/speculative.py``).
 """

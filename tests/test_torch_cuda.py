@@ -707,3 +707,67 @@ def test_mla_block_on_card_matches_cpu(dtype):
         else:
             rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
             assert rel <= 2e-2, f"{name}: rel RMS {rel:.3e}"
+
+
+# ------------------------------------------------------ jamba's G = 8
+# 64 q heads over 8 kv heads at Dh 128 (jamba-1.5-large's attention layer):
+# a grouping no earlier model ran; the served 4 x 32 prefill and longer S
+@cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S", [(4, 32), (1, 200), (1, 1024)])
+def test_flash_kernel_g8_matches_plain(B, S, dtype):
+    test_flash_kernel_matches_plain(B, 64, 8, S, S, 128, 0, True, dtype)
+
+
+@cuda
+def test_mamba_on_card_matches_cpu():
+    """jamba-smoke's Mamba mixer (fp32): the log-depth scan's prefill with
+    its final state, then 3 decode steps from it, on the card against the
+    CPU, to 1e-5 of each tensor's largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import get_smoke_config
+    from repro_torch.models import ssm
+    cfg = get_smoke_config("jamba-1.5-large-398b").with_(dtype="float32")
+    cpu = ssm.init_mamba(torch.Generator().manual_seed(25), cfg, "cpu")
+    card = ssm.init_mamba(None, cfg, "cuda")
+    with torch.no_grad():
+        for p, q in zip(card.parameters(), cpu.parameters()):
+            p.copy_(q)
+    rng = np.random.default_rng(26)
+    x = torch.from_numpy(rng.normal(size=(2, 37, cfg.d_model)).astype(np.float32))
+    steps = torch.from_numpy(rng.normal(size=(2, 3, cfg.d_model)).astype(np.float32))
+
+    def run(p, device):
+        with torch.no_grad():
+            y, st = ssm.apply_mamba(p, x.to(device), cfg, want_state=True)
+            out = [y, st["ssm"].clone(), st["conv"].clone()]
+            for t in range(steps.shape[1]):
+                out.append(ssm.apply_mamba(p, steps[:, t:t + 1].to(device), cfg, state=st)[0])
+            return out + [st["ssm"], st["conv"]]
+
+    for i, (a, b) in enumerate(zip(run(card, "cuda"), run(cpu, "cpu"))):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5 * b.abs().max().item(),
+                                   msg=f"output {i}")
+
+
+@cuda
+@pytest.mark.parametrize("shape,std,dtype", [
+    ((16, 512, 384), 0.02, torch.bfloat16),
+    ((300, 77), 0.1, torch.float32),
+    ((2, 64, 24576), 0.02 / 10 ** 0.5, torch.bfloat16),
+])
+def test_dense_init_on_card_bit_for_bit(shape, std, dtype):
+    """``dense_init``'s in-place draw on the card gives the bits of
+    ``(randn(fp32) * std).to(dtype)`` from the same CUDA generator."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models.layers import dense_init
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    old = torch.Generator(device="cuda").manual_seed(3)
+    for _ in range(2):
+        got = dense_init(gen, shape, std=std, dtype=dtype, device="cuda")
+        want = (torch.randn(shape, generator=old, dtype=torch.float32, device="cuda")
+                * std).to(dtype)
+        assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))

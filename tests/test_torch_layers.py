@@ -105,3 +105,29 @@ def test_decode_attention_shards(n_shards):
     jv, tv = _pair(rng.normal(size=(2, 2, 10, 16)), "float32")
     _close(jattn.decode_attention(jq, jk, jv, jnp.asarray(7), n_shards),
            tattn.decode_attention(tq, tk, tv, 7, n_shards), TOL["float32"])
+
+
+# (shape, std, dtype): a norm-sized vector, an MLP matrix, MLA's (192, 128)
+# sized leaf, a small expert stack, Mamba's m_dt scale, an fp32 router
+DENSE_INIT_CASES = [
+    ((64,), 0.02, torch.bfloat16),
+    ((96, 160), 0.02, torch.bfloat16),
+    ((3, 192, 128), 0.02 / 10 ** 0.5, torch.bfloat16),
+    ((4, 64, 33), 0.1, torch.float32),
+    ((4, 2, 128), 4 ** -0.5, torch.bfloat16),
+    ((64, 16), 0.006, torch.float32),
+]
+
+
+@pytest.mark.parametrize("shape,std,dtype", DENSE_INIT_CASES)
+def test_dense_init_bit_for_bit(shape, std, dtype):
+    """``dense_init`` draws and scales in place, and gives bit for bit what
+    ``(randn(fp32) * std).to(dtype)`` from the same generator gave, so every
+    seeded model keeps its weights; two draws in a row as well."""
+    gen, old = torch.Generator().manual_seed(7), torch.Generator().manual_seed(7)
+    for _ in range(2):
+        got = tlayers.dense_init(gen, shape, std=std, dtype=dtype)
+        want = (torch.randn(shape, generator=old, dtype=torch.float32) * std).to(dtype)
+        assert got.dtype == dtype and not got.requires_grad
+        assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))

@@ -55,7 +55,8 @@ def _tokens(cfg, B, S, seed):
                                   "deepseek-67b",        # kv_repeat=2
                                   "starcoder2-15b", "starcoder2-15b-ungated",
                                   "granite-moe-3b-a800m", "granite-moe-dense-first",
-                                  "deepseek-v2-lite-16b"])    # MLA, shared experts
+                                  "deepseek-v2-lite-16b",     # MLA, shared experts
+                                  "jamba-1.5-large-398b"])    # Mamba, attention, MoE
 def test_forward_and_loss_match_jax(arch, dtype):
     cfg, jp, tm = _models(arch, dtype)
     toks, labels = _tokens(cfg, 2, 24, 1), _tokens(cfg, 2, 24, 2)
@@ -94,6 +95,30 @@ def test_forward_kv_repeat_matches_jax():
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-4)
 
 
+def test_jamba_kv_repeat_and_prefill_caches_match_jax():
+    """jamba-smoke at the full config's kv_repeat=2 (fp32): the logits, and
+    the Mamba layers' final ``ssm`` and ``conv`` states from
+    ``forward(want_caches=True)``, against JAX's."""
+    cfg = get_smoke_config("jamba-1.5-large-398b").with_(dtype="float32", kv_repeat=2)
+    jp = jlm.init_params(cfg, jax.random.key(4))
+    tm = rt.params_from_jax(cfg, jax.device_get(jp), device="cpu")
+    toks = _tokens(cfg, 2, 20, 5)
+    jl, _, jc, _ = jlm.forward(cfg, jp, {"tokens": jnp.asarray(toks)}, want_caches=True)
+    tl, _, tc, _ = rt.forward(cfg, tm, {"tokens": torch.from_numpy(toks).long()},
+                              want_caches=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-4)
+    n_pat = len(cfg.block_pattern)
+    mamba = [i for i, kind in enumerate(rt.models.lm.layer_kinds(cfg))
+             if kind.startswith("mamba")]
+    assert len(mamba) == 7
+    for i in mamba:
+        g, j = divmod(i, n_pat)
+        for key in ("ssm", "conv"):
+            want = np.asarray(jc["groups"][j][key][g])
+            np.testing.assert_allclose(tc["layers"][i][key].numpy(), want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max(), err_msg=f"{i} {key}")
+
+
 def test_decode_matches_forward_smollm():
     """Teacher-forced decode == full forward (KV-cache correctness); the port
     of test_arch_smoke.py::test_decode_matches_forward_smollm."""
@@ -112,7 +137,7 @@ def test_decode_matches_forward_smollm():
                                dec_logits.float().numpy(), rtol=0.15, atol=0.15)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-8b", "jamba-1.5-large-398b"])
 def test_prefill_then_decode_matches_teacher_forced(arch):
     """forward(want_caches=True) then decode_step gives the next-token logits
     that teacher-forcing the whole prefix through decode_step gives (fp32)."""
@@ -132,11 +157,14 @@ def test_prefill_then_decode_matches_teacher_forced(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "granite-moe-3b-a800m",
-                                  "granite-moe-dense-first", "deepseek-v2-lite-16b"])
+                                  "granite-moe-dense-first", "deepseek-v2-lite-16b",
+                                  "jamba-1.5-large-398b"])
 def test_decode_step_matches_jax(arch):
     """One cached decode step after a teacher-forced prefix, against JAX;
     MoE routes the B tokens of each step (no drops at this size); MLA's
-    absorbed decode, its (c_kv, k_rope) cache held as attention's (k, v)."""
+    absorbed decode, its (c_kv, k_rope) cache held as attention's (k, v);
+    Mamba's recurrence, its (ssm, conv) state held as well (to 1e-5 of its
+    largest entry)."""
     cfg, jp, tm = _models(arch, "float32", seed=8)
     B, S = 2, 6
     toks = _tokens(cfg, B, S, 10)
@@ -150,21 +178,23 @@ def test_decode_step_matches_jax(arch):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                    atol=1e-4)
     first = int(cfg.first_layer_dense)
-    key = "k" if cfg.mla is None else "c_kv"
+    n_pat = len(cfg.block_pattern)
     for i, layer in enumerate(tc["layers"]):
-        want = jc["first"][key] if i < first else jc["groups"][0][key][i - first]
-        np.testing.assert_allclose(layer[key].numpy(), np.asarray(want),
-                                   rtol=1e-5, atol=1e-5)
+        g, j = divmod(i - first, n_pat)
+        for key in (("ssm", "conv") if "ssm" in layer else
+                    ("k",) if cfg.mla is None else ("c_kv",)):
+            want = np.asarray(jc["first"][key] if i < first else jc["groups"][j][key][g])
+            atol = 1e-5 * np.abs(want).max() if "ssm" in layer else 1e-5
+            np.testing.assert_allclose(layer[key].numpy(), want, rtol=1e-5, atol=atol)
 
 
 def test_unported_mixers_raise():
-    """MoE and MLA are ported (granite-moe-3b-a800m and deepseek-v2-lite
-    build); jamba's Mamba still raises, naming its ROADMAP item, as do the
-    wrappers."""
+    """MoE, MLA and Mamba are ported (granite-moe-3b-a800m, deepseek-v2-lite
+    and jamba build); the encoder-decoder and VLM wrappers still raise,
+    naming their ROADMAP item."""
     rt.init_params(rt.get_smoke_config("granite-moe-3b-a800m"), 0, device="cpu")
     rt.init_params(rt.get_smoke_config("deepseek-v2-lite-16b"), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5 \(Mamba\)"):
-        rt.init_params(rt.get_smoke_config("jamba-1.5-large-398b"), 0, device="cpu")
+    rt.init_params(rt.get_smoke_config("jamba-1.5-large-398b"), 0, device="cpu")
     for arch in ("whisper-small", "llava-next-34b"):
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 6"):
             rt.init_params(rt.get_smoke_config(arch), 0, device="cpu")

@@ -81,14 +81,18 @@ def _serve(system, topic_cls, producer_cls, engine_cls, cfg, params, reqs,
     return req, resp, eng
 
 
-@pytest.mark.parametrize("arch", ["tiny", "granite-moe-3b-a800m", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["tiny", "granite-moe-3b-a800m", "deepseek-v2-lite-16b",
+                                  "jamba-1.5-large-398b"])
 def test_serve_engine_roundtrip_matches_jax(arch):
     """The port of test_serve_and_checkpoint.py::test_serve_engine_roundtrip,
     with the streams held equal to the JAX engine's (fp32) and to the port's
     own teacher-forced decode; granite's MoE smoke config routes the
     left-padded prefill batch where the JAX engine routes one position at a
     time (no drops at this size); deepseek-v2-lite's MLA prefills at another
-    scale than its decode (quirk 13), and its streams match all the same."""
+    scale than its decode (quirk 13), and its streams match all the same;
+    jamba's Mamba layers prefill by the log-depth scan, the left pads passed
+    through the conv and the scan as the JAX engine's decode steps pass
+    them, and decode continues from the prefill's final states."""
     cfg = (_tiny_cfg(dtype="float32") if arch == "tiny"
            else get_smoke_config(arch).with_(dtype="float32"))
     jparams = jax_init_params(cfg, jax.random.key(0))

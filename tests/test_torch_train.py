@@ -10,7 +10,7 @@ Inputs come from numpy seeds; parameters and optimizer state cross through
 * one ``adamw_update`` from a non-trivial state;
 * one whole ``make_train_step`` (loss, grad norm, every updated parameter)
   on the dense, MoE and MLA smoke configs, for every remat mode and 1 or 2
-  microbatches;
+  microbatches, and on jamba's (Mamba) under remat full;
 * and that serving still builds no graph.
 """
 
@@ -207,6 +207,23 @@ def test_train_step_matches_jax(arch, remat, accum):
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=STEP_TOL)
     np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
                                rtol=STEP_TOL)
+    for (name, p), (_, w) in zip(model.named_parameters(), want.named_parameters()):
+        np.testing.assert_allclose(p.detach().numpy(), w.numpy(), rtol=STEP_TOL,
+                                   atol=STEP_TOL, err_msg=name)
+
+
+def test_train_step_jamba_matches_jax():
+    """One step of jamba-smoke (Mamba, attention, MoE and MLP layers; the
+    Mamba gradient by autograd through the log-depth scan) under remat full,
+    every updated parameter at STEP_TOL."""
+    cfg, jp, toks = _step_inputs("jamba-1.5-large-398b", "float32", "full")
+    jm, tm, model, want, state = _run_both(cfg, jp, toks, 1, "float32")
+    assert int(state["step"]) == 1
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=STEP_TOL)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=STEP_TOL)
+    names = [name for name, _ in model.named_parameters()]
+    assert sum(".mamba." in name for name in names) == 7 * 8
     for (name, p), (_, w) in zip(model.named_parameters(), want.named_parameters()):
         np.testing.assert_allclose(p.detach().numpy(), w.numpy(), rtol=STEP_TOL,
                                    atol=STEP_TOL, err_msg=name)
