@@ -134,6 +134,32 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      port's log; (c) one full-width Mamba layer alone: the log-depth scan's
      prefill against the recurrence in fp32 and bf16, its prefill at 1 x
      2048 and a decode step timed.
+ 14. whisper: whisper-small at full size (bf16, seeded random weights and
+     frames; 12 encoder layers non-causal over 1500 frames, 12 decoder
+     layers of self and cross attention, Dh 64). (e) The flash forward and
+     backward at its encoder shape (B=4, H=12, S=1500, non-causal) and its
+     cross shape (32 queries over 1500 keys), against the plain version,
+     timed beside it, SDPA and the bounds; (a) parameters and bytes; (b)
+     one forward of 4 prompts x 32 tokens with their frames, the kernel
+     launched 36 times (12 encoder, 12 self, 12 cross), each call held
+     against plain and the logits within 3x the floor or PREFILL_TOL; (c)
+     the served batch on the model's own entry points (forward with the
+     frames, then 15 greedy decode_steps), its stream against the plain
+     prefill's; the eager prefill and decode step timed; (d) 4 steps of
+     make_train_step at 4 x 448 tokens with 1500 frames each (the kernels'
+     launches counted), a step profiled; one step at full size, kernels
+     against plain, fp32 and bf16, the backward launched 36 times.
+ 15. llava: llava-next-34b at full width and depth (bf16, seeded random
+     weights; 60 layers, 56 q heads padded to 64 over 8 kv, Dh 128, 35.321
+     B parameters with the padded slots, 65.79 GiB). (a) parameters, bytes
+     and the peak while made; (b) one forward of 4 x (576 patches + 32
+     tokens) under one causal mask, the kernel launched 60 times, each call
+     against plain, n_prefix and the argmax positions that differ; (c) the
+     served batch with the image prefix (forward + 15 decode_steps), its
+     stream against the plain prefill's, the prefill and decode step timed
+     beside the decode's bytes bound; (d) 4 text requests served by
+     ServeEngine on the port's log; (e) one step at 2 layers with the
+     prefix (2 x (576 + 512)), kernels against plain, fp32 and bf16.
 The line before the last lists the kernels as JSON, each with its launches
 on every main path (launches_by_path) and their sum (launches); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
@@ -372,6 +398,21 @@ JAMBA_SHAPE = (1, 64, 8, 4096, 128)            # its long-prompt flash call: B, 
 MAMBA_CHECK = (4, 32)
 MAMBA_TOL = 1e-5
 MAMBA_TIMED = (1, 2048)
+# whisper-small (phase 14) at full size. A forward launches the flash kernel
+# once an encoder layer (non-causal over T = 1500 frames), and twice a
+# decoder layer: self attention (causal, without RoPE, as the reference's
+# forward) and cross attention (Sq = the text, Sk = T, no mask)
+WHISPER_PROMPT = (4, 32)                       # the served batch: B, S (text)
+WHISPER_NEW = 16                               # new tokens a request
+WHISPER_TRAIN = dict(batch=4, seq=448, steps=4)   # 448: whisper's text context
+# the flash kernel at its encoder and cross shapes: (B, H, KH, Sq, Sk, Dh)
+WHISPER_SHAPES = {"encoder": (4, 12, 12, 1500, 1500, 64),
+                  "cross": (4, 12, 12, 32, 1500, 64)}
+# llava-next-34b (phase 15) at full width and depth: 576 patch embeddings
+# before 32 text tokens a prompt, one causal mask over both
+LLAVA_PROMPT = (4, 32)
+LLAVA_NEW = 16
+LLAVA_STEP = (2, 512)                          # its 2-layer step against plain
 
 
 def say(*parts) -> None:
@@ -632,15 +673,17 @@ def check_prefill(cfg, model, tag: str) -> None:
 
 
 @torch.no_grad()
-def time_prefill_and_decode(cfg, model, tag: str, tokens) -> None:
+def time_prefill_and_decode(cfg, model, tag: str, tokens, extra=None) -> None:
     """The eager prefill and one decode step, each timed and profiled
-    (``busy_shares``' window, so no dropped event shortens the busy time)."""
+    (``busy_shares``' window, so no dropped event shortens the busy time).
+    ``extra``: more entries of the prefill's batch (frames, a vision
+    prefix); decode continues after the prefix."""
     from repro_torch import decode_step, forward
-    S = tokens.shape[1]
-    logits, _, caches, _ = forward(cfg, model, {"tokens": tokens}, want_caches=True,
-                                   max_len=S + 1)
+    batch = {"tokens": tokens, **(extra or {})}
+    S = tokens.shape[1] + (batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0)
+    logits, _, caches, _ = forward(cfg, model, batch, want_caches=True, max_len=S + 1)
     nxt = logits[:, -1:, :cfg.vocab_size].argmax(-1)
-    prefill = lambda: forward(cfg, model, {"tokens": tokens}, want_caches=True,  # noqa: E731
+    prefill = lambda: forward(cfg, model, batch, want_caches=True,  # noqa: E731
                               max_len=S + 1)
     decode = lambda: decode_step(cfg, model, caches, nxt, S)  # noqa: E731
     for name, fn in (("forward(want_caches)", prefill), ("decode_step", decode)):
@@ -1287,32 +1330,47 @@ def step_pair(cfg, eps: float, batch) -> tuple:
     return kern, plain, pinned["flips"]
 
 
-def step_kernel_vs_plain(config: str = "qwen3-8b") -> None:
-    """(c): one step at full width with 2 layers, S = 1024, through the
-    kernels and through the plain version, from the same parameters and
-    batch: every gradient, then the loss, grad norm and every updated
-    parameter compared; in fp32 also at the optimizer's own eps, where the
-    parameters that differ must be those of near-zero gradients. An MoE
+def step_kernel_vs_plain(config: str = "qwen3-8b", n_layers=2, shape=(2, 1024),
+                         extra=None, want_bwd=None) -> None:
+    """(c): one step at full width with ``n_layers`` layers (None: the
+    config's depth), batch ``shape`` (B, S), through the kernels and
+    through the plain version, from the same parameters and batch: every
+    gradient, then the loss, grad norm and every updated parameter
+    compared; in fp32 also at the optimizer's own eps, where the
+    parameters that differ must be those of near-zero gradients.
+    ``extra(cfg, gen, B)`` gives more entries of the batch (frames, a
+    vision prefix); ``want_bwd``, where given, is the backward kernel's
+    launches in the kernels' gradient. An MoE
     model's plain step takes the kernel step's expert choices (its gates
     from its own probabilities): a near-tie that rounding flips moves a
     token by O(1), which would hold the routing's discontinuity, not the
     kernels; the choices it would have flipped are counted."""
     from repro_torch import get_config, init_params, loss_fn
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.train import AdamWConfig
     from repro_torch.train.step import BF16_STEP_TOL, STEP_TOL
+    B, S = shape
     for dtype in ("float32", "bfloat16"):
-        cfg = get_config(config).with_(n_layers=2, dtype=dtype)
+        cfg = get_config(config).with_(dtype=dtype)
+        cfg = cfg.with_(n_layers=n_layers or cfg.n_layers)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(12)
-        toks = torch.randint(0, cfg.vocab_size, (2, 1025), generator=gen, device="cuda")
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 **(extra(cfg, gen, B) if extra else {})}
         grads, log = {}, []
         for impl in (None, "plain"):
             model = init_params(cfg, seed=5, trainable=True)
+            before = flash_attention.backward_launches
             with moe_routes(log, pin=impl == "plain") as pinned:
                 loss, _ = loss_fn(cfg, model, batch, attn_impl=impl)
                 grads[impl] = torch.autograd.grad(loss, list(model.parameters()))
+            if impl is None:
+                n_bwd = flash_attention.backward_launches - before
             del model, loss
+        if want_bwd is not None and n_bwd != want_bwd:
+            raise AssertionError(f"{config}: the gradient launched the backward kernel "
+                                 f"{n_bwd} times, want {want_bwd}")
         flips, routed = pinned["flips"], pinned["tokens"]
         size = (lambda t: t.abs().max()) if dtype == "float32" else torch.linalg.norm
         g_err = max((size(a.float() - b.float()) / size(b.float()).clamp_min(1e-30)).item()
@@ -1376,7 +1434,11 @@ def step_kernel_vs_plain(config: str = "qwen3-8b") -> None:
         routed = "" if cfg.moe is None else (
             f"; plain routed as the kernels (unpinned its top-k would change {flips} of "
             f"{routed} tokens' choices, each layer routing twice under remat)")
-        say(f"[train] step kernels vs plain, {config} 2 layers S=1024 {dtype}: gradients "
+        say(f"[train] step kernels vs plain, {config} {cfg.n_layers} layers B={B} S={S}"
+            + ("" if extra is None else " (" + ", ".join(
+                f"{key} {tuple(t.shape)}" for key, t in batch.items()
+                if key not in ("tokens", "labels")) + ")")
+            + f" {dtype}: backward kernel launches {n_bwd} in the gradient; gradients "
             f"{'max |diff| / max |g|' if dtype == 'float32' else 'rel_rms'} {g_err:.3e} at "
             f"the worst tensor (tol {STEP_GRAD_TOL[dtype]}); "
             f"loss {lk:.6f} / {lp:.6f}, grad norm {gk:.6f} / {gp:.6f}; {detail}{routed}")
@@ -1949,7 +2011,8 @@ def flash_at_granite() -> None:
 
 
 @torch.no_grad()
-def check_moe_prefill(cfg, model, tag: str, label: str = "moe prefill") -> None:
+def check_moe_prefill(cfg, model, tag: str, label: str = "moe prefill", batch=None,
+                      n_flash=None) -> None:
     """(a): one full-depth forward of 4 prompts x 32 tokens through the
     kernel (launched once an attention or MLA layer), each layer's flash
     call held against the plain version on the inputs it sees at rtol =
@@ -1958,12 +2021,16 @@ def check_moe_prefill(cfg, model, tag: str, label: str = "moe prefill") -> None:
     ulp apart at 2e-2 absolute); the logits against a plain forward,
     within MOE_FLOOR_FACTOR of the floor of two plain forwards that differ
     in the order of one sum, and against a plain forward routed as the
-    kernel's was; the (token, layer) expert choices that differ counted."""
+    kernel's was; the (token, layer) expert choices that differ counted.
+    ``batch`` (default 4 prompts x 32 tokens) may hold frames or a vision
+    prefix; ``n_flash`` (default one an attention layer) is the kernel's
+    launches a forward."""
     from repro_torch import forward
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.lm import layer_kinds
-    tokens = prefill_tokens(cfg)
-    batch = {"tokens": tokens}
+    batch = batch or {"tokens": prefill_tokens(cfg)}
+    tokens = batch["tokens"]
+    n_flash = attention_layers(cfg) if n_flash is None else n_flash
     errs, scaled, routes = [], [], {key: [] for key in ("kernel", "plain", "split")}
     rtol = atol = TOL[model.embed.dtype]
 
@@ -1977,9 +2044,10 @@ def check_moe_prefill(cfg, model, tag: str, label: str = "moe prefill") -> None:
 
     before = flash_attention.launches
     with flash_calls(held), moe_routes(routes["kernel"]):
-        logits, _, _, _ = forward(cfg, model, batch)
-    if flash_attention.launches - before != attention_layers(cfg):
-        raise AssertionError("the prefill did not launch the kernel once an attention layer")
+        logits, _, _, n_prefix = forward(cfg, model, batch)
+    if flash_attention.launches - before != n_flash:
+        raise AssertionError(f"the prefill launched the kernel "
+                             f"{flash_attention.launches - before} times, want {n_flash}")
     with moe_routes(routes["plain"]):
         plain, _, _, _ = forward(cfg, model, batch, attn_impl="plain")
     with flash_calls(lambda flash, *args, **kw: attention_split_sum(*args, **kw)), \
@@ -1987,13 +2055,18 @@ def check_moe_prefill(cfg, model, tag: str, label: str = "moe prefill") -> None:
         split, _, _, _ = forward(cfg, model, batch)
     with moe_routes(routes["kernel"], pin=True):
         pinned, _, _, _ = forward(cfg, model, batch, attn_impl="plain")
-    if logits.shape != (*tokens.shape, cfg.padded_vocab) or not torch.isfinite(logits).all():
+    B, S = tokens.shape
+    if (logits.shape != (B, n_prefix + S, cfg.padded_vocab)
+            or not torch.isfinite(logits).all()):
         raise AssertionError(f"bad logits {tuple(logits.shape)}")
     d, floor, dp = logit_diff(logits, plain), logit_diff(split, plain), logit_diff(logits, pinned)
     n = tokens.numel() * sum(kind.endswith("+moe") for kind in layer_kinds(cfg))
     tol = PREFILL_TOL[logits.dtype]
-    say(f"[{label}] {tag} B=4 S=32: {cfg.n_layers} layers, {attention_layers(cfg)} flash "
-        f"calls, each attention layer's vs "
+    argmax_diff = int((logits.argmax(-1) != plain.argmax(-1)).sum())
+    say(f"[{label}] {tag} B={B} S={S}" + (f" after a {n_prefix}-position prefix (n_prefix)"
+                                          if n_prefix else "")
+        + f": {cfg.n_layers} layers, {n_flash} flash calls, argmax differing at "
+        f"{argmax_diff} of {B * (n_prefix + S)} positions; each attention call's vs "
         f"plain on its inputs max_abs_err {max(errs):.3e}, at most {max(scaled):.3f} of rtol "
         f"= atol = {TOL[logits.dtype]} (tests/test_torch_cuda.py's criterion); logits "
         f"{tuple(logits.shape)} finite; kernel vs plain max_abs {d['max_abs']:.3e}, rel_rms "
@@ -2506,6 +2579,299 @@ def phase_jamba() -> int:
     return served
 
 
+def frames_for(cfg, gen: torch.Generator, B: int) -> torch.Tensor:
+    """(B, enc_len, D) frame embeddings in the config's dtype, seeded."""
+    from repro_torch.models.layers import pdtype
+    return randn(gen, (B, cfg.encdec.enc_len, cfg.d_model), pdtype(cfg))
+
+
+def patches_for(cfg, gen: torch.Generator, B: int) -> torch.Tensor:
+    """(B, n_patches, D) patch embeddings in the config's dtype, seeded."""
+    from repro_torch.models.layers import pdtype
+    return randn(gen, (B, cfg.vlm.n_patches, cfg.d_model), pdtype(cfg))
+
+
+@torch.no_grad()
+def greedy_stream(cfg, model, batch, n_new: int, attn_impl=None) -> tuple:
+    """The model's own served path: ``forward(want_caches=True)`` over
+    ``batch``, then ``n_new - 1`` greedy ``decode_step``s after the prefix
+    and the text. Returns (tokens (B, n_new), each step's top-2 margin
+    (B, n_new), the prefill's logits)."""
+    from repro_torch import decode_step, forward
+    B, S = batch["tokens"].shape
+    P = batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0
+    logits, _, caches, n_prefix = forward(cfg, model, batch, want_caches=True,
+                                          max_len=P + S + n_new, attn_impl=attn_impl)
+    if n_prefix != P:
+        raise AssertionError(f"n_prefix {n_prefix}, want {P}")
+    first = logits
+    outs, margins = [], []
+    for t in range(n_new):
+        top = logits[:, -1, :cfg.vocab_size].float().topk(2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        outs.append(logits[:, -1, :cfg.vocab_size].argmax(-1))
+        if t + 1 < n_new:
+            logits, caches = decode_step(cfg, model, caches, outs[-1][:, None], P + S + t)
+    return torch.stack(outs, 1), torch.stack(margins, 1), first
+
+
+def served_batch(cfg, model, batch, n_new: int, tag: str) -> int:
+    """The served batch on the model's own entry points, as a main path: the
+    flash counts set to 0 just before the kernel run and read just after.
+    Its stream against the plain prefill's: equal, or parting first at a
+    near-tie, where the plain run's top-2 margin is within twice the two
+    prefills' largest logit difference. Returns the kernel's launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    B = batch["tokens"].shape[0]
+    greedy_stream(cfg, model, batch, 2)                 # warm-up
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_attention.backward_launches = 0    # main path
+    t0 = time.perf_counter()
+    toks, _, logits = greedy_stream(cfg, model, batch, n_new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, bwd = flash_attention.launches, flash_attention.backward_launches  # ends
+    ptoks, pmargins, plogits = greedy_stream(cfg, model, batch, n_new, attn_impl="plain")
+    diff = (logits.float() - plogits.float()).abs().max().item()
+    parted = (toks != ptoks).any(0).nonzero()
+    at = int(parted[0]) if len(parted) else None
+    if at is not None:
+        rows = (toks[:, at] != ptoks[:, at]).nonzero()[:, 0]
+        worst = pmargins[rows, at].max().item()
+        if worst > 2 * diff:
+            raise AssertionError(f"{tag}: the streams part at step {at}, the plain margin "
+                                 f"{worst} above twice the prefills' difference {diff}")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all() or bwd:
+        raise AssertionError(f"{tag}: bad tokens or a backward launch")
+    say(f"[{tag}] served batch B={B} x {n_new} new tokens on forward + decode_step: "
+        f"{dt:.3f} s, {B * n_new / dt:.1f} tokens/s; flash launches {launches}; the stream "
+        + ("equals the plain prefill's" if at is None else
+           f"parts from the plain prefill's at step {at} of {n_new}, a near-tie (plain "
+           f"top-2 margin {worst:.4f} within twice the prefills' logit difference {diff:.4f})"))
+    return launches
+
+
+def flash_at_whisper() -> None:
+    """(e): the flash forward and backward at whisper's encoder shape
+    (non-causal over 1500 keys, no multiple of a tile) and its cross shape
+    (32 queries over 1500 keys, no mask), bf16, against the plain version;
+    each timed beside the plain version, SDPA and the bound: forward 4 B H
+    Sq Sk Dh operations (no mask halves them), backward 10 B H Sq Sk Dh,
+    against each tensor once at the memory rate."""
+    from repro_torch.kernels.flash_attention import (_forward_kernel, backward_errors,
+                                                     flash_attention, flash_attention_backward,
+                                                     flash_attention_backward_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    for name, (B, H, KH, Sq, Sk, Dh) in WHISPER_SHAPES.items():
+        q = randn(gen, (B, H, Sq, Dh), torch.bfloat16)
+        k, v = randn(gen, (B, KH, Sk, Dh), torch.bfloat16), randn(gen, (B, KH, Sk, Dh), torch.bfloat16)
+        do = randn(gen, (B, H, Sq, Dh), torch.bfloat16)
+        err = (flash_attention(q, k, v, causal=False).float()
+               - flash_attention(q, k, v, causal=False, impl="plain").float()).abs().max().item()
+        o, lse = _forward_kernel(q, k, v, False, 0, with_lse=True)
+        got = flash_attention_backward(q, k, v, o, do, lse, causal=False)
+        again = flash_attention_backward(q, k, v, o, do, lse, causal=False)
+        b_err, b_scaled = max(backward_errors(got, flash_attention_backward_plain(
+            q, k, v, do, causal=False)), key=lambda e: e[1])
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not (err <= TOL[torch.bfloat16] and b_scaled <= 1 and same):
+            raise AssertionError(f"flash at whisper's {name} shape: forward {err}, backward "
+                                 f"{b_err}, repeat equal {same}")
+        del got, again
+        fwd = cuda_ms(lambda: flash_attention(q, k, v, causal=False), iters=20)
+        plain = cuda_ms(lambda: flash_attention(q, k, v, causal=False, impl="plain"),
+                        iters=3, warmup=1)
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=20)
+        bwd = cuda_ms(lambda: flash_attention_backward(q, k, v, o, do, lse, causal=False),
+                      iters=10)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        plain_bwd = cuda_ms(lambda: torch.autograd.grad(
+            flash_attention(qs, ks, vs, causal=False, impl="plain"), (qs, ks, vs), do),
+            iters=3, warmup=1)
+        y = F.scaled_dot_product_attention(qs, ks, vs)
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(y, (qs, ks, vs), do, retain_graph=True),
+                           iters=10)
+        qkvo = B * H * Sq * Dh, B * KH * Sk * Dh
+        f_ops = 4 * B * H * Sq * Sk * Dh / PEAK_BF16_FLOPS * 1e3
+        f_bytes = 2 * 2 * sum(qkvo) / PEAK_BYTES * 1e3
+        b_ops = 10 * B * H * Sq * Sk * Dh / PEAK_BF16_FLOPS * 1e3
+        b_bytes = (2 * 4 * sum(qkvo) + 4 * B * H * Sq) / PEAK_BYTES * 1e3
+        say(f"[whisper kernel] {name} shape B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} Dh={Dh} bf16 "
+            f"non-causal: forward kernel {fwd:.4f} ms, plain {plain:.4f} ms, sdpa {sdpa:.4f} "
+            f"ms, bound {max(f_ops, f_bytes):.4f} ms (ops {f_ops:.4f}, bytes {f_bytes:.4f}), "
+            f"max_abs_err {err:.3e}; backward kernel {bwd:.4f} ms, plain (autograd, forward "
+            f"included) {plain_bwd:.4f} ms, sdpa backward {sdpa_bwd:.4f} ms, bound "
+            f"{max(b_ops, b_bytes):.4f} ms (ops {b_ops:.4f}, bytes {b_bytes:.4f}), rel_rms "
+            f"{b_err:.3e}, two calls equal")
+        del q, k, v, do, o, lse, qs, ks, vs, y
+        torch.cuda.empty_cache()
+
+
+def train_whisper(cfg) -> tuple:
+    """(d): whisper-small at full size trained WHISPER_TRAIN["steps"] steps
+    by ``make_train_step`` (bf16, AdamW with fp32 master and moments, remat
+    full), a fresh batch of tokens and frames each step, as a main path:
+    the flash kernels launched twice (remat full) and once backward an
+    encoder layer, self and cross attention layer a step. The first loss
+    is held against the plain version's on the same weights and batch
+    (BF16_STEP_TOL's loss); with the head tied to the embedding it starts
+    far above ln V, as xlstm-1.3b's does (ROADMAP Queue 3, item 7). Then
+    one more step timed and profiled for the idle share. Returns the
+    (forward, backward) launches."""
+    from repro_torch import init_params, loss_fn
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.step import BF16_STEP_TOL
+    B, S, steps = WHISPER_TRAIN["batch"], WHISPER_TRAIN["seq"], WHISPER_TRAIN["steps"]
+    model = init_params(cfg, seed=0, trainable=True)
+    opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.01)
+    state = adamw_init(model, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    batches = []
+    for _ in range(steps + 1):
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                        "frames": frames_for(cfg, gen, B)})
+    with torch.no_grad():
+        plain0 = float(loss_fn(cfg, model, batches[0], attn_impl="plain")[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention.backward_launches = 0    # main path
+    losses, seconds = [], []
+    for batch in batches[:steps]:
+        t0 = time.perf_counter()
+        losses.append(float(step_fn(model, state, batch)[2]["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    got = (flash_attention.launches, flash_attention.backward_launches)   # ... ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_attn = cfg.encdec.enc_layers + 2 * cfg.n_layers
+    want = ({"none": 1, "full": 2}[cfg.remat] * n_attn * steps, n_attn * steps)
+    ln_v = math.log(cfg.vocab_size)
+    if got != want or not (all(math.isfinite(x) for x in losses)
+                           and abs(losses[0] - plain0) <= BF16_STEP_TOL["loss"]):
+        raise AssertionError(f"whisper training: launches {got} (want {want}), losses "
+                             f"{losses}, the plain version's first {plain0}")
+    fn = lambda: float(step_fn(model, state, batches[steps])[2]["loss"])  # noqa: E731
+    fn()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    kernels = device_kernels(fn)
+    busy = sum(t for _, t in kernels) / 1e3
+    flash = sum(t for name, t in kernels if "flash_" in name) / 1e3
+    step_s = statistics.median(seconds[1:])
+    share = "device time not measured" if not kernels else (
+        f"one more step {wall:.3f} s unprofiled, device busy {busy:.3f} s in {len(kernels)} "
+        f"kernels, idle share {1 - busy / wall:.3f}, flash kernels {flash / busy:.4f} of busy")
+    say(f"[whisper train] {cfg.name} full size, batch {B} x {S} tokens with {cfg.encdec.enc_len} "
+        f"frames each, remat {cfg.remat}, bf16, AdamW fp32 master and moments: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f" (the plain version's first {plain0:.4f}; "
+        f"ln V = {ln_v:.4f}, the tied head starts above it); step times "
+        + ", ".join(f"{t:.3f}" for t in seconds) + f" s, median after the first {step_s:.3f} s, "
+        f"{B * S / step_s:.0f} text tokens/s; peak memory {peak:.2f} GiB; flash launches "
+        f"{got[0]} forward, {got[1]} backward (want {want}); {share}")
+    del model, state, step_fn, batches
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_whisper() -> tuple:
+    """Phase 14: whisper-small at full size. Returns the flash forward's and
+    backward's launches on each whisper path."""
+    from repro_torch import get_config, init_params
+    t0 = time.perf_counter()
+    flash_at_whisper()
+    cfg = get_config("whisper-small")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    say(f"[whisper] {cfg.name}: {cfg.n_layers} decoder layers (self and cross attention), "
+        f"{cfg.encdec.enc_layers} encoder layers over {cfg.encdec.enc_len} frames, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, Dh {cfg.head_dim_}: {n_params / 1e9:.3f} B "
+        f"parameters, {n_bytes / 2 ** 30:.3f} GiB bf16")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(42)
+    B, S = WHISPER_PROMPT
+    tokens = prefill_tokens(cfg, WHISPER_PROMPT)
+    frames = frames_for(cfg, gen, B)
+    batch = {"tokens": tokens, "frames": frames}
+    n_flash = cfg.encdec.enc_layers + 2 * cfg.n_layers
+    check_moe_prefill(cfg, model, "whisper-small bf16", label="whisper prefill", batch=batch,
+                      n_flash=n_flash)
+    t1 = time.perf_counter()
+    served = served_batch(cfg, model, batch, WHISPER_NEW, "whisper serve")
+    if served != n_flash:
+        raise AssertionError(f"whisper's served batch launched the kernel {served} times")
+    time_prefill_and_decode(cfg, model, "whisper serve", tokens, extra={"frames": frames})
+    del model
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    trained = train_whisper(cfg)
+    step_kernel_vs_plain("whisper-small", n_layers=None, shape=(B, WHISPER_TRAIN["seq"]),
+                         extra=lambda cfg, gen, B: {"frames": frames_for(cfg, gen, B)},
+                         want_bwd=n_flash)
+    say(f"[whisper] phase times: (a, b, e) {t1 - t0:.1f} s, (c) {t2 - t1:.1f} s, (d) "
+        f"{time.perf_counter() - t2:.1f} s")
+    return {"serve whisper-small": served, "train whisper-small": trained[0]}, \
+        {"train whisper-small": trained[1]}
+
+
+def phase_llava() -> dict:
+    """Phase 15: llava-next-34b at full width and depth (60 layers), served;
+    its 2-layer train step with the vision prefix against plain. Returns the
+    flash forward's launches on each llava path."""
+    from repro_torch import get_config, init_params
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = get_config("llava-next-34b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    say(f"[llava] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters "
+        f"({cfg.n_heads_padded} q-head slots, {cfg.n_heads} real, over {cfg.n_kv_heads} kv, Dh "
+        f"{cfg.head_dim_}; vision_proj {cfg.d_model} x {cfg.d_model}), {held / 2 ** 30:.2f} "
+        f"GiB bf16, made in {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB while made")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(44)
+    B, S = LLAVA_PROMPT
+    tokens = prefill_tokens(cfg, LLAVA_PROMPT)
+    patches = patches_for(cfg, gen, B)
+    batch = {"tokens": tokens, "vision_embeds": patches}
+    check_moe_prefill(cfg, model, "llava-next-34b bf16", label="llava prefill", batch=batch)
+    t1 = time.perf_counter()
+    served = served_batch(cfg, model, batch, LLAVA_NEW, "llava serve")
+    if served != cfg.n_layers:
+        raise AssertionError(f"llava's served batch launched the kernel {served} times")
+    time_prefill_and_decode(cfg, model, "llava serve", tokens, extra={"vision_embeds": patches})
+    bound = held / PEAK_BYTES * 1e3
+    say(f"[llava serve] a decode step reads the {held / 2 ** 30:.2f} GiB of weights: its bytes "
+        f"bound is {bound:.2f} ms at {PEAK_BYTES / 1e12:.2f} TB/s")
+    torch.cuda.reset_peak_memory_stats()
+    text, _ = phase_serve(cfg, model, flash_attention, cfg.n_layers, SERVE_PROMPTS,
+                          "llava serve")
+    say(f"[llava serve] peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    step_kernel_vs_plain("llava-next-34b", n_layers=2, shape=LLAVA_STEP,
+                         extra=lambda cfg, gen, B: {"vision_embeds": patches_for(cfg, gen, B)},
+                         want_bwd=2)
+    say(f"[llava] phase times: (a, b) {t1 - t0:.1f} s, (c, d) {t2 - t1:.1f} s, (e) "
+        f"{time.perf_counter() - t2:.1f} s")
+    return {"serve llava-next-34b image prefix": served, "serve llava-next-34b": text}
+
+
 def serve_timing(repeats: int) -> None:
     """``--serve-timing N``: only the served paths' times, N times each, to
     compare two commits' packages in alternating processes (this script
@@ -2598,9 +2964,13 @@ def main() -> int:
     mla_fwd, mla_bwd = phase_mla()
     torch.cuda.empty_cache()
     jamba = phase_jamba()
+    torch.cuda.empty_cache()
+    whisper_fwd, whisper_bwd = phase_whisper()
+    torch.cuda.empty_cache()
+    llava = phase_llava()
     kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd, **mla_fwd,
-                                  "serve jamba-1.5-large-398b": jamba}
-    backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd}
+                                  "serve jamba-1.5-large-398b": jamba, **whisper_fwd, **llava}
+    backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd, **whisper_bwd}
     mlstm["launches_by_path"].update(xlstm_fwd)
     mlstm_bwd["launches_by_path"] = xlstm_bwd
     kernels = [kernel, backward, mlstm, mlstm_bwd]

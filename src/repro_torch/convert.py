@@ -16,7 +16,11 @@ place of ``attn`` for ``mla+mlp`` and ``mla+moe``; ``mamba.m_in``,
 ``mamba.m_alog`` (fp32 in either dtype), ``mamba.m_d`` and ``mamba.m_out``
 in place of ``attn`` for ``mamba+mlp`` and ``mamba+moe``; ``ln1`` and the
 mixer's leaves (``x_up`` .. ``x_out``, ``s_gates`` .. ``s_out``) for
-``mlstm`` and ``slstm``. bf16 arrays arrive through their ``uint16`` view,
+``mlstm`` and ``slstm``; ``ln_c`` and ``cross.*`` besides in an
+encoder-decoder's decoder blocks. A VLM's ``vision_proj`` copies as it is; an
+encoder-decoder's ``encoder.pos_embed`` and ``encoder.final_norm`` too, and
+encoder block ``l`` is ``encoder.groups[0][l]`` of the tree (stacked over
+``enc_layers``). bf16 arrays arrive through their ``uint16`` view,
 so this module needs neither JAX nor ``ml_dtypes``.
 
 ``opt_state_from_jax(cfg, model, state)`` does the same for the state of
@@ -69,11 +73,24 @@ def _leaves(cfg: ModelConfig, model: LM,
         else:
             g, j = divmod(i - first, n_pat)
             src, pick = tree["groups"][j], (lambda leaf, g=g: leaf[g])
-        for name, p in blk.named_parameters():
-            leaf = src
-            for key in name.split("."):
-                leaf = leaf[key]
-            yield f"blocks.{i}.{name}", p, pick(leaf)
+        yield from _block_leaves(f"blocks.{i}", blk, src, pick)
+    if model.vision_proj is not None:
+        yield "vision_proj", model.vision_proj, tree["vision_proj"]
+    if model.encoder is not None:
+        enc, src = model.encoder, tree["encoder"]
+        yield "encoder.pos_embed", enc.pos_embed, src["pos_embed"]
+        yield "encoder.final_norm", enc.final_norm, src["final_norm"]
+        for i, blk in enumerate(enc.blocks):
+            yield from _block_leaves(f"encoder.blocks.{i}", blk, src["groups"][0],
+                                     lambda leaf, i=i: leaf[i])
+
+
+def _block_leaves(prefix: str, blk, src: Mapping[str, Any], pick):
+    for name, p in blk.named_parameters():
+        leaf = src
+        for key in name.split("."):
+            leaf = leaf[key]
+        yield f"{prefix}.{name}", p, pick(leaf)
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], device=None,

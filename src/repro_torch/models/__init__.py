@@ -1,5 +1,5 @@
 """The model stack in PyTorch: the attention, MLA, MoE, Mamba and xLSTM
-decoders, and the Mamba mixer."""
+decoders, the encoder-decoder and VLM wrappers, and the Mamba mixer."""
 
 from .config import (EncDecCfg, MambaCfg, MLACfg, ModelConfig, MoECfg, VLMCfg)
 from .lm import LM, decode_step, forward, init_caches, init_params, loss_fn

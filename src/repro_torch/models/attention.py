@@ -10,7 +10,10 @@ kernel wrapper of ``kernels/flash_attention.py``: the model's full-sequence
 attention runs the Hopper kernel on the card, MLA's at head dims (Dh + rope,
 Dh). GQA caches hold the original (unrepeated) kv heads after qk-norm and
 RoPE, in the layout the decode step reads; MLA's hold the compressed
-``c_kv`` (r) and the rope key (rope) of each position.
+``c_kv`` (r) and the rope key (rope) of each position. ``attention_block``
+also takes the reference's cross attention (whisper's decoder: k and v of
+the encoder's output, no mask, no RoPE; in decode, the fixed cross cache)
+and ``use_rope=False``.
 """
 
 from __future__ import annotations
@@ -135,32 +138,51 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     causal: bool = True,
                     positions: Optional[torch.Tensor] = None,
+                    kv_x: Optional[torch.Tensor] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
                     cache_pos: int = 0,
                     max_len: Optional[int] = None,
+                    use_rope: bool = True,
                     want_cache: bool = False,
+                    cross: bool = False,
                     impl: Optional[str] = None,
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Self-attention over x (B, S, D).
+    """Attention of x (B, S, D) over itself, or over ``kv_x`` (cross
+    attention: k and v projected from the encoder's output, never masked).
 
-    With ``cache`` it runs one decode step: k and v of x are written into the
-    cache at ``cache_pos`` in place, and the returned cache is the same dict.
-    Without, it attends over the full sequence through ``flash_attention``
-    (``impl`` is passed on); ``want_cache`` then returns the post-norm,
-    post-RoPE keys and the values, unrepeated and zero-padded to ``max_len``
-    along the sequence: the cache the decode step reads."""
+    With ``cache`` it runs one decode step: self attention writes k and v of
+    x into the cache at ``cache_pos`` in place, and the returned cache is the
+    same dict; with ``cross`` the cache is the fixed cross cache, read over
+    its first ``cache_pos`` positions and never written. Without, it attends
+    over the full sequence through ``flash_attention`` (``impl`` is passed
+    on); ``want_cache`` then returns the post-norm keys (post-RoPE where
+    ``use_rope``) and the values, unrepeated: for self attention zero-padded
+    to ``max_len`` along the sequence, the cache the decode step reads; for
+    ``kv_x`` of the encoder's length, the cross cache. ``use_rope=False``
+    leaves q and k without RoPE (the encoder, whisper's decoder forward and
+    cross attention, as the reference's ``attention_block`` takes it)."""
     B, S, D = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q = torch.einsum("bsd,dhq->bhsq", x, p.wq)                 # (B,H,S,Dh)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = torch.einsum("bsd,dhq->bhsq", x, p.wk)                 # (B,KH,S,Dh)
-    v = torch.einsum("bsd,dhq->bhsq", x, p.wv)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+
+    if cache is not None and cross:
+        # cross-attention decode: k and v were projected at prefill
+        out = decode_attention(q, cache["k"], cache["v"], cache_pos,
+                               cfg.decode_seq_shards)
+        return torch.einsum("bhsq,hqd->bsd", out, p.wo), None
+    src = x if kv_x is None else kv_x
+    k = torch.einsum("bsd,dhq->bhsq", src, p.wk)               # (B,KH,Sk,Dh)
+    v = torch.einsum("bsd,dhq->bhsq", src, p.wv)
     if cfg.qk_norm:
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        k = apply_rope(k, positions if kv_x is None else
+                       torch.arange(src.shape[1], device=x.device), cfg.rope_theta)
 
     if cache is not None:
         # The cache stores the ORIGINAL kv heads: GQA needs only KH | H, so
@@ -173,11 +195,14 @@ def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         # The kernel maps q head h to kv head h // (H / KH), the grouping the
         # reference's kv_repeat followed by h // (H / (KH * rep)) gives, so the
-        # repeated copy of k and v is never made.
+        # repeated copy of k and v is never made. 1500 encoder keys are no
+        # multiple of its tile: it masks the keys past Sk itself.
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, impl=impl)
+                              causal=causal and kv_x is None, impl=impl)
         new_cache = None
-        if want_cache:
+        if want_cache and kv_x is not None:
+            new_cache = {"k": k, "v": v}
+        elif want_cache:
             pad = (max_len or S) - S
             new_cache = {"k": torch.nn.functional.pad(k, (0, 0, 0, pad)),
                          "v": torch.nn.functional.pad(v, (0, 0, 0, pad))}

@@ -16,6 +16,15 @@ reference's decode steps do, and decode continues from the prefill's final
 ``{ssm, conv}`` state. Decoding then
 runs one eager ``decode_step`` a token. ``ModelTarget`` / ``ModelDraft``
 adapt the model to the speculative driver (``serve/speculative.py``).
+
+A VLM's text requests serve as any decoder's (no image prefix: a request
+carries tokens only). An encoder-decoder (whisper) is refused: a request
+carries no audio, so the prefill has no frames to encode, and the JAX engine,
+which teacher-forces from ``init_caches``, attends over an all-zero cross
+cache and ropes every position where a forward does not, so the two could
+not agree (ROADMAP.md Queue 3, quirk 15). Whisper serves through the model's
+own entry points: ``forward(batch with frames, want_caches=True)`` and
+greedy ``decode_step``.
 """
 
 from __future__ import annotations
@@ -32,6 +41,16 @@ from ..streams.topics import Consumer, Topic
 from .speculative import encode_eos, encode_token
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Refuse an encoder-decoder config: see the module docstring."""
+    if cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: a request on the log carries no "
+            "audio frames to encode, so the engine cannot prefill it (ROADMAP.md "
+            "Queue 3, quirk 15); serve it through forward(batch with 'frames', "
+            "want_caches=True) and decode_step")
+
+
 class _Stepper:
     """Greedy decode of one prefix, recomputed from the prefix on each call:
     no per-request cache registry to invalidate when a speculative branch is
@@ -39,6 +58,7 @@ class _Stepper:
 
     def __init__(self, cfg: ModelConfig, model: LM,
                  stats: Optional[ServeStats] = None) -> None:
+        check_servable(cfg)
         self.cfg = cfg
         self.model = model
         self.stats = stats
@@ -99,6 +119,7 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, model: LM, requests: Topic,
                  responses: Topic, batch_size: int = 4,
                  max_len: int = 64, group: str = "serve") -> None:
+        check_servable(cfg)
         self.cfg = cfg
         self.model = model
         # restore() makes the request cursor a durable resume token, so a

@@ -36,6 +36,9 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
     (2, 4, 2, 100, 100, 64, 0, True),       # ragged S
     (1, 4, 2, 16, 48, 128, 32, True),       # q_offset
     (4, 32, 8, 32, 32, 128, 0, True),       # qwen3-8b serving prefill
+    (2, 12, 12, 1500, 1500, 64, 0, False),  # whisper's encoder: 1500 keys, no mask
+    (2, 12, 12, 37, 1500, 64, 0, False),    # whisper's cross attention: Sq != Sk
+    (1, 64, 8, 608, 608, 128, 0, True),     # llava: 576 patches + 32 tokens, G = 8
 ])
 def test_flash_kernel_matches_plain(B, H, KH, Sq, Sk, Dh, q_offset, causal, dtype):
     if not torch.cuda.is_available():
@@ -401,6 +404,9 @@ def _grads_close(got, ref):
     (1, 8, 2, 63, 1000, 128, 937, True),    # q_offset: the last 63 rows
     (1, 8, 2, 65, 4097, 128, 100, True),    # q_offset: keys past the last row unseen
     (1, 2, 1, 1, 129, 64, 128, True),       # one query at the end
+    (2, 12, 12, 1500, 1500, 64, 0, False),  # whisper's encoder: 1500 keys, no mask
+    (2, 12, 12, 37, 1500, 64, 0, False),    # whisper's cross attention: Sq != Sk
+    (1, 64, 8, 608, 608, 128, 0, True),     # llava: 576 patches + 32 tokens, G = 8
 ])
 def test_flash_backward_matches_plain(B, H, KH, Sq, Sk, Dh, q_offset, causal, dtype):
     if not torch.cuda.is_available():

@@ -189,12 +189,15 @@ def test_decode_step_matches_jax(arch):
 
 
 def test_unported_mixers_raise():
-    """MoE, MLA and Mamba are ported (granite-moe-3b-a800m, deepseek-v2-lite
-    and jamba build); the encoder-decoder and VLM wrappers still raise,
-    naming their ROADMAP item."""
-    rt.init_params(rt.get_smoke_config("granite-moe-3b-a800m"), 0, device="cpu")
-    rt.init_params(rt.get_smoke_config("deepseek-v2-lite-16b"), 0, device="cpu")
-    rt.init_params(rt.get_smoke_config("jamba-1.5-large-398b"), 0, device="cpu")
-    for arch in ("whisper-small", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 6"):
-            rt.init_params(rt.get_smoke_config(arch), 0, device="cpu")
+    """Every registered smoke config builds on the CPU (MoE, MLA, Mamba,
+    xLSTM, and since the wrappers were ported whisper's encoder-decoder and
+    llava's VLM); a block kind the port does not know still raises."""
+    for arch in rt.ARCHS:
+        cfg = rt.get_smoke_config(arch)
+        model = rt.init_params(cfg, 0, device="cpu")
+        assert (model.encoder is not None) == cfg.is_encdec
+        assert (model.vision_proj is not None) == (cfg.vlm is not None)
+        rt.init_caches(cfg, 1, 4, device="cpu")
+    cfg = rt.get_smoke_config("smollm-135m").with_(block_pattern=("conv+mlp",))
+    with pytest.raises(NotImplementedError, match=r"unknown block 'conv\+mlp'"):
+        rt.init_params(cfg, 0, device="cpu")

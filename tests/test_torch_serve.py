@@ -82,7 +82,7 @@ def _serve(system, topic_cls, producer_cls, engine_cls, cfg, params, reqs,
 
 
 @pytest.mark.parametrize("arch", ["tiny", "granite-moe-3b-a800m", "deepseek-v2-lite-16b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "llava-next-34b"])
 def test_serve_engine_roundtrip_matches_jax(arch):
     """The port of test_serve_and_checkpoint.py::test_serve_engine_roundtrip,
     with the streams held equal to the JAX engine's (fp32) and to the port's
@@ -92,7 +92,8 @@ def test_serve_engine_roundtrip_matches_jax(arch):
     scale than its decode (quirk 13), and its streams match all the same;
     jamba's Mamba layers prefill by the log-depth scan, the left pads passed
     through the conv and the scan as the JAX engine's decode steps pass
-    them, and decode continues from the prefill's final states."""
+    them, and decode continues from the prefill's final states; llava's
+    text requests (no image prefix) through its 7 q heads padded to 8."""
     cfg = (_tiny_cfg(dtype="float32") if arch == "tiny"
            else get_smoke_config(arch).with_(dtype="float32"))
     jparams = jax_init_params(cfg, jax.random.key(0))
@@ -122,6 +123,22 @@ def test_serve_engine_roundtrip_matches_jax(arch):
     assert out == decode_response(jlog.read(0, jlog.visible_tail))
     # model_steps counts prompt positions, as the reference does
     assert system.serve_stats.model_steps == jsystem.serve_stats.model_steps
+
+
+def test_engine_refuses_encoder_decoder():
+    """whisper: a request on the log carries no audio frames, and the JAX
+    engine's teacher-forced schedule (all-zero cross caches, RoPE at every
+    position) could not agree with a prefill that encodes frames (quirk
+    15), so the engine and the speculative adapters refuse the config; the
+    model's own entry points serve it (test_torch_encdec.py)."""
+    cfg = get_smoke_config("whisper-small").with_(dtype="float32")
+    model = rt.init_params(cfg, 0, device="cpu")
+    system = BoltSystem(n_brokers=2)
+    req, resp = Topic.create(system, "req"), Topic.create(system, "resp")
+    for make in (lambda: ServeEngine(cfg, model, req, resp),
+                 lambda: ModelTarget(cfg, model), lambda: ModelDraft(cfg, model)):
+        with pytest.raises(ValueError, match="encoder-decoder.*quirk 15"):
+            make()
 
 
 def test_torch_target_draft_speculative_is_exact():
