@@ -160,6 +160,17 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      beside the decode's bytes bound; (d) 4 text requests served by
      ServeEngine on the port's log; (e) one step at 2 layers with the
      prefix (2 x (576 + 512)), kernels against plain, fp32 and bf16.
+ 16. mesh: (a) one rank started from an in-process HashStore (no TCP
+     rendezvous) and make_host_mesh(), the (1, 1) (data, model) mesh of the
+     card; (b) under use_mesh, qwen3-8b at full width with 2 layers: its
+     parameters placed by param_shardings as DTensors, each whole on the
+     card, and its AdamW state by opt_state_shardings (ZeRO-1); (c) one
+     make_zero1_train_step through the flash forward and backward kernels
+     (launches counted) against make_train_step without a mesh from the
+     same parameters and batch: loss, grad norm, every parameter and every
+     m, v and master tensor equal bit for bit; (d) the dry run
+     (repro_torch.launch.dryrun) on the meta device for DRYRUN_CELLS on the
+     16x16 and 2x16x16 meshes, a line a cell.
 The line before the last lists the kernels as JSON, each with its launches
 on every main path (launches_by_path) and their sum (launches); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
@@ -413,6 +424,25 @@ WHISPER_SHAPES = {"encoder": (4, 12, 12, 1500, 1500, 64),
 LLAVA_PROMPT = (4, 32)
 LLAVA_NEW = 16
 LLAVA_STEP = (2, 512)                          # its 2-layer step against plain
+# phase 16: the host mesh of one card, qwen3-8b at full width with 2 layers
+# and step_kernel_vs_plain's batch; then the dry run's cells on the meta
+# device that fit ~60 s of this host's CPU: every config's decode_32k, the
+# sub-quadratic ones' long_500k, prefill_32k but xlstm-1.3b's (its sLSTM loop
+# runs 32768 eager steps on the meta device, ~20 min) and smollm-135m's
+# train_4k (xlstm-1.3b's takes ~20 min, jamba's ~2); the CLI runs them all
+MESH_STEP = dict(config="qwen3-8b", n_layers=2, shape=(2, 1024))
+DRYRUN_CELLS = ([(a, "decode_32k") for a in ("smollm-135m", "deepseek-67b",
+                                             "starcoder2-15b", "qwen3-8b",
+                                             "llava-next-34b", "jamba-1.5-large-398b",
+                                             "whisper-small", "granite-moe-3b-a800m",
+                                             "deepseek-v2-lite-16b", "xlstm-1.3b")]
+                + [("jamba-1.5-large-398b", "long_500k"), ("xlstm-1.3b", "long_500k")]
+                + [(a, "prefill_32k") for a in ("smollm-135m", "deepseek-67b",
+                                                "starcoder2-15b", "qwen3-8b",
+                                                "llava-next-34b", "jamba-1.5-large-398b",
+                                                "whisper-small", "granite-moe-3b-a800m",
+                                                "deepseek-v2-lite-16b")]
+                + [("smollm-135m", "train_4k")])
 
 
 def say(*parts) -> None:
@@ -1685,7 +1715,8 @@ def initial_losses(cfg, system, run_kw) -> tuple:
 
 
 def train_xlstm() -> tuple:
-    """(b): the launcher trains xlstm-1.3b at full width and depth, every
+    """(b): the launcher trains xlstm-1.3b at full width (XLSTM_TRAIN_RUN's
+    depth), every
     kernel's launches counted, its first loss held against the plain
     version's on the same weights and batch; then one more step of the
     shape profiled (device only) for the busy and idle shares and the mLSTM
@@ -2872,6 +2903,122 @@ def phase_llava() -> dict:
     return {"serve llava-next-34b image prefix": served, "serve llava-next-34b": text}
 
 
+def mesh_step() -> tuple:
+    """(a)-(c) of phase 16: one rank started from an in-process HashStore,
+    the (1, 1) host mesh; under it qwen3-8b's parameters and ZeRO-1 AdamW
+    state placed by the rules as DTensors and one ZeRO-1 step through the
+    flash kernels (a main path, counted), held bit for bit against the step
+    without a mesh from the same parameters and batch. Returns the flash
+    forward's and backward's launches."""
+    import torch.distributed as dist
+    from repro_torch import get_config, init_params
+    from repro_torch.distributed import distribute, param_shardings, use_mesh
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import (AdamWConfig, adamw_init, distribute_opt_state,
+                                   local_batch, make_train_step, make_zero1_train_step,
+                                   opt_state_shardings)
+    cfg = get_config(MESH_STEP["config"]).with_(n_layers=MESH_STEP["n_layers"])
+    B, S = MESH_STEP["shape"]
+    opt_cfg = AdamWConfig(lr=STEP_LR, weight_decay=0.01)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    backend = dist.get_backend()
+    say(f"[mesh] host mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} on "
+        f"{mesh.device_type}, {backend} group of {dist.get_world_size()} rank (HashStore "
+        f"rendezvous) in {time.perf_counter() - t0:.2f} s")
+    if tuple(mesh.mesh.shape) != (1, 1) or mesh.device_type != "cuda":
+        raise AssertionError(f"the host mesh is {mesh}")
+    torch.use_deterministic_algorithms(True)         # the embedding's gradient sums
+    try:
+        ref = init_params(cfg, seed=5, trainable=True)
+        ref_state = adamw_init(ref, opt_cfg)
+        _, ref_state, rm = make_train_step(cfg, opt_cfg)(ref, ref_state, batch)
+        with use_mesh(mesh):
+            model = init_params(cfg, seed=5, trainable=True)
+            psh = param_shardings(cfg, model, mesh)
+            shared = whole = 0
+            for name, p in model.named_parameters():
+                d = distribute(p.detach(), psh[name], mesh)
+                whole += torch.equal(d.to_local(), p)
+                shared += d.to_local().data_ptr() == p.data_ptr()
+            n = len(psh)
+            osh = opt_state_shardings(cfg, model, mesh, opt_cfg)
+            state = distribute_opt_state(adamw_init(model, opt_cfg), osh, mesh)
+            step = make_zero1_train_step(cfg, opt_cfg, mesh, osh)
+            flash_attention.launches = flash_attention.backward_launches = 0  # main path
+            t0 = time.perf_counter()
+            _, state, zm = step(model, state, local_batch(batch, mesh))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = (flash_attention.launches, flash_attention.backward_launches)  # ... ends
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = (2 * cfg.n_layers, cfg.n_layers)        # remat full: forward twice a layer
+    differ = [name for name, p in model.named_parameters()
+              if not torch.equal(p, dict(ref.named_parameters())[name])]
+    for key in ("m", "v", "master"):
+        differ += [f"{key} {name}" for name, d in state[key].items()
+                   if not torch.equal(d.to_local(), ref_state[key][name])]
+    same = (float(zm["loss"]) == float(rm["loss"])
+            and float(zm["grad_norm"]) == float(rm["grad_norm"]))
+    say(f"[mesh] {cfg.name} {cfg.n_layers} layers under the mesh: {whole} of {n} "
+        f"parameters placed whole by param_shardings ({shared} sharing the "
+        f"parameter's storage); ZeRO-1 state m, v, master of {len(osh['m'])} tensors "
+        f"each; one ZeRO-1 step B={B} S={S} in {seconds:.3f} s, flash forward launches "
+        f"{got[0]} (want {want[0]}), backward {got[1]} (want {want[1]}); loss "
+        f"{float(zm['loss']):.6f} / {float(rm['loss']):.6f} without a mesh, grad norm "
+        f"{float(zm['grad_norm']):.6f} / {float(rm['grad_norm']):.6f}; "
+        f"{len(differ)} tensors differ bit for bit")
+    del ref, ref_state, model, state, step
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    if got != want:
+        raise AssertionError(f"the mesh step launched the flash kernels {got} times, "
+                             f"want {want}")
+    if whole != n or differ or not same:
+        raise AssertionError(f"the mesh step differs from the step without a mesh: "
+                             f"{differ[:8]}")
+    return got
+
+
+def dryrun_cells() -> None:
+    """(d) of phase 16: the dry run's DRYRUN_CELLS on both production meshes
+    (the meta device: no card, no process group), a line a cell."""
+    from repro_torch.launch.dryrun import run_cell
+    t0 = time.perf_counter()
+    for arch, shape in DRYRUN_CELLS:
+        pair = [run_cell(arch, shape, mp) for mp in (False, True)]
+        for r in pair:
+            if r["status"] != "ok":
+                raise AssertionError(f"dry run {arch} {shape}: {r}")
+            gib = {k: round(v / 2 ** 30, 3) for k, v in r["memory"]["bytes_per_device"].items()}
+            say(f"[dryrun] {arch} {shape} {r['mesh']}: {r['flops_per_device']:.4e} FLOPs a "
+                f"device (counted in {r['count_s']:.2f} s), model_flops ratio "
+                f"{r['useful_flops_ratio']:.4f}, GiB a device {gib}, compute "
+                f"{r['roofline']['compute_s']:.4e} s, memory {r['roofline']['memory_s']:.4e} "
+                f"s (H100 datasheet)")
+            # a step multiplies each active parameter at least once a token
+            # (three times in training), so the counted FLOPs are at least
+            # model_flops: a count that missed a loop's trips falls below
+            if not (r["flops_per_device"] > 0 and 0 < r["useful_flops_ratio"] <= 1
+                    and all(v > 0 for v in r["memory"]["bytes_per_device"].values())):
+                raise AssertionError(f"dry run {arch} {shape} {r['mesh']}: {r}")
+    say(f"[dryrun] {2 * len(DRYRUN_CELLS)} cells in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_mesh() -> tuple:
+    """Phase 16: the host-mesh ZeRO-1 step and the dry run's cells. Returns
+    the step's flash launches (forward, backward)."""
+    got = mesh_step()
+    dryrun_cells()
+    return got
+
+
 def serve_timing(repeats: int) -> None:
     """``--serve-timing N``: only the served paths' times, N times each, to
     compare two commits' packages in alternating processes (this script
@@ -2968,9 +3115,14 @@ def main() -> int:
     whisper_fwd, whisper_bwd = phase_whisper()
     torch.cuda.empty_cache()
     llava = phase_llava()
+    torch.cuda.empty_cache()
+    mesh_fwd, mesh_bwd = phase_mesh()
+    mesh_path = "train qwen3-8b ZeRO-1 on the host mesh"
     kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd, **mla_fwd,
-                                  "serve jamba-1.5-large-398b": jamba, **whisper_fwd, **llava}
-    backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd, **whisper_bwd}
+                                  "serve jamba-1.5-large-398b": jamba, **whisper_fwd, **llava,
+                                  mesh_path: mesh_fwd}
+    backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd, **whisper_bwd,
+                                    mesh_path: mesh_bwd}
     mlstm["launches_by_path"].update(xlstm_fwd)
     mlstm_bwd["launches_by_path"] = xlstm_bwd
     kernels = [kernel, backward, mlstm, mlstm_bwd]

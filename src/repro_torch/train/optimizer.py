@@ -8,8 +8,13 @@ by ``model.named_parameters()`` names: ``{"m": {...}, "v": {...}, "master":
 {...}, "step": int32 scalar}``. Unlike the reference, which returns new
 arrays, ``adamw_update`` updates the parameters and the state in place
 under ``no_grad`` (it holds no second copy of an 8 B-parameter state).
-ZeRO-1 sharding of the state (``opt_state_shardings``) waits for the
-distributed port.
+
+ZeRO-1 (``src/repro/train/optimizer.py:84-96``): ``opt_state_shardings``
+lays ``m``, ``v`` and ``master`` out by each parameter's spec extended over
+'data' and 'pod' (``zero_extend``), ``step`` replicated;
+``distribute_opt_state`` makes the state DTensors of that layout and
+``zero1_adamw_update`` updates each rank's chunk and gathers the new
+parameters whole onto every rank, with ``adamw_update``'s arithmetic.
 """
 
 from __future__ import annotations
@@ -18,7 +23,15 @@ from dataclasses import dataclass
 from typing import Dict, Mapping, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from ..distributed.context import P
+from ..distributed.sharding import Sharding, distribute, param_shardings
+from ..launch.mesh import Mesh
+from ..models.config import ModelConfig
 
 
 @dataclass(frozen=True)
@@ -49,6 +62,26 @@ def adamw_init(model: nn.Module, cfg: AdamWConfig) -> Dict:
     return state
 
 
+def _scalars(grads, step: torch.Tensor, cfg: AdamWConfig):
+    """The global grad norm, the clip scale and the bias corrections."""
+    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    stepf = step.float()
+    bc1 = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device) ** stepf
+    bc2 = 1.0 - torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device) ** stepf
+    return gnorm, scale, bc1, bc2
+
+
+def _leaf(g, m, v, w, scale, bc1, bc2, cfg: AdamWConfig):
+    """One tensor's update in fp32: ``(w32, m32, v32)``."""
+    g = g.float() * scale
+    m32 = m.float() * cfg.b1 + g * (1 - cfg.b1)
+    v32 = v.float() * cfg.b2 + g.square() * (1 - cfg.b2)
+    u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+    w32 = w.float()
+    return w32 - cfg.lr * (u + cfg.weight_decay * w32), m32, v32
+
+
 @torch.no_grad()
 def adamw_update(model: nn.Module, grads: Mapping[str, torch.Tensor], state: Dict,
                  cfg: AdamWConfig) -> Tuple[nn.Module, Dict, torch.Tensor]:
@@ -58,31 +91,89 @@ def adamw_update(model: nn.Module, grads: Mapping[str, torch.Tensor], state: Dic
     taken before clipping, as the reference returns it."""
     params = dict(model.named_parameters())
     step = state["step"] + 1
-    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    stepf = step.float()
-    bc1 = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device) ** stepf
-    bc2 = 1.0 - torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device) ** stepf
+    gnorm, scale, bc1, bc2 = _scalars(grads.values(), step, cfg)
     mdt = getattr(torch, cfg.moments_dtype)
     masters = state.get("master", params)
     for name, p in params.items():
-        g = grads[name].float() * scale
-        m32 = state["m"][name].float() * cfg.b1 + g * (1 - cfg.b1)
-        v32 = state["v"][name].float() * cfg.b2 + g.square() * (1 - cfg.b2)
-        u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        w32 = masters[name].float()
-        w32 = w32 - cfg.lr * (u + cfg.weight_decay * w32)
+        w32, m32, v32 = _leaf(grads[name], state["m"][name], state["v"][name],
+                              masters[name], scale, bc1, bc2, cfg)
         p.copy_(w32)                                  # rounds to the param dtype
         state["m"][name].copy_(m32.to(mdt))
         state["v"][name].copy_(v32.to(mdt))
         if "master" in state:
             state["master"][name].copy_(w32)
+        del w32, m32, v32          # one tensor's fp32 temporaries live at a time
     state["step"] = step
     return model, state, gnorm
 
 
-def opt_state_shardings(*args, **kwargs):
-    """The reference's ZeRO-1 state shardings (``optimizer.py:84``) need the
-    distributed port."""
-    raise NotImplementedError("ZeRO-1 optimizer-state sharding is not ported yet "
-                              "(ROADMAP.md Queue 1 item 7)")
+def opt_state_shardings(model_cfg: ModelConfig, model: nn.Module, mesh: Mesh,
+                        cfg: AdamWConfig) -> Dict:
+    """Shardings of the optimizer state, keyed as ``adamw_init``'s: the
+    param's TP spec extended with 'data'/'pod' sharding (ZeRO-1), reckoned
+    on the reference's stacked leaves (``distributed.sharding``); ``step``
+    replicated."""
+    zeroed = param_shardings(model_cfg, model, mesh, zero=True)
+    state = {"m": zeroed, "v": zeroed, "step": Sharding(P())}
+    if cfg.master_weights:
+        state["master"] = zeroed
+    return state
+
+
+def distribute_opt_state(state: Dict, shardings: Dict, mesh: DeviceMesh) -> Dict:
+    """``state`` (``adamw_init``'s, the same on every rank) as DTensors laid
+    out by ``shardings`` (``opt_state_shardings``'s): each rank keeps its
+    chunks, with no communication."""
+    out = {"step": distribute(state["step"], shardings["step"], mesh)}
+    for key in ("m", "v", "master"):
+        if key in state:
+            out[key] = {n: distribute(t, shardings[key][n], mesh)
+                        for n, t in state[key].items()}
+    return out
+
+
+def _chunk(t: torch.Tensor, like: DTensor) -> torch.Tensor:
+    """This rank's chunk of ``t`` (whole on every rank) in ``like``'s layout."""
+    return distribute_tensor(t, like.device_mesh, like.placements,
+                             src_data_rank=None).to_local()
+
+
+@torch.no_grad()
+def zero1_adamw_update(model: nn.Module, grads: Mapping[str, torch.Tensor],
+                       state: Dict, shardings: Dict, mesh: DeviceMesh,
+                       cfg: AdamWConfig) -> Tuple[nn.Module, Dict, torch.Tensor]:
+    """``adamw_update`` over the ZeRO-1 state of ``distribute_opt_state``.
+    ``grads`` are whole on every rank and already averaged over the
+    data-parallel ranks, so the norm and the clip scale are the same
+    everywhere. Each rank updates its chunks of ``m``, ``v`` and ``master``
+    with ``adamw_update``'s arithmetic; each parameter is then gathered
+    whole from the chunks of the ranks that hold it, and a layer given to
+    one coordinate of a stack axis is broadcast from there along it. A mesh
+    of one device holds every tensor whole and communicates nothing."""
+    params = dict(model.named_parameters())
+    step = state["step"].to_local() + 1
+    gnorm, scale, bc1, bc2 = _scalars(grads.values(), step, cfg)
+    mdt = getattr(torch, cfg.moments_dtype)
+    for name, p in params.items():
+        m = state["m"][name]
+        held = m.device_mesh
+        if held.get_coordinate() is not None:
+            w = (state["master"][name].to_local() if "master" in state
+                 else _chunk(p, m))
+            w32, m32, v32 = _leaf(_chunk(grads[name], m), m.to_local(),
+                                  state["v"][name].to_local(), w, scale, bc1, bc2, cfg)
+            m.to_local().copy_(m32.to(mdt))
+            state["v"][name].to_local().copy_(v32.to(mdt))
+            if "master" in state:
+                state["master"][name].to_local().copy_(w32)
+            if held.size() == 1:
+                p.copy_(w32)                          # rounds to the param dtype
+            else:
+                p.copy_(DTensor.from_local(w32.to(p.dtype), held, m.placements,
+                                           shape=p.shape, stride=p.stride()).full_tensor())
+            del w32, m32, v32      # one tensor's fp32 temporaries live at a time
+        sh = shardings["m"][name]
+        if sh.stack is not None and mesh.size() > 1:
+            dist.broadcast(p, group=mesh.get_group(sh.stack), group_src=sh.owner(mesh))
+    state["step"] = distribute(step, shardings["step"], mesh)
+    return model, state, gnorm

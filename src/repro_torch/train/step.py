@@ -6,17 +6,22 @@ autograd (on the card the attention and mLSTM gradients are their backward
 kernels), added to an accumulator in ``grad_dtype``, and the sum is scaled
 by ``1 / accum`` in that dtype before ``adamw_update``. Activation memory is
 one microbatch's, as the reference's ``lax.scan`` keeps it.
+``make_zero1_train_step`` is the same step in one microbatch under a mesh,
+data parallel with the optimizer state sharded (ZeRO-1).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..models.config import ModelConfig
 from ..models.lm import LM, loss_fn
-from .optimizer import AdamWConfig, adamw_update
+from .optimizer import AdamWConfig, adamw_update, zero1_adamw_update
 
 # What two computations of one step are held to: this port against the
 # reference, or the kernels against their plain versions. fp32: loss, grad
@@ -31,6 +36,30 @@ BF16_STEP_TOL = {"loss": 1e-2, "grad_norm": 1e-2, "update_agree": 0.95,
                  "params_rel_rms": 1e-2}
 
 
+def _grads(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], accum: int,
+           gdt: torch.dtype, attn_impl: Optional[str], mlstm_impl: Optional[str]):
+    """``(names, grads, loss)``: the mean loss over ``batch`` in ``accum``
+    microbatches and its gradient, added in ``gdt``."""
+    names, params = zip(*model.named_parameters())
+    if accum == 1:
+        loss, _ = loss_fn(cfg, model, batch, attn_impl=attn_impl, mlstm_impl=mlstm_impl)
+        return names, [g.to(gdt) for g in torch.autograd.grad(loss, params)], loss.detach()
+    b = next(iter(batch.values())).shape[0]
+    mbs = {key: x.reshape((accum, b // accum) + x.shape[1:]) for key, x in batch.items()}
+    grads = [torch.zeros(p.shape, dtype=gdt, device=p.device) for p in params]
+    loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
+    for i in range(accum):
+        mb_loss, _ = loss_fn(cfg, model, {key: x[i] for key, x in mbs.items()},
+                             attn_impl=attn_impl, mlstm_impl=mlstm_impl)
+        for acc, g in zip(grads, torch.autograd.grad(mb_loss, params)):
+            acc.add_(g.to(gdt))
+        loss = loss + mb_loss.detach()
+    inv = 1.0 / accum
+    for g in grads:                       # in place: one set of grads
+        g.mul_(torch.tensor(inv, dtype=gdt, device=g.device))
+    return names, grads, loss * inv
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum: int = 1,
                     grad_dtype: str = "bfloat16", attn_impl: Optional[str] = None,
                     mlstm_impl: Optional[str] = None):
@@ -41,30 +70,59 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum: int = 1,
     gdt = getattr(torch, grad_dtype)
 
     def train_step(model: LM, opt_state: Dict, batch: Dict[str, torch.Tensor]):
-        names, params = zip(*model.named_parameters())
-        if accum == 1:
-            loss, _ = loss_fn(cfg, model, batch, attn_impl=attn_impl,
-                              mlstm_impl=mlstm_impl)
-            grads = [g.to(gdt) for g in torch.autograd.grad(loss, params)]
-            loss = loss.detach()
-        else:
-            b = next(iter(batch.values())).shape[0]
-            mbs = {key: x.reshape((accum, b // accum) + x.shape[1:])
-                   for key, x in batch.items()}
-            grads = [torch.zeros(p.shape, dtype=gdt, device=p.device) for p in params]
-            loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
-            for i in range(accum):
-                mb_loss, _ = loss_fn(cfg, model, {key: x[i] for key, x in mbs.items()},
-                                     attn_impl=attn_impl, mlstm_impl=mlstm_impl)
-                for acc, g in zip(grads, torch.autograd.grad(mb_loss, params)):
-                    acc.add_(g.to(gdt))
-                loss = loss + mb_loss.detach()
-            inv = 1.0 / accum
-            for g in grads:                       # in place: one set of grads
-                g.mul_(torch.tensor(inv, dtype=gdt, device=g.device))
-            loss = loss * inv
+        names, grads, loss = _grads(cfg, model, batch, accum, gdt, attn_impl, mlstm_impl)
         model, opt_state, gnorm = adamw_update(model, dict(zip(names, grads)),
                                                opt_state, opt_cfg)
+        return model, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+def data_parallel_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
+    """The mesh axes a batch is split over: 'pod' and 'data', where present."""
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def local_batch(batch: Dict[str, torch.Tensor], mesh: DeviceMesh) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global ``batch``: split over 'pod' and 'data'
+    (major to minor), whole along 'model'."""
+    n, i = 1, 0
+    for a in data_parallel_axes(mesh):
+        size = mesh.size(mesh.mesh_dim_names.index(a))
+        n, i = n * size, i * size + mesh.get_local_rank(a)
+    return {key: x.chunk(n)[i] for key, x in batch.items()} if n > 1 else batch
+
+
+def make_zero1_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMesh,
+                          shardings: Dict, grad_dtype: str = "bfloat16"):
+    """ZeRO-1 data parallelism on ``mesh``: ``train_step(model, opt_state,
+    batch)`` with ``batch`` this rank's rows (``local_batch``), the model's
+    parameters whole on every rank and ``opt_state`` the DTensors of
+    ``distribute_opt_state`` laid out by ``shardings``
+    (``opt_state_shardings``). Each rank takes the gradient of its rows; the
+    gradients and the loss are averaged in fp32 over the 'pod' and 'data'
+    ranks (a rank's 'model' peers hold the same rows and compute the same
+    gradient: the port has no tensor parallelism); ``zero1_adamw_update``
+    updates the state's chunks and gathers the parameters. With one rank on
+    those axes nothing is averaged, and the step's numbers are
+    ``make_train_step``'s."""
+    gdt = getattr(torch, grad_dtype)
+    groups = [mesh.get_group(a) for a in data_parallel_axes(mesh)
+              if mesh.size(mesh.mesh_dim_names.index(a)) > 1]
+
+    def average(t: torch.Tensor) -> torch.Tensor:
+        t = t.float()
+        for g in groups:
+            dist.all_reduce(t, group=g)
+        return t / math.prod(dist.get_world_size(g) for g in groups)
+
+    def train_step(model: LM, opt_state: Dict, batch: Dict[str, torch.Tensor]):
+        names, grads, loss = _grads(cfg, model, batch, 1, gdt, None, None)
+        if groups:
+            grads = [average(g).to(gdt) for g in grads]
+            loss = average(loss)
+        model, opt_state, gnorm = zero1_adamw_update(
+            model, dict(zip(names, grads)), opt_state, shardings, mesh, opt_cfg)
         return model, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

@@ -76,9 +76,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from repro_torch.models.layers import resolve_device
     cfg = rt.get_smoke_config("smollm-135m")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh, start_single_rank
     for call in (lambda: rt.init_params(cfg, 0),
                  lambda: rt.init_caches(cfg, 1, 4),
-                 lambda: rt.params_from_jax(cfg, {})):
+                 lambda: rt.params_from_jax(cfg, {}),
+                 lambda: make_host_mesh(),
+                 lambda: make_mesh((1, 1), ("data", "model")),
+                 lambda: start_single_rank()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

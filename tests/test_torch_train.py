@@ -158,8 +158,18 @@ def test_adamw_init_and_unported_sharding():
                and torch.equal(state["master"][n], p.float())
                for n, p in model.named_parameters())
     assert int(state["step"]) == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        opt_state_shardings()
+    # ZeRO-1: the param's spec extended over 'data' (and 'pod'), step replicated
+    from repro_torch.distributed import P
+    from repro_torch.launch.mesh import MeshShape
+    mesh = MeshShape(("data", "model"), (2, 2))
+    shard = opt_state_shardings(cfg, model, mesh, AdamWConfig(moments_dtype="bfloat16"))
+    assert set(shard) == {"m", "v", "master", "step"} and shard["step"].spec == P()
+    assert list(shard["m"]) == names and shard["m"] is shard["v"] is shard["master"]
+    w_in = shard["m"]["blocks.0.mlp.w_in"]                  # (64, 128) of 4 layers
+    assert (w_in.spec, w_in.stack, w_in.n_stack) == (P("data", "model"), None, 4)
+    assert shard["m"]["embed"].spec == P("model", "data")    # (512, 64)
+    assert "master" not in opt_state_shardings(cfg, model, mesh,
+                                               AdamWConfig(master_weights=False))
 
 
 # -------------------------------------------------------------- train step
