@@ -171,6 +171,25 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      m, v and master tensor equal bit for bit; (d) the dry run
      (repro_torch.launch.dryrun) on the meta device for DRYRUN_CELLS on the
      16x16 and 2x16x16 meshes, a line a cell.
+ 17. examples: the examples' twins run on the card in this process, as
+     `python examples/<name>` would run them (runpy, sys.argv set), each
+     to the end of its own assertions: serve_torch.py (the engine serves 4
+     requests on the log; speculative decoding through log.speculate()
+     equals sequential greedy decode, in fp32) and train_e2e_torch.py (150
+     steps, a crash at 75 and a resume from the log's checkpoint) are main
+     paths of the flash kernels ("example serve_torch", "example
+     train_e2e_torch"; the train twin launches forward and backward once a
+     layer and step); then agents_on_streams_torch.py. Each one's seconds,
+     the served tokens/s and the logged losses it prints;
+ 18. costs: ServeCosts.for_models(qwen3-8b, smollm-135m) at phase 3's batch
+     and context on the H100 roofline (repro_torch.serve.costs: reckoned,
+     not measured): the prefill a token, the decode and draft steps and
+     verify(k) for k = 0..4, beside phase 3's measured decode step, eager
+     and device-busy; a busy step under the roofline's floor (its bytes
+     less the untied embedding rows a step does not read), or no busy
+     time, fails.
+Restoring a checkpoint that the JAX package wrote is held on the CPU only
+(tests/test_torch_checkpoint.py): this machine has no JAX to write one.
 The line before the last lists the kernels as JSON, each with its launches
 on every main path (launches_by_path) and their sum (launches); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
@@ -222,6 +241,10 @@ KERNEL_CASES = [
     (4, 32, 8, 32, 32, 128, True, 0),          # the served qwen3-8b prefill batch
     (4, 64, 8, 32, 32, 128, True, 0),          # the served jamba prefill batch: G = 8
     (1, 64, 8, 1024, 1024, 128, True, 0),      # jamba's heads at S = 1024
+    (4, 2, 1, 8, 8, 32, True, 0),              # examples/serve_torch.py: the engine's batch,
+    (1, 2, 1, 19, 19, 32, True, 0),            # its longest speculative target call
+    (1, 1, 1, 17, 17, 32, True, 0),            # and its draft's (G = 1); fp32 there
+    (4, 2, 1, 128, 128, 64, True, 0),          # examples/train_e2e_torch.py, bf16 there
 ]
 # bf16 kernel against plain on the edges of its 128-row q and kv tiles and
 # of its TMA boxes: (B, H, KH, Sq, Sk, Dh, causal, q_offset)
@@ -431,6 +454,8 @@ LLAVA_STEP = (2, 512)                          # its 2-layer step against plain
 # runs 32768 eager steps on the meta device, ~20 min) and smollm-135m's
 # train_4k (xlstm-1.3b's takes ~20 min, jamba's ~2); the CLI runs them all
 MESH_STEP = dict(config="qwen3-8b", n_layers=2, shape=(2, 1024))
+# phase 17: the train twin at its default 150 steps (4 layers, 4 x 128)
+EXAMPLE_TRAIN_ARGS = ("--steps", "150")
 DRYRUN_CELLS = ([(a, "decode_32k") for a in ("smollm-135m", "deepseek-67b",
                                              "starcoder2-15b", "qwen3-8b",
                                              "llava-next-34b", "jamba-1.5-large-398b",
@@ -703,11 +728,12 @@ def check_prefill(cfg, model, tag: str) -> None:
 
 
 @torch.no_grad()
-def time_prefill_and_decode(cfg, model, tag: str, tokens, extra=None) -> None:
+def time_prefill_and_decode(cfg, model, tag: str, tokens, extra=None) -> dict:
     """The eager prefill and one decode step, each timed and profiled
     (``busy_shares``' window, so no dropped event shortens the busy time).
     ``extra``: more entries of the prefill's batch (frames, a vision
-    prefix); decode continues after the prefix."""
+    prefix); decode continues after the prefix. Returns {"B", "S",
+    "forward(want_caches)": (eager ms, busy ms or None), "decode_step": (...)}."""
     from repro_torch import decode_step, forward
     batch = {"tokens": tokens, **(extra or {})}
     S = tokens.shape[1] + (batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0)
@@ -716,6 +742,7 @@ def time_prefill_and_decode(cfg, model, tag: str, tokens, extra=None) -> None:
     prefill = lambda: forward(cfg, model, batch, want_caches=True,  # noqa: E731
                               max_len=S + 1)
     decode = lambda: decode_step(cfg, model, caches, nxt, S)  # noqa: E731
+    out = {"B": tokens.shape[0], "S": S}
     for name, fn in (("forward(want_caches)", prefill), ("decode_step", decode)):
         ms = cuda_ms(fn, iters=5, warmup=1)
         busy, n, _, kernels = busy_shares(fn, ())
@@ -723,6 +750,8 @@ def time_prefill_and_decode(cfg, model, tag: str, tokens, extra=None) -> None:
             f"device busy {busy:.2f} ms in {n} kernels, idle share "
             f"{1 - busy / ms:.3f}")
         say(f"[{tag}] {name} B={tokens.shape[0]} S={S}: {ms:.2f} ms eager; {share}")
+        out[name] = (ms, busy if kernels else None)
+    return out
 
 
 @torch.no_grad()
@@ -751,11 +780,14 @@ def time_long_prompt(cfg, model) -> None:
         f"{tail}")
 
 
-def phase_prefill(cfg, model) -> None:
+def phase_prefill(cfg, model) -> dict:
+    """Phase 3; returns time_prefill_and_decode's measurements (phase 18
+    reads the decode step)."""
     check_prefill(cfg, model, "qwen3-8b bf16")
-    time_prefill_and_decode(cfg, model, "prefill", prefill_tokens(cfg))
+    timed = time_prefill_and_decode(cfg, model, "prefill", prefill_tokens(cfg))
     time_long_prompt(cfg, model)
     say(f"[prefill] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return timed
 
 
 def phase_serve(cfg, model, kernel, n_launches: int, prompts, tag: str) -> tuple:
@@ -3019,6 +3051,102 @@ def phase_mesh() -> tuple:
     return got
 
 
+def run_example(name: str, *args) -> tuple:
+    """examples/<name> run in this process as ``python examples/<name>
+    args`` would run it (runpy, sys.argv set): its own assertions hold or
+    the run fails. Its output is echoed line by line, also when it fails;
+    returns (output, seconds)."""
+    import contextlib
+    import io
+    import runpy
+    path = ROOT / "examples" / name
+    argv, buf = sys.argv, io.StringIO()
+    sys.argv = [str(path), *args]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:                        # echoed also when the example fails
+        sys.argv = argv
+        for line in buf.getvalue().splitlines():
+            say(f"[examples] {name}: {line}")
+    return buf.getvalue(), seconds
+
+
+def phase_examples() -> tuple:
+    """Phase 17: the examples' twins on the card, in this process. The serve
+    and train twins are main paths: the flash kernels' counts are set to 0
+    just before each and read just after. Returns ({path: forward launches},
+    {path: backward launches})."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+    fwd, bwd = {}, {}
+    for name, args in (("serve_torch.py", ()), ("train_e2e_torch.py", EXAMPLE_TRAIN_ARGS)):
+        path = f"example {name.removesuffix('.py')}"
+        flash_attention.launches = flash_attention.backward_launches = 0   # main path starts
+        mlstm_chunk.launches = mlstm_chunk.backward_launches = 0
+        out, seconds = run_example(name, *args)
+        fwd[path], bwd[path] = flash_attention.launches, flash_attention.backward_launches
+        if mlstm_chunk.launches or mlstm_chunk.backward_launches or not fwd[path]:
+            raise AssertionError(f"{path}: flash {fwd[path]}, mLSTM {mlstm_chunk.launches}")
+        if name.startswith("train"):
+            steps = int(EXAMPLE_TRAIN_ARGS[1])
+            if (fwd[path], bwd[path]) != (4 * steps, 4 * steps):  # 4 layers, remat none
+                raise AssertionError(f"{path}: flash launched {fwd[path]} forward, "
+                                     f"{bwd[path]} backward, want {4 * steps} each")
+            losses = [float(line.split()[3]) for line in out.splitlines()
+                      if line.startswith("step ")]
+            tail = f"logged mean losses {losses}"
+        else:
+            served = next(line for line in out.splitlines() if line.startswith("engine served"))
+            tail = f"'{served}'"
+        say(f"[examples] {path}: {seconds:.2f} s; flash forward launches {fwd[path]}, "
+            f"backward {bwd[path]}; {tail}")
+    _, seconds = run_example("agents_on_streams_torch.py")
+    say(f"[examples] agents_on_streams_torch: {seconds:.2f} s")
+    return fwd, bwd
+
+
+def phase_costs(timed: dict) -> None:
+    """Phase 18: ServeCosts.for_models(qwen3-8b, smollm-135m) at phase 3's
+    batch and context, on the H100 roofline, beside phase 3's measured
+    decode step. The printed figures are the reference's formulas; the
+    gate's floor leaves out the rows of an untied embedding table that a
+    decode step does not read (decode_cost charges the whole table), so it
+    is a lower bound, and a busy step under it, or no busy time, fails."""
+    from repro_torch import get_config
+    from repro_torch.serve import ServeCosts
+    from repro_torch.serve.costs import Cost, decode_cost, roofline_seconds
+    B, S = timed["B"], timed["S"]
+    target, draft = get_config("qwen3-8b"), get_config("smollm-135m")
+    c = ServeCosts.for_models(target, draft, batch=B, context=S)
+    cost = decode_cost(target, B, S)
+    say(f"[costs] ServeCosts.for_models(qwen3-8b, smollm-135m, batch={B}, context={S}), "
+        f"reckoned on the H100 roofline: prefill {c.prefill_per_token * 1e3:.6f} ms a token, "
+        f"decode step {c.decode_step * 1e3:.6f} ms, draft step {c.draft_step * 1e3:.6f} ms, "
+        f"verify(k) for k=0..4 "
+        f"{[round(c.verify(k) * 1e3, 6) for k in range(5)]} ms")
+    say(f"[costs] qwen3-8b decode step's cost: {cost.flops:.6e} FLOP "
+        f"({cost.flops / PEAK_BF16_FLOPS * 1e3:.6f} ms), {cost.bytes:.6e} B "
+        f"({cost.bytes / PEAK_BYTES * 1e3:.6f} ms): bound by "
+        f"{'bytes' if cost.bytes / PEAK_BYTES > cost.flops / PEAK_BF16_FLOPS else 'operations'}")
+    unread = 0 if target.tie_embeddings else (target.padded_vocab - B) * target.d_model * 2
+    floor = roofline_seconds(Cost(flops=cost.flops, bytes=cost.bytes - unread)) * 1e3
+    eager, busy = timed["decode_step"]
+    if busy is None:
+        raise AssertionError("phase 3's decode step has no device-busy time to hold "
+                             "against the roofline")
+    say(f"[costs] qwen3-8b decode step B={B} S={S} measured in phase 3: {eager:.4f} ms eager, "
+        f"busy {busy:.4f} ms; busy / roofline {busy / (c.decode_step * 1e3):.4f}; the gate's "
+        f"floor {floor:.6f} ms (the roofline less {unread:.6e} B of embedding rows a step "
+        f"does not read), busy / floor {busy / floor:.4f}")
+    if busy < floor:
+        raise AssertionError(f"the measured decode step (busy {busy:.4f} ms) is under its "
+                             f"floor ({floor:.4f} ms)")
+
+
 def serve_timing(repeats: int) -> None:
     """``--serve-timing N``: only the served paths' times, N times each, to
     compare two commits' packages in alternating processes (this script
@@ -3094,7 +3222,7 @@ def main() -> int:
     say(f"[prefill] qwen3-8b: {n_params / 1e9:.3f} B parameters "
         f"({torch.cuda.memory_allocated() / 1e9:.1f} GB bf16) made in "
         f"{time.perf_counter() - t0:.1f} s")
-    phase_prefill(cfg, model)
+    timed = phase_prefill(cfg, model)
     served, _ = phase_serve(cfg, model, flash_attention, cfg.n_layers, SERVE_PROMPTS, "serve")
     del model
     torch.cuda.empty_cache()
@@ -3117,12 +3245,18 @@ def main() -> int:
     llava = phase_llava()
     torch.cuda.empty_cache()
     mesh_fwd, mesh_bwd = phase_mesh()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    example_fwd, example_bwd = phase_examples()
+    t1 = time.perf_counter()
+    phase_costs(timed)
+    say(f"[examples] phase 17 {t1 - t0:.1f} s; [costs] phase 18 {time.perf_counter() - t1:.1f} s")
     mesh_path = "train qwen3-8b ZeRO-1 on the host mesh"
     kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd, **mla_fwd,
                                   "serve jamba-1.5-large-398b": jamba, **whisper_fwd, **llava,
-                                  mesh_path: mesh_fwd}
+                                  mesh_path: mesh_fwd, **example_fwd}
     backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd, **whisper_bwd,
-                                    mesh_path: mesh_bwd}
+                                    mesh_path: mesh_bwd, **example_bwd}
     mlstm["launches_by_path"].update(xlstm_fwd)
     mlstm_bwd["launches_by_path"] = xlstm_bwd
     kernels = [kernel, backward, mlstm, mlstm_bwd]

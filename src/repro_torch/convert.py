@@ -41,7 +41,10 @@ from .models.lm import LM, init_params
 
 
 def tensor_from_numpy(arr: Any) -> torch.Tensor:
-    """A numpy array (fp32, int or bf16 from ``ml_dtypes``) as a CPU tensor."""
+    """A numpy array (fp32, int or bf16 from ``ml_dtypes``) as a CPU tensor;
+    a tensor (a restored checkpoint's leaf) as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)

@@ -52,13 +52,10 @@ from ..distributed.sharding import param_shardings
 from ..models.lm import decode_step, forward
 from ..train.optimizer import AdamWConfig, adamw_init, opt_state_shardings
 from ..train.step import make_train_step
+from .h100 import HBM_BW, PEAK_FLOPS   # H100 SXM datasheet figures
 from .mesh import MeshShape, make_production_mesh
 from .specs import (SHAPES, abstract_caches, abstract_params, batch_specs,
                     cache_shardings, cell_supported)
-
-# ---- H100 SXM datasheet figures, as PERF.md's kernel bounds use them ----
-PEAK_FLOPS = 989e12          # dense bf16 FLOP/s per card
-HBM_BW = 3.35e12             # B/s per card
 
 _NO_HLO = "torch compiles no HLO for a meta-device step"
 NULLS = {

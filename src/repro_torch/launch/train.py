@@ -5,10 +5,12 @@ the port's own log; the job consumes exactly-resumable batches through
 ``LogDataPipeline``; checkpoints (parameters, optimizer state and the data
 cursor in ``extra``) are forks of the same log; a restarted job re-attaches
 to the same ``BoltSystem``, restores the latest checkpoint and replays the
-identical batch stream. Beyond the reference: ``config`` trains a registered
-config at its full width (``n_layers`` cuts its depth), ``accum`` splits each
-batch into microbatches, and the job runs on the card unless ``device``
-names another.
+identical batch stream. The two packages share the log's format, so a job
+the JAX launcher started and checkpointed resumes here too (the restore
+reads the reference's record with ``cfg``). Beyond the reference:
+``config`` trains a registered config at its full width (``n_layers`` cuts
+its depth), ``accum`` splits each batch into microbatches, and the job runs
+on the card unless ``device`` names another.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
@@ -92,7 +94,7 @@ def run(steps: int = 100, d_model: int = 128, n_layers: int = 4,
         orphans = ckpt.recover()    # reclaim forks a crashed save left behind
         if orphans:
             print(f"recovered {len(orphans)} orphaned checkpoint fork(s)")
-        start_step, params, opt_state, extra = ckpt.restore(device=device)
+        start_step, params, opt_state, extra = ckpt.restore(device=device, cfg=cfg)
         model = init_params(cfg, seed=None, device=device, trainable=True)
         with torch.no_grad():
             for name, p in model.named_parameters():

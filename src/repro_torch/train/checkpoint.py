@@ -6,9 +6,17 @@ leaf is a tensor (or numpy array) of a nested dict of the model's
 parameters (an ``nn.Module`` is taken by ``named_parameters()``) and the
 optimizer state, named by its path (``params/embed``, ``opt/m/blocks.0.attn.wq``,
 ``opt/step``). The record's ``treedef`` holds those names as JSON where the
-reference holds a JAX PyTreeDef proto, and restoring a record the JAX
-package wrote raises. bf16 leaves travel through their uint16 view, so the
-``.npy`` bytes are the reference's.
+reference holds a JAX PyTreeDef proto. bf16 leaves travel through their
+uint16 view, so the ``.npy`` bytes are the reference's.
+
+A record the JAX package wrote restores too: ``pytree_proto`` reads its
+treedef without JAX, the leaves are rebuilt into the reference's nested
+state (``{"params": ..., "opt": {"m", "v", "step", "master"}}``, each
+pattern entry's layers stacked in one leaf), and ``convert`` maps that
+state into the port's layout. The stacked leaves do not name the layer
+kinds, so such a restore needs the model's config (``restore(cfg=...)``).
+The reverse, the JAX package restoring a record the port wrote, is not
+possible: the reference reads only its own proto.
 
 Checkpoints are log-native, so every checkpoint byte flows through the same
 GC/compaction/tiering machinery as stream data:
@@ -47,10 +55,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..convert import opt_state_from_jax, params_from_jax
 from ..core.api import AgileLog, BoltSystem
 from ..core.errors import AgileLogError
+from ..models.config import ModelConfig
 from ..models.layers import resolve_device
 from ..streams.records import decode_record, encode_record
+from . import pytree_proto
 
 
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -100,19 +111,35 @@ def _leaf_restore(raw: bytes, dt: str, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _leaf_paths(rec: Dict) -> List[str]:
-    """The leaf names of a save record; a record the JAX package wrote
-    holds a PyTreeDef proto instead, which the port cannot read."""
+def _port_paths(rec: Dict) -> Optional[List[str]]:
+    """The leaf names of a save record the port wrote; None where its
+    treedef is not the port's JSON list of names."""
     try:
         paths = json.loads(rec["treedef"])
     except ValueError:
-        paths = None
-    if not (isinstance(paths, list) and all(isinstance(p, str) for p in paths)):
-        raise ValueError(
-            f"the checkpoint at step {rec['step']} was written by the JAX "
-            "package (its treedef is a JAX PyTreeDef proto); restoring it into "
-            "the PyTorch port is not supported yet (ROADMAP.md Queue 1 item 1c)")
-    return paths
+        return None
+    if isinstance(paths, list) and all(isinstance(p, str) for p in paths):
+        return paths
+    return None
+
+
+def _jax_tree(rec: Dict) -> pytree_proto.Node:
+    """The tree of a save record the JAX package wrote (a PyTreeDef proto
+    in hex), its leaf count checked against the record's."""
+    try:
+        data = bytes.fromhex(rec["treedef"])
+    except (TypeError, ValueError):
+        raise ValueError(f"the checkpoint at step {rec['step']} has a treedef that is "
+                         "neither the port's leaf names nor a hex PyTreeDef proto") from None
+    try:
+        root = pytree_proto.parse(data)
+    except ValueError as e:
+        raise ValueError(f"the checkpoint at step {rec['step']}: {e}") from None
+    n = len(pytree_proto.key_paths(root))
+    if n != len(rec["spans"]):
+        raise ValueError(f"the checkpoint at step {rec['step']}: its PyTreeDef proto "
+                         f"holds {n} leaves, its record {len(rec['spans'])}")
+    return root
 
 
 class CheckpointManager:
@@ -233,25 +260,40 @@ class CheckpointManager:
         index = self._replay()
         return max(index) if index else None
 
-    def restore(self, step: Optional[int] = None,
-                device=None) -> Tuple[int, Any, Any, Dict]:
+    def restore(self, step: Optional[int] = None, device=None,
+                cfg: Optional[ModelConfig] = None) -> Tuple[int, Any, Any, Dict]:
         """``(step, params, opt_state, extra)`` of the checkpoint at ``step``
         (default the latest), the leaves as tensors on ``device`` (the card
-        unless it names another): params and opt_state as the nested dicts
-        that were saved, a module's parameters by name."""
+        unless it names another). A record the port wrote comes back as the
+        nested dicts that were saved, a module's parameters by name. A
+        record the JAX package wrote needs ``cfg``, the model's config: its
+        params come back by ``named_parameters()`` name and its optimizer
+        state in ``adamw_init``'s layout."""
         step = step if step is not None else self.latest_step()
         assert step is not None, "no checkpoint found"
         rec = self._replay().get(step)
         assert rec is not None, f"no checkpoint at step {step}"
-        paths = _leaf_paths(rec)
+        paths = _port_paths(rec)
+        root = _jax_tree(rec) if paths is None else None
+        if root is not None and cfg is None:
+            raise ValueError(
+                f"the checkpoint at step {step} was written by the JAX package: its "
+                "leaves stack each pattern entry's layers, so restoring it needs the "
+                "model's config (restore(cfg=...))")
         device = resolve_device(device)
         fork = self.system.open_log(rec["data_log"])
         records = list(fork.scan())
-        leaves = []
-        for (lo, hi), dt in zip(rec["spans"], rec["dtypes"]):
-            leaves.append(_leaf_restore(b"".join(records[lo:hi]), dt, device))
-        state = _unflatten(paths, leaves)
-        return step, state.get("params", {}), state.get("opt", {}), rec["extra"]
+        leaves = [_leaf_restore(b"".join(records[lo:hi]), dt,
+                                device if root is None else "cpu")
+                  for (lo, hi), dt in zip(rec["spans"], rec["dtypes"])]
+        if root is None:
+            state = _unflatten(paths, leaves)
+            return step, state.get("params", {}), state.get("opt", {}), rec["extra"]
+        state = pytree_proto.unflatten(root, leaves)
+        del leaves
+        model = params_from_jax(cfg, state["params"], device=device)
+        params = {name: p.detach() for name, p in model.named_parameters()}
+        return step, params, opt_state_from_jax(cfg, model, state["opt"]), rec["extra"]
 
     # ---------------------------------------------------------- experiments
     def experiment(self, name: str) -> "ExperimentCheckpoints":

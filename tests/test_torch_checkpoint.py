@@ -5,10 +5,13 @@ on the port's own log, with torch tensors for leaves.
 Covers: save/restore roundtrip (incl. bf16 leaves and a model's named
 parameters), keep-prune through chain-GC, fork-per-experiment (merge =
 promote, abandon = squash + GC), crash-orphan recovery, §4.1 hold interplay,
-the churn property bounding byte amplification at 1.2x, a record written by
-the JAX package refused with a clear error, and the training launcher's
-crash/resume on the CPU: the losses after the resume equal an uninterrupted
-run's exactly. The byte-liveness oracle is the JAX package's JAX-free
+the churn property bounding byte amplification at 1.2x, the training
+launcher's crash/resume on the CPU (the losses after the resume equal an
+uninterrupted run's exactly), and records the JAX package wrote: its
+PyTreeDef proto read without JAX (every registered config's state), a
+malformed one or one without the model's config refused with a clear error,
+a reference checkpoint restored bit for bit, and a job the reference's
+launcher checkpointed resumed by the port's. The byte-liveness oracle is the JAX package's JAX-free
 ``repro.core.oracle``, applied to the port's system (the same code, copied).
 """
 
@@ -319,9 +322,46 @@ def test_model_and_optimizer_roundtrip():
     _assert_trees_equal(state, opt)
 
 
+def _carry(jsystem, system, prefix="ckpt"):
+    """Carry the reference's checkpoints into a port ``BoltSystem`` byte for
+    byte: each live save's data fork, chunk by chunk, into a fresh fork of
+    the port's data root, then its catalog manifest exactly as written with
+    only ``data_log`` renumbered. The two packages' log classes are distinct
+    copies, so the records cross by value."""
+    from repro.streams.records import decode_record
+    from repro.train.checkpoint import CheckpointManager as JaxCheckpointManager
+    src, dst = JaxCheckpointManager(jsystem, prefix=prefix), CheckpointManager(system, prefix=prefix)
+    index = src._replay()
+    for step in sorted(index):
+        chunks = list(jsystem.open_log(index[step]["data_log"]).scan())
+        fork = dst.data_root.cfork(promotable=False)
+        fork.append_batch(chunks).wait()
+        fork.flush()
+        for raw in src.catalog.scan():
+            rec = decode_record(raw)
+            if rec.get("op") == "save" and rec["step"] == step:
+                dst.catalog.append(encode_record(dict(rec, data_log=fork.log_id))).wait()
+    return dst
+
+
+def _jax_saved(state, step=9):
+    """A record the JAX package's manager wrote of ``state`` (numpy leaves),
+    carried into a port system: the port's manager of that system."""
+    from repro.core import BoltSystem as JaxBoltSystem
+    from repro.train.checkpoint import CheckpointManager as JaxCheckpointManager
+    jsystem = JaxBoltSystem(n_brokers=2)
+    JaxCheckpointManager(jsystem).save(step, state["params"], state["opt"],
+                                       extra={"cursor": [4, 2]})
+    return _carry(jsystem, BoltSystem(n_brokers=2))
+
+
 def test_jax_written_record_is_refused():
     """A save record the JAX package wrote holds a PyTreeDef proto as its
-    treedef; restoring it into the port raises, naming the cause."""
+    treedef. A malformed one raises, naming the cause (here a string field
+    that runs past the end); a well-formed one without the model's config
+    raises too, naming ``cfg``: the reference's stacked leaves do not name
+    the layer kinds."""
+    pytest.importorskip("jax")
     system = BoltSystem(n_brokers=2)
     ckpt = CheckpointManager(system)
     fork = ckpt.data_root.cfork(promotable=False)
@@ -331,8 +371,214 @@ def test_jax_written_record_is_refused():
         "spans": [[0, 1]], "dtypes": ["float32"], "treedef": "0a0208011202",
         "extra": {}})).wait()
     assert ckpt.steps() == [9]
-    with pytest.raises(ValueError, match="written by the JAX package"):
+    with pytest.raises(ValueError, match="truncated PyTreeDef proto"):
+        ckpt.restore(9, device="cpu", cfg=rt.get_smoke_config("qwen3-8b"))
+    ckpt = _jax_saved({"params": {"embed": np.zeros((4, 2), np.float32)},
+                       "opt": {"step": np.zeros((), np.int32)}})
+    with pytest.raises(ValueError, match=r"written by the JAX package.*restore\(cfg=\.\.\.\)"):
         ckpt.restore(9, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# restoring what the JAX package wrote
+# ---------------------------------------------------------------------------
+
+def _jax_state(arch, master=True, dtype="float32"):
+    """The reference's ``{"params", "opt"}`` state of a smoke config, as
+    shapes (nothing computed)."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import get_smoke_config
+    from repro.models import lm as jlm
+    from repro.train.optimizer import AdamWConfig as JaxAdamWConfig
+    from repro.train.optimizer import adamw_init as jax_adamw_init
+    cfg = get_smoke_config(arch).with_(dtype=dtype)
+    ocfg = JaxAdamWConfig(master_weights=master)
+
+    def state():
+        params = jlm.init_params(cfg, jax.random.key(0))
+        return {"params": params, "opt": jax_adamw_init(params, ocfg)}
+
+    return cfg, jax.eval_shape(state)
+
+
+def _jax_key_paths(tree):
+    import jax
+    return [tuple(k.key if hasattr(k, "key") else k.idx for k in path)
+            for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("master", [True, False])
+@pytest.mark.parametrize("arch", rt.ARCHS)
+def test_proto_reader_matches_jax_key_paths(arch, master):
+    """For each registered config's smoke state, the reader's key paths are
+    ``tree_flatten_with_path``'s in order, and the containers it rebuilds
+    (dicts, the groups' tuples) have JAX's structure."""
+    import jax
+    from repro_torch.train import pytree_proto
+    _, state = _jax_state(arch, master)
+    td = jax.tree_util.tree_structure(state)
+    root = pytree_proto.parse(td.serialize_using_proto())
+    paths = pytree_proto.key_paths(root)
+    assert paths == _jax_key_paths(state)
+    rebuilt = pytree_proto.unflatten(root, list(range(len(paths))))
+    assert jax.tree_util.tree_structure(rebuilt) == td
+    assert jax.tree_util.tree_leaves(rebuilt) == list(range(len(paths)))
+
+
+def test_proto_reader_reads_lists_and_none():
+    """The kinds the reference's states do not use: a list and a None (the
+    tree whose proto the module docstring decodes, with an empty list)."""
+    jax = pytest.importorskip("jax")
+    from repro_torch.train import pytree_proto
+    tree = {"params": {"b": 1.0, "a": [1.0, (1.0, None), []]}, "opt": {"step": 1.0, "m": None}}
+    td = jax.tree_util.tree_structure(tree)
+    root = pytree_proto.parse(td.serialize_using_proto())
+    assert pytree_proto.key_paths(root) == _jax_key_paths(tree)
+    rebuilt = pytree_proto.unflatten(root, [1, 2, 3, 4])
+    assert rebuilt == {"opt": {"m": None, "step": 1},
+                       "params": {"a": [2, (3, None), []], "b": 4}}
+    assert jax.tree_util.tree_structure(rebuilt) == td
+
+
+def _unknown_kind():
+    return bytes.fromhex("0a021009")            # one node of kind 9
+
+
+def _truncated():
+    jax = pytest.importorskip("jax")
+    return jax.tree_util.tree_structure({"w": 1.0, "b": [1.0]}).serialize_using_proto()[:-1]
+
+
+@pytest.mark.parametrize("case", ["truncated", "unknown kind", "leaf count"])
+def test_proto_reader_refuses(case):
+    """A truncated proto, an unknown kind and a leaf count other than the
+    record's each raise a ValueError naming the cause."""
+    from repro_torch.train import pytree_proto
+    from repro_torch.train.checkpoint import _jax_tree
+    if case == "truncated":
+        with pytest.raises(ValueError, match="truncated PyTreeDef proto"):
+            pytree_proto.parse(_truncated())
+    elif case == "unknown kind":
+        with pytest.raises(ValueError, match="kind 9"):
+            pytree_proto.parse(_unknown_kind())
+    else:
+        good = "0a021001"                       # one leaf (kind 1)
+        with pytest.raises(ValueError, match="holds 1 leaves, its record 2"):
+            _jax_tree({"step": 3, "treedef": good, "spans": [[0, 1], [1, 2]]})
+        with pytest.raises(ValueError, match="holds 1 leaves, the record 2"):
+            pytree_proto.unflatten(pytree_proto.parse(bytes.fromhex(good)), [0, 1])
+
+
+def _jax_trained(arch, steps=3, seed=0):
+    """The reference trains a smoke config in fp32 for ``steps`` steps:
+    (cfg, step fn, params, AdamW state, the next batch)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config
+    from repro.models import lm as jlm
+    from repro.train.optimizer import AdamWConfig as JaxAdamWConfig
+    from repro.train.optimizer import adamw_init as jax_adamw_init
+    from repro.train.step import make_train_step as jax_make_train_step
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    ocfg = JaxAdamWConfig(lr=1e-3, weight_decay=0.01)
+    params = jlm.init_params(cfg, jax.random.key(seed))
+    opt = jax_adamw_init(params, ocfg)
+    step = jax.jit(jax_make_train_step(cfg, ocfg, accum=1, grad_dtype="float32"))
+    rng = np.random.default_rng(seed + 1)
+    batches = [rng.integers(0, cfg.vocab_size, (2, 17)).astype(np.int32)
+               for _ in range(steps + 1)]
+    for toks in batches[:steps]:
+        params, opt, _ = step(params, opt, {"tokens": jnp.asarray(toks[:, :-1]),
+                                            "labels": jnp.asarray(toks[:, 1:])})
+    return cfg, step, params, opt, batches[-1]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-v2-lite-16b", "xlstm-1.3b"])
+def test_restore_jax_written_checkpoint_fp32(arch):
+    """The reference's manager saves its state after 3 reference train steps;
+    carried into a port system and restored with ``cfg``, every parameter
+    and every m, v and master leaf equals the reference's bit for bit, and
+    one more port step equals the reference's next step within STEP_TOL."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import BoltSystem as JaxBoltSystem
+    from repro.train.checkpoint import CheckpointManager as JaxCheckpointManager
+    from repro_torch.convert import _leaves
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.step import STEP_TOL
+    cfg, jstep, jparams, jopt, toks = _jax_trained(arch)
+    jsystem = JaxBoltSystem(n_brokers=2)
+    JaxCheckpointManager(jsystem, chunk_bytes=4096).save(3, jparams, jopt,
+                                                         extra={"cursor": [3, 0]})
+    ckpt = _carry(jsystem, BoltSystem(n_brokers=2))
+    step, params, opt, extra = ckpt.restore(device="cpu", cfg=cfg)
+    assert step == 3 and extra == {"cursor": [3, 0]}
+    model = rt.init_params(cfg, None, device="cpu", trainable=True)
+    assert list(params) == [name for name, _ in model.named_parameters()]
+    assert set(opt) == {"m", "v", "master", "step"} and int(opt["step"]) == 3
+    assert opt["step"].dtype == torch.int32
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(params[name])
+    host = jax.device_get({"params": jparams, **{k: jopt[k] for k in ("m", "v", "master")}})
+    for key in ("params", "m", "v", "master"):
+        got = params if key == "params" else opt[key]
+        for name, _, leaf in _leaves(cfg, model, host[key]):
+            want = np.asarray(leaf)
+            assert got[name].dtype == torch.float32 and got[name].shape == want.shape, name
+            assert np.array_equal(got[name].numpy(), want), f"{key} {name}"
+    jnext, _, jm = jstep(jparams, jopt, {"tokens": jnp.asarray(toks[:, :-1]),
+                                         "labels": jnp.asarray(toks[:, 1:])})
+    tstep = make_train_step(cfg, AdamWConfig(lr=1e-3, weight_decay=0.01), grad_dtype="float32")
+    model, opt, tm = tstep(model, opt, {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+                                        "labels": torch.from_numpy(toks[:, 1:]).long()})
+    assert int(opt["step"]) == 4
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=STEP_TOL)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=STEP_TOL)
+    for name, p, leaf in _leaves(cfg, model, jax.device_get(jnext)):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(leaf), rtol=STEP_TOL,
+                                   atol=STEP_TOL, err_msg=name)
+
+
+@pytest.mark.slow
+def test_wrong_config_names_the_leaf():
+    """Restored with another config than the one that wrote it, the
+    converter's shape error names the leaf."""
+    cfg, state = _jax_state("qwen3-8b")
+    import jax
+    ckpt = _jax_saved(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), state))
+    with pytest.raises(ValueError, match=r"embed: JAX \(512, 64\)"):
+        ckpt.restore(device="cpu", cfg=cfg.with_(d_model=32))
+
+
+@pytest.mark.slow
+def test_port_resumes_a_jax_launcher_job():
+    """The reference's launcher trains k steps and checkpoints; the records
+    carried into a port system, the port's ``run(resume=True)`` continues to
+    step 2k. Its losses stay within the bf16 step tolerance of the
+    reference's uninterrupted 2k-step run, and its data cursor at 2k equals
+    the reference's."""
+    from repro.core import BoltSystem as JaxBoltSystem
+    from repro.launch.train import run as jax_run
+    from repro.train.checkpoint import CheckpointManager as JaxCheckpointManager
+    from repro_torch.launch.train import run
+    from repro_torch.train.step import BF16_STEP_TOL
+    k = 4
+    kw = dict(d_model=32, n_layers=2, batch=2, seq=32, vocab=256, log_every=100, ckpt_every=k)
+    jsystem = JaxBoltSystem(n_brokers=2)
+    straight, _, _ = jax_run(steps=2 * k, system=jsystem, **kw)
+    half = JaxBoltSystem(n_brokers=2)
+    first, _, _ = jax_run(steps=k, system=half, **kw)
+    assert first == straight[:k]
+    system = BoltSystem(n_brokers=2)
+    _carry(half, system)
+    losses, model, _, _ = run(steps=2 * k, system=system, resume=True, device="cpu", **kw)
+    assert len(losses) == k and all(p.requires_grad for p in model.parameters())
+    np.testing.assert_allclose(losses, straight[k:], rtol=0, atol=BF16_STEP_TOL["loss"])
+    want = JaxCheckpointManager(jsystem)._replay()[2 * k]["extra"]["cursor"]
+    assert CheckpointManager(system)._replay()[2 * k]["extra"]["cursor"] == want
 
 
 # ---------------------------------------------------------------------------

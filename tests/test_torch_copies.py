@@ -2,8 +2,9 @@
 
 * The JAX-free modules the port needs are byte-identical copies of the JAX
   package's (the port imports nothing of ``repro``); a copy that drifts fails.
-* The port imports neither ``jax`` nor ``repro``, and its entry points ask
-  for the card unless told otherwise.
+* The port, and the examples' twins (``examples/*_torch.py``), import
+  neither ``jax`` nor ``repro``, and their entry points ask for the card
+  unless told otherwise (a twin through its ``--device`` default).
 * A reference quirk, pinned: the JAX full-sequence forward returns keys from
   before qk-norm and RoPE as its cache (``attention.py:243``), which no decode
   step can use; the port's prefill cache is the one decode builds.
@@ -29,11 +30,17 @@ COPIES = (
     + [f"streams/{m}.py" for m in ("__init__", "records", "topics")]
     + ["serve/speculative.py", "models/config.py"]
     + [f"data/{m}.py" for m in ("__init__", "pipeline")]
+    + [f"agents/{m}.py" for m in ("__init__", "analytics", "supplychain", "testing")]
     + sorted(f"configs/{p.name}" for p in (SRC / "configs").glob("*.py")))
 
 
 def test_copies_cover_every_config_module():
     assert len([c for c in COPIES if c.startswith("configs/")]) == 12
+
+
+def test_copies_cover_every_agents_module():
+    assert sorted(c for c in COPIES if c.startswith("agents/")) == \
+        sorted(f"agents/{p.name}" for p in (SRC / "agents").glob("*.py"))
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -45,8 +52,13 @@ def test_copy_is_byte_identical(rel):
 _FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:\.|\s|$)", re.M)
 
 
+TWINS = sorted((ROOT / "examples").glob("*_torch.py"))
+
+
 def test_port_sources_import_no_jax_or_repro():
-    for path in sorted(PORT.rglob("*.py")):
+    assert [p.name for p in TWINS] == ["agents_on_streams_torch.py", "serve_torch.py",
+                                       "train_e2e_torch.py"]
+    for path in sorted(PORT.rglob("*.py")) + TWINS:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
 
@@ -71,6 +83,17 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert res.returncode == 0, res.stderr
 
 
+def _run_twin(path):
+    """An example twin as ``python examples/<name>`` with no arguments."""
+    import runpy
+    argv = sys.argv
+    sys.argv = [str(path)]
+    try:
+        runpy.run_path(str(path), run_name="__main__")
+    finally:
+        sys.argv = argv
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     import repro_torch as rt
     from repro_torch.models.layers import resolve_device
@@ -82,7 +105,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: rt.params_from_jax(cfg, {}),
                  lambda: make_host_mesh(),
                  lambda: make_mesh((1, 1), ("data", "model")),
-                 lambda: start_single_rank()):
+                 lambda: start_single_rank(),
+                 *(lambda path=path: _run_twin(path) for path in TWINS)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

@@ -7,7 +7,8 @@ fp32: the encoder, the forward's logits and caches, teacher-forced
 gradient (encoder, cross attention, ``ln_c``), one ``make_train_step``;
 both at the smoke config (SwiGLU, untied) and at the full config's MLP and
 tying (2-matrix GELU, tied). A checkpoint of the model and its AdamW state
-on the port's log restores bit for bit. The reference's decode ropes where
+on the port's log restores bit for bit. In bf16, the forward and the loss
+at the tolerance every other model is held to. The reference's decode ropes where
 its forward does not (quirk 14), pinned in both packages.
 """
 
@@ -45,6 +46,8 @@ ENC_TOL = 1e-5
 LOGIT_TOL = 1e-4
 DECODE_TOL = 1e-5
 GRAD_TOL = 1e-5
+# bf16: tests/test_torch_lm.py's LOGIT_TOL["bfloat16"], absolute and relative
+BF16_TOL = 0.15
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -322,6 +325,30 @@ def test_checkpoint_roundtrip_is_exact():
     jstate = jax.device_get(jax_adamw_init(jp, JaxAdamWConfig()))
     conv = rt.opt_state_from_jax(cfg, model, jstate)
     assert set(conv["m"]) == set(named) == set(conv["master"])
+
+
+# ------------------------------------------------------------------ bf16
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_forward_and_loss_bf16_match_jax(variant):
+    """In bf16 (the frames in bf16 too, rounded from the same fp32 draws),
+    the logits, loss and nll at tests/test_torch_lm.py's bf16 tolerance: the
+    frameworks round at different places."""
+    cfg = get_smoke_config(ARCH).with_(dtype="bfloat16", **VARIANTS[variant])
+    jp = jlm.init_params(cfg, jax.random.key(0))
+    tm = rt.params_from_jax(cfg, jax.device_get(jp), device="cpu")
+    jb, tb = _batch(cfg, 2, 9, 2)
+    jb["frames"], tb["frames"] = jb["frames"].astype(jnp.bfloat16), tb["frames"].bfloat16()
+    jl, _, _, _ = jlm.forward(cfg, jp, jb)
+    tl, aux, _, n_prefix = rt.forward(cfg, tm, tb)
+    assert tl.shape == (2, 9, cfg.padded_vocab) and tl.dtype == torch.bfloat16
+    assert n_prefix == 0 and float(aux) == 0.0
+    np.testing.assert_allclose(tl.float().numpy(), np.asarray(jl, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    jloss, jm = jlm.loss_fn(cfg, jp, jb)
+    tloss, tmet = rt.loss_fn(cfg, tm, tb)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=BF16_TOL, atol=BF16_TOL)
+    np.testing.assert_allclose(float(tmet["nll"]), float(jm["nll"]), rtol=BF16_TOL,
+                               atol=BF16_TOL)
 
 
 # ------------------------------------------------------------------ sizes

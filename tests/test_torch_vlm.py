@@ -8,7 +8,8 @@ superblock, its ``wo`` rows zero), a 16-patch vision prefix projected by
 over prefix and text with ``n_prefix`` (also at the full config's
 kv_repeat=2), ``loss_fn`` with the prefix's logits dropped and every
 gradient (``vision_proj``'s among them), one ``make_train_step``, and decode
-after the prefix at ``pos = n_prefix + S``. The served streams of text
+after the prefix at ``pos = n_prefix + S``; in bf16, the forward and the
+loss at the tolerance every other model is held to. The served streams of text
 requests are in ``test_torch_serve.py``.
 """
 
@@ -44,6 +45,8 @@ EMBED_TOL = 1e-6
 LOGIT_TOL = 1e-4
 DECODE_TOL = 1e-5
 GRAD_TOL = 1e-5
+# bf16: tests/test_torch_lm.py's LOGIT_TOL["bfloat16"], absolute and relative
+BF16_TOL = 0.15
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -207,6 +210,29 @@ def test_decode_after_prefix_matches_jax():
         tl, caches = rt.decode_step(cfg, tm, caches, tb["tokens"][:, t:t + 1], pos)
         _close(tl, jl, DECODE_TOL, f"decode at {pos}")
         _close(tl[:, 0], np.asarray(full)[:, pos], DECODE_TOL, f"forward at {pos}")
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_forward_and_loss_bf16_match_jax(variant):
+    """In bf16, the logits over prefix and text, the loss and the nll at
+    tests/test_torch_lm.py's bf16 tolerance: the frameworks round at
+    different places."""
+    cfg = get_smoke_config(ARCH).with_(dtype="bfloat16", **VARIANTS[variant])
+    jp = jlm.init_params(cfg, jax.random.key(0))
+    tm = rt.params_from_jax(cfg, jax.device_get(jp), device="cpu")
+    B, S = 2, 11
+    jb, tb = _batch(cfg, B, S, 2)
+    jl, _, _, jn = jlm.forward(cfg, jp, jb)
+    tl, aux, _, n_prefix = rt.forward(cfg, tm, tb)
+    assert n_prefix == jn == cfg.vlm.n_patches and float(aux) == 0.0
+    assert tl.shape == (B, n_prefix + S, cfg.padded_vocab) and tl.dtype == torch.bfloat16
+    np.testing.assert_allclose(tl.float().numpy(), np.asarray(jl, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    jloss, jm = jlm.loss_fn(cfg, jp, jb)
+    tloss, tmet = rt.loss_fn(cfg, tm, tb)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=BF16_TOL, atol=BF16_TOL)
+    np.testing.assert_allclose(float(tmet["nll"]), float(jm["nll"]), rtol=BF16_TOL,
+                               atol=BF16_TOL)
 
 
 def test_full_config_sizes():
