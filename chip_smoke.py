@@ -10,15 +10,19 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      build/kernels/ (one nvcc each, in parallel), print their ptxas reports
      and the card's name and power limit;
   2. kernel: hold the kernel against its plain PyTorch version on the card
-     (the cases of tests/test_kernels.py, ragged S, a query offset, G = 4; fp32
-     and bf16), and the bf16 kernel on the edges of its tiles and TMA boxes
+     (the cases of tests/test_kernels.py, ragged S, a query offset, G = 4,
+     the examples' and smoke configs' shapes, head dims 16 and the padded
+     8, 12 and (24, 16); fp32 and bf16; a second call equal bit for bit),
+     and the bf16 kernel on the edges of its tiles and TMA boxes
      (Sq and Sk of 1 to 4097, q_offset, non-causal Sq != Sk, G = 1/4/8, Dh =
      32/64/128, B > 1 with KH > 1), jamba's G = 8 (64 q heads over 8 kv);
      then time it at the qwen3-8b prefill shape beside the plain version,
      F.scaled_dot_product_attention, and the card's bound, beside SDPA at S =
      512-8192 and at the served batch, and at jamba's long-prompt shape (B=1,
      H=64, KH=8, S=4096, Dh=128) beside the plain version, SDPA with
-     enable_gqa and the bound;
+     enable_gqa and the bound; and the (16, 16) forward and backward at
+     B=1, H=32, KH=8, S=4096 beside the plain versions, SDPA, the bounds
+     and the exponentials' floor;
   3. prefill: qwen3-8b at full width and depth (36 layers, bf16, seeded random
      weights), one forward over 4 prompts of 32 tokens through the kernel and
      through the plain version, logits compared; the eager prefill and decode
@@ -175,11 +179,13 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      `python examples/<name>` would run them (runpy, sys.argv set), each
      to the end of its own assertions: serve_torch.py (the engine serves 4
      requests on the log; speculative decoding through log.speculate()
-     equals sequential greedy decode, in fp32) and train_e2e_torch.py (150
+     equals sequential greedy decode, in bf16 with the reference's draft of
+     2 heads of 16) and train_e2e_torch.py (150
      steps, a crash at 75 and a resume from the log's checkpoint) are main
      paths of the flash kernels ("example serve_torch", "example
      train_e2e_torch"; the train twin launches forward and backward once a
-     layer and step); then agents_on_streams_torch.py. Each one's seconds,
+     layer and step); then agents_on_streams_torch.py and quickstart_torch.py,
+     host code over the log that launches no kernel. Each one's seconds,
      the served tokens/s and the logged losses it prints;
  18. costs: ServeCosts.for_models(qwen3-8b, smollm-135m) at phase 3's batch
      and context on the H100 roofline (repro_torch.serve.costs: reckoned,
@@ -188,8 +194,20 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      and device-busy; a busy step under the roofline's floor (its bytes
      less the untied embedding rows a step does not read), or no busy
      time, fails.
-Restoring a checkpoint that the JAX package wrote is held on the CPU only
-(tests/test_torch_checkpoint.py): this machine has no JAX to write one.
+ 19. smoke configs: each of the ten registered configs at its smoke config
+     (get_smoke_config; the configurations the CPU tests hold against JAX,
+     head dims 8, 12, 16 and MLA's (24, 16)), seeded: (a) the forward
+     through the kernels against the plain path on the same weights, in
+     bf16 and again in fp32 (each flash call at TOL, the logits within 3x
+     the floor or PREFILL_TOL, MoE routed alike; xlstm by phase 7's
+     checks); (b) 4 requests x 16 tokens, 4 new each, served by
+     ServeEngine on the port's log, the streams equal to the plain
+     prefill's (whisper on forward + decode_step, llava also with its image
+     prefix); (c) one train step, kernels against plain, fp32 and bf16. A
+     main path of all four kernels ("smoke configs").
+Checkpoints cross between the packages both ways only on the CPU
+(tests/test_torch_checkpoint.py): this machine has no JAX to read or write
+the reference's side; phases 9d-12d resume through the reference's record.
 The line before the last lists the kernels as JSON, each with its launches
 on every main path (launches_by_path) and their sum (launches); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
@@ -226,7 +244,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # kernel against plain
 # most, and 5e-2 relative RMS.
 PREFILL_TOL = {torch.float32: {"max_abs": 1e-4, "rel_rms": 1e-5},
                torch.bfloat16: {"max_abs": 0.5, "rel_rms": 5e-2}}
-# (B, H, KH, Sq, Sk, Dh, causal, q_offset)
+# (B, H, KH, Sq, Sk, Dh, causal, q_offset); Dh is one head dim, or (Dhk, Dhv)
 KERNEL_CASES = [
     (1, 2, 2, 128, 128, 64, True, 0),          # tests/test_kernels.py FLASH_CASES
     (2, 4, 2, 256, 256, 64, True, 0),
@@ -241,10 +259,25 @@ KERNEL_CASES = [
     (4, 32, 8, 32, 32, 128, True, 0),          # the served qwen3-8b prefill batch
     (4, 64, 8, 32, 32, 128, True, 0),          # the served jamba prefill batch: G = 8
     (1, 64, 8, 1024, 1024, 128, True, 0),      # jamba's heads at S = 1024
-    (4, 2, 1, 8, 8, 32, True, 0),              # examples/serve_torch.py: the engine's batch,
-    (1, 2, 1, 19, 19, 32, True, 0),            # its longest speculative target call
-    (1, 1, 1, 17, 17, 32, True, 0),            # and its draft's (G = 1); fp32 there
+    (4, 2, 1, 8, 8, 32, True, 0),              # examples/serve_torch.py (bf16): the engine's
+    (1, 2, 1, 8, 8, 32, True, 0),              # batch, its first and its longest
+    (1, 2, 1, 19, 19, 32, True, 0),            # speculative target calls,
+    (1, 2, 1, 8, 8, 16, True, 0),              # and its draft's, 2 heads of 16
+    (1, 2, 1, 17, 17, 16, True, 0),
     (4, 2, 1, 128, 128, 64, True, 0),          # examples/train_e2e_torch.py, bf16 there
+    # phase 19's smoke configs: Dh 16 (the (16, 16) instantiation); 8, 12 and
+    # MLA's (24, 16), zero-padded to (16, 16) and (32, 32) by the wrapper
+    (4, 4, 2, 32, 32, 16, True, 0),            # qwen3-8b, smollm-135m, jamba, granite
+    (4, 6, 2, 64, 64, 16, True, 0),            # starcoder2-15b (G = 3), train batch
+    (4, 4, 4, 30, 30, 16, False, 0),           # whisper-small's encoder over 30 frames
+    (4, 4, 4, 32, 30, 16, False, 0),           # and its cross attention
+    (4, 8, 1, 32, 32, 8, True, 0),             # llava-next-34b (7 heads padded to 8), Dh 8
+    (4, 8, 1, 48, 48, 8, True, 0),             # llava with its 16-patch prefix
+    (4, 8, 2, 32, 32, 12, True, 0),            # deepseek-67b, Dh 12
+    (4, 4, 4, 32, 32, (24, 16), True, 0),      # deepseek-v2-lite-16b's MLA
+    (2, 4, 2, 129, 300, 16, True, 171),        # Dh 16 past a tile, q_offset
+    (1, 4, 2, 4097, 4097, 16, True, 0),        # Dh 16, long S
+    (2, 4, 4, 65, 300, (24, 16), False, 0),    # padded MLA, non-causal Sq != Sk
 ]
 # bf16 kernel against plain on the edges of its 128-row q and kv tiles and
 # of its TMA boxes: (B, H, KH, Sq, Sk, Dh, causal, q_offset)
@@ -262,6 +295,7 @@ EDGE_CASES = [
     (1, 2, 1, 1, 129, 64, True, 128),          # one query at the end
 ]
 PREFILL_SHAPE = (1, 32, 8, 4096, 128)          # qwen3-8b prefill: B, H, KH, S, Dh
+DH16_SHAPE = (1, 32, 8, 4096, 16)              # its heads at Dh 16: the (16, 16) kernels timed
 # the prefill shape's heads at other lengths (B*S = 4096 to S = 4096), and
 # the served qwen3-8b prefill batch
 SWEEP = [(8, 512), (4, 1024), (2, 2048), (1, 4096), (1, 8192), (4, 32)]   # (B, S)
@@ -454,6 +488,11 @@ LLAVA_STEP = (2, 512)                          # its 2-layer step against plain
 # runs 32768 eager steps on the meta device, ~20 min) and smollm-135m's
 # train_4k (xlstm-1.3b's takes ~20 min, jamba's ~2); the CLI runs them all
 MESH_STEP = dict(config="qwen3-8b", n_layers=2, shape=(2, 1024))
+# phase 19: each registered config's smoke config (get_smoke_config), the
+# configurations the CPU tests hold against JAX: 4 requests of 16 prompt
+# tokens and 4 new tokens served, and one train step of B x S
+SMOKE_SERVE = (4, 16, 4)
+SMOKE_STEP = (2, 64)
 # phase 17: the train twin at its default 150 steps (4 layers, 4 x 128)
 EXAMPLE_TRAIN_ARGS = ("--steps", "150")
 DRYRUN_CELLS = ([(a, "decode_32k") for a in ("smollm-135m", "deepseek-67b",
@@ -558,6 +597,11 @@ def randn(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def head_dims(Dh) -> tuple:
+    """(Dhk, Dhv) of a case's Dh: one head dim, or the pair."""
+    return Dh if isinstance(Dh, tuple) else (Dh, Dh)
+
+
 def phase_device():
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import BWD_SOURCES as FLASH_BWD_SOURCES
@@ -588,18 +632,21 @@ def phase_kernel() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     for B, H, KH, Sq, Sk, Dh, causal, q_offset in KERNEL_CASES:
+        Dhk, Dhv = head_dims(Dh)
         for dtype in (torch.float32, torch.bfloat16):
-            q = randn(gen, (B, H, Sq, Dh), dtype)
-            k, v = randn(gen, (B, KH, Sk, Dh), dtype), randn(gen, (B, KH, Sk, Dh), dtype)
+            q = randn(gen, (B, H, Sq, Dhk), dtype)
+            k, v = randn(gen, (B, KH, Sk, Dhk), dtype), randn(gen, (B, KH, Sk, Dhv), dtype)
             out = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+            same = torch.equal(out, flash_attention(q, k, v, causal=causal, q_offset=q_offset))
             ref = flash_attention(q, k, v, causal=causal, q_offset=q_offset, impl="plain")
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             say(f"[kernel] B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} Dh={Dh} causal={causal} "
                 f"q_offset={q_offset} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-                f"(tol {TOL[dtype]})")
-            if not err <= TOL[dtype]:
-                raise AssertionError(f"kernel disagrees with its plain version: {err}")
+                f"(tol {TOL[dtype]}); second call equal: {same}")
+            if not (err <= TOL[dtype] and same):
+                raise AssertionError(f"kernel disagrees with its plain version or repeats "
+                                     f"unequally: {err}")
     for B, H, KH, Sq, Sk, Dh, causal, q_offset in EDGE_CASES:
         q = randn(gen, (B, H, Sq, Dh), torch.bfloat16)
         k = randn(gen, (B, KH, Sk, Dh), torch.bfloat16)
@@ -652,7 +699,8 @@ def phase_kernel() -> dict:
             f"({fl / s_ms / 1e9:.1f} TFLOP/s), kernel/sdpa {k_ms / s_ms:.3f}")
         del q, k, v, ke, ve
     torch.cuda.empty_cache()
-    flash_at_jamba(gen)
+    flash_timed(gen, JAMBA_SHAPE, "jamba")
+    flash_timed(gen, DH16_SHAPE, "Dh 16 (the (16, 16) instantiation)", backward=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:25",
@@ -662,19 +710,35 @@ def phase_kernel() -> dict:
             "library_ms": library_ms}
 
 
-def flash_at_jamba(gen: torch.Generator) -> None:
-    """The bf16 kernel at jamba's long-prompt shape (H = 64 over KH = 8: G =
-    8, Dh = 128, S = 4096), against the plain version, timed beside it,
-    SDPA with ``enable_gqa`` and the bound (2 B H S^2 Dh operations at the
-    bf16 peak; Q, K, V and O once at the memory rate)."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    B, H, KH, S, Dh = JAMBA_SHAPE
+def ex2_rate() -> float:
+    """Exponentials a second the card's SFUs give: 16 an SM a clock, at the
+    card's own SM count and maximum SM clock (``nvidia-smi
+    --query-gpu=clocks.max.sm``)."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.split()[0]
+    return torch.cuda.get_device_properties(0).multi_processor_count * 16 * float(mhz) * 1e6
+
+
+def flash_timed(gen: torch.Generator, shape: tuple, label: str,
+                backward: bool = False) -> None:
+    """The bf16 kernel at ``shape`` (B, H, KH, S, Dh), causal, against the
+    plain version, timed beside it, SDPA with ``enable_gqa`` and the bound
+    (2 B H S^2 Dh operations at the bf16 peak; Q, K, V and O once at the
+    memory rate). With ``backward``, the backward kernel likewise (its
+    bound by ``backward_bounds``), and the floor of the softmax's
+    exponentials (B H S^2 / 2 of them, one an element the mask keeps, at
+    ``ex2_rate()``), which a small Dh does not hide under the products."""
+    from repro_torch.kernels.flash_attention import (_forward_kernel, backward_errors,
+                                                     flash_attention, flash_attention_backward,
+                                                     flash_attention_backward_plain)
+    B, H, KH, S, Dh = shape
     q = randn(gen, (B, H, S, Dh), torch.bfloat16)
     k, v = randn(gen, (B, KH, S, Dh), torch.bfloat16), randn(gen, (B, KH, S, Dh), torch.bfloat16)
     err = (flash_attention(q, k, v, causal=True).float()
            - flash_attention(q, k, v, causal=True, impl="plain").float()).abs().max().item()
     if not err <= TOL[torch.bfloat16]:
-        raise AssertionError(f"kernel disagrees at jamba's shape: {err}")
+        raise AssertionError(f"kernel disagrees at the {label} shape {shape}: {err}")
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)
     plain_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, impl="plain"),
                        iters=3, warmup=1)
@@ -684,10 +748,34 @@ def flash_at_jamba(gen: torch.Generator) -> None:
     flops = 2 * B * H * S * S * Dh
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = 2 * (2 * B * H * S * Dh + 2 * B * KH * S * Dh) / PEAK_BYTES * 1e3
-    say(f"[kernel] jamba shape B={B} H={H} KH={KH} (G = {H // KH}) S={S} Dh={Dh} bf16 causal: "
-        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; again {ms_again:.4f}), plain "
-        f"{plain_ms:.4f} ms, sdpa (enable_gqa) {sdpa:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-        f"(ops {t_ops:.4f}, bytes {t_bytes:.4f}); max_abs_err {err:.3e}")
+    line = (f"[kernel] {label} shape B={B} H={H} KH={KH} (G = {H // KH}) S={S} Dh={Dh} bf16 "
+            f"causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; again "
+            f"{ms_again:.4f}), plain {plain_ms:.4f} ms, sdpa (enable_gqa) {sdpa:.4f} ms, bound "
+            f"{max(t_ops, t_bytes):.4f} ms (ops {t_ops:.4f}, bytes {t_bytes:.4f}); "
+            f"max_abs_err {err:.3e}")
+    if backward:
+        do = randn(gen, (B, H, S, Dh), torch.bfloat16)
+        o, lse = _forward_kernel(q, k, v, True, 0, with_lse=True)
+        got = flash_attention_backward(q, k, v, o, do, lse, causal=True)
+        bwd_err = max(e[1] for e in backward_errors(
+            got, flash_attention_backward_plain(q, k, v, do, causal=True)))
+        if not bwd_err <= 1:
+            raise AssertionError(f"the backward disagrees at the {label} shape {shape}: "
+                                 f"{bwd_err} of BWD_TOL")
+        bwd = cuda_ms(lambda: flash_attention_backward(q, k, v, o, do, lse, causal=True),
+                      iters=10)
+        bwd_plain = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, do, causal=True),
+                            iters=3, warmup=1)
+        bwd_sdpa = sdpa_backward_ms(q, k, v, do, iters=10)
+        b_ops, b_bytes = backward_bounds(B, H, KH, S, Dh)
+        rate = ex2_rate()
+        line += (f"; backward kernel {bwd:.4f} ms, plain {bwd_plain:.4f} ms, sdpa backward "
+                 f"{bwd_sdpa:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms (ops {b_ops:.4f}, "
+                 f"bytes {b_bytes:.4f}), worst gradient {bwd_err:.3f} of BWD_TOL; the "
+                 f"exponentials' floor {B * H * S * S / 2 / rate * 1e3:.4f} ms a forward at "
+                 f"{rate:.4e} a second (the backward recomputes them twice)")
+        del do, o, lse, got
+    say(line)
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -1163,10 +1251,11 @@ def check_backward() -> dict:
     gen.manual_seed(9)
     n = 0
     for B, H, KH, Sq, Sk, Dh, causal, q_offset in KERNEL_CASES + EDGE_CASES + RESUME_CASES:
+        Dhk, Dhv = head_dims(Dh)
         for dtype in (torch.float32, torch.bfloat16):
-            q = randn(gen, (B, H, Sq, Dh), dtype)
-            k, v = randn(gen, (B, KH, Sk, Dh), dtype), randn(gen, (B, KH, Sk, Dh), dtype)
-            do = randn(gen, (B, H, Sq, Dh), dtype)
+            q = randn(gen, (B, H, Sq, Dhk), dtype)
+            k, v = randn(gen, (B, KH, Sk, Dhk), dtype), randn(gen, (B, KH, Sk, Dhv), dtype)
+            do = randn(gen, (B, H, Sq, Dhv), dtype)
             qkv = [t.clone().requires_grad_() for t in (q, k, v)]
             got = torch.autograd.grad(flash_attention(*qkv, causal=causal, q_offset=q_offset),
                                       qkv, do)
@@ -1392,9 +1481,10 @@ def step_pair(cfg, eps: float, batch) -> tuple:
     return kern, plain, pinned["flips"]
 
 
-def step_kernel_vs_plain(config: str = "qwen3-8b", n_layers=2, shape=(2, 1024),
+def step_kernel_vs_plain(config="qwen3-8b", n_layers=2, shape=(2, 1024),
                          extra=None, want_bwd=None) -> None:
-    """(c): one step at full width with ``n_layers`` layers (None: the
+    """(c): one step of ``config`` (a registered name, or a ModelConfig such
+    as a smoke config) with ``n_layers`` layers (None: the
     config's depth), batch ``shape`` (B, S), through the kernels and
     through the plain version, from the same parameters and batch: every
     gradient, then the loss, grad norm and every updated parameter
@@ -1412,8 +1502,10 @@ def step_kernel_vs_plain(config: str = "qwen3-8b", n_layers=2, shape=(2, 1024),
     from repro_torch.train import AdamWConfig
     from repro_torch.train.step import BF16_STEP_TOL, STEP_TOL
     B, S = shape
+    base = get_config(config) if isinstance(config, str) else config
+    config = base.name
     for dtype in ("float32", "bfloat16"):
-        cfg = get_config(config).with_(dtype=dtype)
+        cfg = base.with_(dtype=dtype)
         cfg = cfg.with_(n_layers=n_layers or cfg.n_layers)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(12)
@@ -1858,16 +1950,20 @@ def step_diffs(dtype: str, a, b, old) -> dict:
     return out
 
 
-def step_xlstm_kernel_vs_plain() -> None:
+def step_xlstm_kernel_vs_plain(base=None, shape=XLSTM_STEP_BATCH,
+                               remats=("none", "full", "dots")) -> None:
     """(c): one step at full width with one whole pattern (7 mLSTM + 1
     sLSTM) through the kernels and through the plain version, from the same
     parameters and batch, for each remat mode, in fp32 and bf16; beside the
-    floor of two plain steps that differ only in the chunk (64 against 32)."""
+    floor of two plain steps that differ only in the chunk (64 against 32).
+    ``base``, ``shape`` and ``remats`` put another config (phase 19's smoke
+    config), batch (B, S) and remat modes in their place."""
     from repro_torch import get_config, init_params
     from repro_torch.train.step import BF16_STEP_TOL, STEP_TOL
-    B, S = XLSTM_STEP_BATCH
+    B, S = shape
+    base = base or get_config("xlstm-1.3b").with_(n_layers=XLSTM_STEP_LAYERS)
     for dtype in ("float32", "bfloat16"):
-        cfg = get_config("xlstm-1.3b").with_(n_layers=XLSTM_STEP_LAYERS, dtype=dtype)
+        cfg = base.with_(dtype=dtype)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(12)
         toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
@@ -1884,13 +1980,13 @@ def step_xlstm_kernel_vs_plain() -> None:
         floor = step_diffs(dtype, plain32, plain64, old)
         del plain32
         torch.cuda.empty_cache()
-        for remat in ("none", "full", "dots"):
+        for remat in remats:
             c = cfg.with_(remat=remat)
             kern = one_step(c, None, STEP_EPS, batch)
             plain = plain64 if remat == "none" else one_step(c, "plain", STEP_EPS, batch)
             d = step_diffs(dtype, kern, plain, old)
             limit = {key: max(tol[key], XLSTM_FLOOR_FACTOR * floor[key]) for key in d}
-            say(f"[train xlstm] step kernels vs plain, xlstm-1.3b {XLSTM_STEP_LAYERS} layers "
+            say(f"[train xlstm] step kernels vs plain, {cfg.name} {cfg.n_layers} layers "
                 f"B={B} S={S} {dtype} remat {remat}: loss {kern[0]:.6f} / {plain[0]:.6f}, "
                 f"grad norm {kern[1]:.6f} / {plain[1]:.6f}; "
                 + ", ".join(f"{key} {d[key]:.3e} (floor {floor[key]:.3e}, limit "
@@ -2655,16 +2751,18 @@ def patches_for(cfg, gen: torch.Generator, B: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def greedy_stream(cfg, model, batch, n_new: int, attn_impl=None) -> tuple:
+def greedy_stream(cfg, model, batch, n_new: int, impl=None) -> tuple:
     """The model's own served path: ``forward(want_caches=True)`` over
-    ``batch``, then ``n_new - 1`` greedy ``decode_step``s after the prefix
-    and the text. Returns (tokens (B, n_new), each step's top-2 margin
-    (B, n_new), the prefill's logits)."""
+    ``batch`` (``impl="plain"``: attention and the mLSTM both plain), then
+    ``n_new - 1`` greedy ``decode_step``s after the prefix and the text.
+    Returns (tokens (B, n_new), each step's top-2 margin (B, n_new), the
+    prefill's logits)."""
     from repro_torch import decode_step, forward
     B, S = batch["tokens"].shape
     P = batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0
     logits, _, caches, n_prefix = forward(cfg, model, batch, want_caches=True,
-                                          max_len=P + S + n_new, attn_impl=attn_impl)
+                                          max_len=P + S + n_new, attn_impl=impl,
+                                          mlstm_impl=impl)
     if n_prefix != P:
         raise AssertionError(f"n_prefix {n_prefix}, want {P}")
     first = logits
@@ -2678,40 +2776,54 @@ def greedy_stream(cfg, model, batch, n_new: int, attn_impl=None) -> tuple:
     return torch.stack(outs, 1), torch.stack(margins, 1), first
 
 
-def served_batch(cfg, model, batch, n_new: int, tag: str) -> int:
+def served_batch(cfg, model, batch, n_new: int, tag: str, main_path: bool = True) -> int:
     """The served batch on the model's own entry points, as a main path: the
-    flash counts set to 0 just before the kernel run and read just after.
-    Its stream against the plain prefill's: equal, or parting first at a
-    near-tie, where the plain run's top-2 margin is within twice the two
-    prefills' largest logit difference. Returns the kernel's launches."""
+    flash counts set to 0 just before the kernel run and read just after
+    (without ``main_path``, inside a longer main path, they are left as
+    they are and the run's launches read as a difference). Its stream
+    against the plain prefill's: equal, or parting first at a near-tie,
+    where the plain run's top-2 margin is within twice the two prefills'
+    largest logit difference. Returns the kernel's launches in the run."""
     from repro_torch.kernels.flash_attention import flash_attention
     B = batch["tokens"].shape[0]
     greedy_stream(cfg, model, batch, 2)                 # warm-up
     torch.cuda.synchronize()
-    flash_attention.launches = flash_attention.backward_launches = 0    # main path
+    if main_path:
+        flash_attention.launches = flash_attention.backward_launches = 0    # main path
+    f0, b0 = flash_attention.launches, flash_attention.backward_launches
     t0 = time.perf_counter()
     toks, _, logits = greedy_stream(cfg, model, batch, n_new)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches, bwd = flash_attention.launches, flash_attention.backward_launches  # ends
-    ptoks, pmargins, plogits = greedy_stream(cfg, model, batch, n_new, attn_impl="plain")
-    diff = (logits.float() - plogits.float()).abs().max().item()
-    parted = (toks != ptoks).any(0).nonzero()
-    at = int(parted[0]) if len(parted) else None
-    if at is not None:
-        rows = (toks[:, at] != ptoks[:, at]).nonzero()[:, 0]
-        worst = pmargins[rows, at].max().item()
-        if worst > 2 * diff:
-            raise AssertionError(f"{tag}: the streams part at step {at}, the plain margin "
-                                 f"{worst} above twice the prefills' difference {diff}")
+    launches = flash_attention.launches - f0                            # ends
+    bwd = flash_attention.backward_launches - b0
     if not ((toks >= 0) & (toks < cfg.vocab_size)).all() or bwd:
         raise AssertionError(f"{tag}: bad tokens or a backward launch")
     say(f"[{tag}] served batch B={B} x {n_new} new tokens on forward + decode_step: "
         f"{dt:.3f} s, {B * n_new / dt:.1f} tokens/s; flash launches {launches}; the stream "
-        + ("equals the plain prefill's" if at is None else
-           f"parts from the plain prefill's at step {at} of {n_new}, a near-tie (plain "
-           f"top-2 margin {worst:.4f} within twice the prefills' logit difference {diff:.4f})"))
+        + against_plain(cfg, model, batch, toks, logits, tag))
     return launches
+
+
+def against_plain(cfg, model, batch, toks, logits, tag: str) -> str:
+    """A served stream ``toks`` (B, n_new), its prefill's ``logits``, against
+    the plain prefill's greedy stream: equal, or parting first at a
+    near-tie, where the plain run's top-2 margin is within twice the two
+    prefills' largest logit difference; otherwise it fails. Says which."""
+    ptoks, pmargins, plogits = greedy_stream(cfg, model, batch, toks.shape[1], impl="plain")
+    diff = (logits.float() - plogits.float()).abs().max().item()
+    parted = (toks != ptoks).any(0).nonzero()
+    if not len(parted):
+        return "equals the plain prefill's"
+    at = int(parted[0])
+    rows = (toks[:, at] != ptoks[:, at]).nonzero()[:, 0]
+    worst = pmargins[rows, at].max().item()
+    if worst > 2 * diff:
+        raise AssertionError(f"{tag}: the streams part at step {at}, the plain margin "
+                             f"{worst} above twice the prefills' difference {diff}")
+    return (f"parts from the plain prefill's at step {at} of {toks.shape[1]}, a near-tie "
+            f"(plain top-2 margin {worst:.4f} within twice the prefills' logit difference "
+            f"{diff:.4f})")
 
 
 def flash_at_whisper() -> None:
@@ -3104,8 +3216,12 @@ def phase_examples() -> tuple:
             tail = f"'{served}'"
         say(f"[examples] {path}: {seconds:.2f} s; flash forward launches {fwd[path]}, "
             f"backward {bwd[path]}; {tail}")
-    _, seconds = run_example("agents_on_streams_torch.py")
-    say(f"[examples] agents_on_streams_torch: {seconds:.2f} s")
+    for name in ("agents_on_streams_torch.py", "quickstart_torch.py"):
+        before = flash_attention.launches + mlstm_chunk.launches
+        _, seconds = run_example(name)
+        if flash_attention.launches + mlstm_chunk.launches != before:
+            raise AssertionError(f"{name} launched a kernel: the log is host code")
+        say(f"[examples] {name.removesuffix('.py')}: {seconds:.2f} s")
     return fwd, bwd
 
 
@@ -3145,6 +3261,144 @@ def phase_costs(timed: dict) -> None:
     if busy < floor:
         raise AssertionError(f"the measured decode step (busy {busy:.4f} ms) is under its "
                              f"floor ({floor:.4f} ms)")
+
+
+def flash_per_forward(cfg) -> int:
+    """The flash kernel's launches in one forward: one an attention or MLA
+    layer, and an encoder-decoder's encoder and cross attention besides."""
+    if cfg.is_encdec:
+        return cfg.encdec.enc_layers + 2 * cfg.n_layers
+    return attention_layers(cfg)
+
+
+def smoke_extra(cfg, gen: torch.Generator, B: int) -> dict:
+    """The batch entries a config needs beside its tokens: whisper's frames,
+    llava's vision prefix."""
+    if cfg.is_encdec:
+        return {"frames": frames_for(cfg, gen, B)}
+    if cfg.vlm is not None:
+        return {"vision_embeds": patches_for(cfg, gen, B)}
+    return {}
+
+
+def engine_stream(cfg, model, tokens: torch.Tensor, n_new: int) -> torch.Tensor:
+    """``tokens`` (B, S) as B requests on a fresh log, served in one batch by
+    ServeEngine; the (B, n_new) tokens of the response stream."""
+    from repro_torch.core import BoltSystem
+    from repro_torch.serve import ServeEngine, decode_response
+    from repro_torch.streams import Producer, Topic
+    system = BoltSystem(n_brokers=2)
+    req, resp = Topic.create(system, "req"), Topic.create(system, "resp")
+    prod = Producer(req)
+    for i, row in enumerate(tokens.tolist()):
+        prod.produce({"id": f"r{i}", "prompt": row})
+    prod.flush()
+    B = tokens.shape[0]
+    served = ServeEngine(cfg, model, req, resp, batch_size=B).poll_and_serve(gen_tokens=n_new)
+    out = decode_response(resp.log.read(0, resp.log.visible_tail))
+    if served != B or sorted(out) != sorted(f"r{i}" for i in range(B)):
+        raise AssertionError(f"{cfg.name}: the engine served {served}: {sorted(out)}")
+    return torch.tensor([out[f"r{i}"] for i in range(B)], device=tokens.device)
+
+
+def phase_smoke() -> tuple:
+    """Phase 19: every registered config at its smoke config (the CPU
+    tests' configurations; head dims 8, 12, 16 and MLA's (24, 16), run by
+    the (16, 16) and (32, 32) instantiations), seeded. (a) The forward
+    through the kernels against the plain path on the same weights, in the
+    config's dtype (bf16) and again in fp32: each flash call against plain
+    on its inputs at TOL, the logits within 3x the floor of two plain
+    forwards or PREFILL_TOL, an MoE config also against a plain forward
+    routed as the kernel's (xlstm: phase 7's mLSTM checks); (b) 4 requests
+    of 16 tokens, 4 new each, served by ServeEngine on the port's log, the
+    greedy streams equal to the plain prefill's (whisper through forward
+    with its frames and decode_step, quirk 15; llava through the engine and
+    with its image prefix); (c) one train step through the kernels against
+    the plain step at train/step.py's tolerances, fp32 and bf16. A main
+    path: the counts are set to 0 before the first config and read after
+    the last, and nothing inside sets them again: each config's launches
+    are read as differences, its served prefills' held to one launch a
+    flash or mLSTM layer each, and their sum to the phase's count. Returns
+    (flash forward, flash backward, mLSTM forward, mLSTM backward)
+    launches."""
+    from repro_torch import ARCHS, get_smoke_config, init_params
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+    from repro_torch.models.lm import layer_kinds
+    n_req, prompt, n_new = SMOKE_SERVE
+    counts = lambda: (flash_attention.launches, flash_attention.backward_launches,  # noqa
+                      mlstm_chunk.launches, mlstm_chunk.backward_launches)
+    summed = [0, 0, 0, 0]
+    flash_attention.launches = flash_attention.backward_launches = 0     # main path starts
+    mlstm_chunk.launches = mlstm_chunk.backward_launches = 0
+    for arch in ARCHS:
+        t0 = time.perf_counter()
+        at_start = counts()
+        base = get_smoke_config(arch)
+        n_flash = flash_per_forward(base)
+        n_mlstm = layer_kinds(base).count("mlstm")
+        for dtype in (base.dtype, "float32"):
+            cfg = base.with_(dtype=dtype)
+            model = init_params(cfg, seed=19)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(19)
+            tokens = prefill_tokens(cfg)
+            batch = {"tokens": tokens, **smoke_extra(cfg, gen, tokens.shape[0])}
+            tag = f"{arch} smoke {dtype}"
+            if n_mlstm:
+                check_xlstm_prefill(cfg, model, tag, n_mlstm)
+            else:
+                check_moe_prefill(cfg, model, tag, label="smoke prefill", batch=batch,
+                                  n_flash=n_flash)
+            if dtype != base.dtype:
+                continue
+            served, n_prefills = counts(), 0
+            if not cfg.is_encdec:
+                n_prefills += 2                 # the engine's and the greedy stream's
+                # the engine's batch (equal prompts: no left pads) is the
+                # model's forward and greedy decode_steps through the kernels
+                text = {"tokens": tokens[:n_req, :prompt].contiguous()}
+                got = engine_stream(cfg, model, text["tokens"], n_new)
+                toks, _, logits = greedy_stream(cfg, model, text, n_new)
+                if not torch.equal(got, toks):
+                    raise AssertionError(f"{arch}: the engine served {got.tolist()}, its "
+                                         f"forward and decode steps give {toks.tolist()}")
+                say(f"[smoke serve] {arch} {dtype}: {n_req} requests x {prompt} tokens, "
+                    f"{n_new} new each, served by ServeEngine on the log: {got.tolist()}; "
+                    f"the stream " + against_plain(cfg, model, text, got, logits,
+                                                  f"{arch} smoke serve"))
+            if cfg.is_encdec or cfg.vlm is not None:
+                n_prefills += 2                 # served_batch's warm-up and its run
+                served_batch(cfg, model, batch, n_new, f"smoke serve {arch}",
+                             main_path=False)
+            launched = [now - then for now, then in zip(counts(), served)]
+            want = [n_prefills * n_flash, 0, n_prefills * n_mlstm, 0]
+            if launched != want:     # decode steps launch neither kernel
+                raise AssertionError(f"{arch}: the served prefills launched {launched} "
+                                     f"(flash, backward, mLSTM, backward), want {want}")
+            del model
+        if n_mlstm:
+            step_xlstm_kernel_vs_plain(base, SMOKE_STEP, remats=(base.remat,))
+        else:
+            step_kernel_vs_plain(base, n_layers=None, shape=SMOKE_STEP,
+                                 extra=lambda cfg, gen, B: smoke_extra(cfg, gen, B),
+                                 want_bwd=n_flash)
+        torch.cuda.empty_cache()
+        mine = [now - then for now, then in zip(counts(), at_start)]
+        summed = [a + b for a, b in zip(summed, mine)]
+        if (n_flash and not all(mine[:2])) or (n_mlstm and not all(mine[2:])):
+            raise AssertionError(f"{arch}: a kernel of its path was not launched: {mine}")
+        say(f"[smoke] {arch}: {base.n_layers} layers, Dh {base.head_dim_}, {n_flash} flash "
+            f"calls a forward, {n_mlstm} mLSTM: prefill in two dtypes, serve and train "
+            f"step held in {time.perf_counter() - t0:.1f} s; launches: flash forward "
+            f"{mine[0]}, backward {mine[1]}, mLSTM forward {mine[2]}, backward {mine[3]}")
+    got = counts()                                                           # ... ends
+    say(f"[smoke] {len(ARCHS)} smoke configs; launches: flash forward {got[0]}, backward "
+        f"{got[1]}, mLSTM forward {got[2]}, backward {got[3]}")
+    if list(got) != summed or not all(got):
+        raise AssertionError(f"phase 19's launches {got}, its configs' sum {summed}: "
+                             "a count was set again inside, or a kernel left unlaunched")
+    return got
 
 
 def serve_timing(repeats: int) -> None:
@@ -3250,15 +3504,20 @@ def main() -> int:
     example_fwd, example_bwd = phase_examples()
     t1 = time.perf_counter()
     phase_costs(timed)
-    say(f"[examples] phase 17 {t1 - t0:.1f} s; [costs] phase 18 {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    smoke = phase_smoke()
+    say(f"[examples] phase 17 {t1 - t0:.1f} s; [costs] phase 18 {t2 - t1:.1f} s; [smoke] "
+        f"phase 19 {time.perf_counter() - t2:.1f} s")
     mesh_path = "train qwen3-8b ZeRO-1 on the host mesh"
     kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd, **mla_fwd,
                                   "serve jamba-1.5-large-398b": jamba, **whisper_fwd, **llava,
-                                  mesh_path: mesh_fwd, **example_fwd}
+                                  mesh_path: mesh_fwd, **example_fwd, "smoke configs": smoke[0]}
     backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd, **whisper_bwd,
-                                    mesh_path: mesh_bwd, **example_bwd}
+                                    mesh_path: mesh_bwd, **example_bwd,
+                                    "smoke configs": smoke[1]}
     mlstm["launches_by_path"].update(xlstm_fwd)
-    mlstm_bwd["launches_by_path"] = xlstm_bwd
+    mlstm["launches_by_path"]["smoke configs"] = smoke[2]
+    mlstm_bwd["launches_by_path"] = {**xlstm_bwd, "smoke configs": smoke[3]}
     kernels = [kernel, backward, mlstm, mlstm_bwd]
     for entry in kernels:                            # every path that launched it
         entry["launches"] = sum(entry["launches_by_path"].values())

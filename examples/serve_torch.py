@@ -25,13 +25,9 @@ ap = argparse.ArgumentParser()
 ap.add_argument("--device", default="cuda")
 args = ap.parse_args()
 
-# fp32: the port's adapters prefill a prefix in one forward and verify draft
-# positions by decode steps; in bf16 the two round at different places, and
-# a near-tie could part the speculative stream from the sequential one
-# (ROADMAP Queue 3, item 16)
 cfg = ModelConfig(name="serve-demo", n_layers=2, d_model=64, n_heads=2,
                   n_kv_heads=1, d_ff=128, vocab_size=256,
-                  tie_embeddings=True, attn_chunk=32, dtype="float32")
+                  tie_embeddings=True, attn_chunk=32)
 params = init_params(cfg, 0, device=args.device)
 
 # ---- request/response topics on the shared log -------------------------------
@@ -63,12 +59,9 @@ assert all(len(toks) == GEN for toks in out.values())
 print("first response:", out["req-0"][:8], "...")
 
 # ---- speculative decoding: each rollout is a log.speculate() session ---------
-# one head of 32 where the reference's draft has two of 16: the card's flash
-# kernels take head dims of 32, 64 and 128 (and MLA's 192 over 128), not 16
-# (ROADMAP Queue 2, item 2e)
-dcfg = ModelConfig(name="serve-draft", n_layers=1, d_model=32, n_heads=1,
+dcfg = ModelConfig(name="serve-draft", n_layers=1, d_model=32, n_heads=2,
                    n_kv_heads=1, d_ff=64, vocab_size=256,
-                   tie_embeddings=True, attn_chunk=32, dtype="float32")
+                   tie_embeddings=True, attn_chunk=32)
 target = ModelTarget(cfg, params, stats=system.serve_stats)
 draft = ModelDraft(dcfg, init_params(dcfg, 1, device=args.device),
                    stats=system.serve_stats)

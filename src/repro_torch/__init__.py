@@ -7,7 +7,7 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from .configs import ARCHS, get_config, get_smoke_config
-from .convert import opt_state_from_jax, params_from_jax
+from .convert import opt_state_from_jax, opt_state_to_jax, params_from_jax, params_to_jax
 from .core import BoltSystem
 from .kernels import flash_attention, mlstm_chunk
 from .models import (LM, ModelConfig, decode_step, forward, init_caches,
@@ -17,7 +17,7 @@ from .serve import (ModelDraft, ModelTarget, ServeEngine, SpeculativeDecoder,
 from .streams import Consumer, Producer, Topic
 
 __all__ = ["ARCHS", "get_config", "get_smoke_config", "params_from_jax",
-           "opt_state_from_jax",
+           "opt_state_from_jax", "params_to_jax", "opt_state_to_jax",
            "BoltSystem", "flash_attention", "mlstm_chunk", "LM", "ModelConfig",
            "init_params", "init_caches", "forward", "loss_fn", "decode_step",
            "ServeEngine", "ModelTarget", "ModelDraft", "SpeculativeDecoder",

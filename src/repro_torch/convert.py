@@ -27,6 +27,17 @@ so this module needs neither JAX nor ``ml_dtypes``.
 ``repro.train.optimizer.adamw_init`` / ``adamw_update``: its ``m``, ``v`` and
 ``master`` trees (each shaped like the parameters) become the port's dicts
 keyed by ``model.named_parameters()`` names, and ``step`` an int32 scalar.
+
+``params_to_jax(cfg, model)`` and ``opt_state_to_jax(cfg, model, state)``
+are their inverses: the reference's trees, each pattern entry's layers
+stacked in one leaf (``groups`` a tuple, as the reference's), ``step`` an
+int32 scalar and ``master`` only where the port's state has it. Their leaves
+are CPU tensors, since numpy holds no bf16 without ``ml_dtypes``: an fp32 or
+int leaf's ``numpy()``, or a bf16 leaf's ``uint16`` view, is the reference's
+array bit for bit, and ``params_from_jax``, ``opt_state_from_jax`` and the
+checkpoint writer take them as they are. With ``lazy=True`` each leaf is
+instead a zero-argument callable that makes it when called, so the
+checkpoint writer holds one stacked leaf on the host at a time.
 """
 
 from __future__ import annotations
@@ -125,4 +136,72 @@ def opt_state_from_jax(cfg: ModelConfig, model: LM, state: Mapping[str, Any]) ->
                 raise ValueError(f"{key} {name}: JAX {tuple(t.shape)} does not "
                                  f"fit the port's {tuple(p.shape)}")
             out[key][name] = t.to(device)
+    return out
+
+
+def _to_tree(cfg: ModelConfig, model: LM, get, lazy: bool) -> Dict[str, Any]:
+    """The reference's params layout of ``model``, each leaf ``get(name)``
+    of the port's parameter name on the host, a pattern entry's layers
+    stacked; with ``lazy``, each leaf a callable that makes it."""
+    def leaf(names):
+        def make() -> torch.Tensor:
+            if isinstance(names, str):
+                return get(names).detach().cpu()
+            return torch.stack([get(name).detach().cpu() for name in names])
+        return make if lazy else make()
+
+    def block(prefixes, blk) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for name, _ in blk.named_parameters():
+            node = out
+            *path, last = name.split(".")
+            for key in path:
+                node = node.setdefault(key, {})
+            node[last] = leaf(f"{prefixes}.{name}" if isinstance(prefixes, str) else
+                              [f"{p}.{name}" for p in prefixes])
+        return out
+
+    tree: Dict[str, Any] = {"embed": leaf("embed"), "final_norm": leaf("final_norm")}
+    if model.head is not None:
+        tree["head"] = leaf("head")
+    if model.vision_proj is not None:
+        tree["vision_proj"] = leaf("vision_proj")
+    n_pat = len(cfg.block_pattern)
+    first = int(cfg.first_layer_dense)
+    n_groups, rest = divmod(len(model.blocks) - first, n_pat)
+    if rest:
+        raise ValueError(f"{cfg.name}: {len(model.blocks) - first} layers do not stack into "
+                         f"whole groups of the {n_pat}-entry pattern the reference takes")
+    if first:
+        tree["first"] = block("blocks.0", model.blocks[0])
+    tree["groups"] = tuple(
+        block([f"blocks.{first + g * n_pat + j}" for g in range(n_groups)],
+              model.blocks[first + j]) for j in range(n_pat))
+    if model.encoder is not None:
+        enc = model.encoder
+        tree["encoder"] = {
+            "pos_embed": leaf("encoder.pos_embed"),
+            "groups": (block([f"encoder.blocks.{i}" for i in range(len(enc.blocks))],
+                             enc.blocks[0]),),
+            "final_norm": leaf("encoder.final_norm")}
+    return tree
+
+
+def params_to_jax(cfg: ModelConfig, model: LM, lazy: bool = False) -> Dict[str, Any]:
+    """``model``'s parameters in the layout of ``repro.models.lm.init_params``
+    (CPU tensors, or with ``lazy`` callables that make them): the inverse
+    of ``params_from_jax``."""
+    names = dict(model.named_parameters())
+    return _to_tree(cfg, model, names.__getitem__, lazy)
+
+
+def opt_state_to_jax(cfg: ModelConfig, model: LM, state: Mapping[str, Any],
+                     lazy: bool = False) -> Dict:
+    """The port's AdamW state in the layout of the reference's
+    ``adamw_init``: ``m``, ``v`` and (where the state has it) ``master``
+    shaped like ``params_to_jax`` (``lazy`` as there), ``step`` an int32
+    scalar. The inverse of ``opt_state_from_jax``."""
+    out: Dict[str, Any] = {key: _to_tree(cfg, model, state[key].__getitem__, lazy)
+                           for key in ("m", "v", "master") if key in state}
+    out["step"] = torch.tensor(int(state["step"]), dtype=torch.int32)
     return out

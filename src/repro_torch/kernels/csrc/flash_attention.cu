@@ -9,11 +9,13 @@
 // group without a copy of K or V. Beyond the TPU kernel it takes a query
 // offset (query row i sits at position q_offset + i under the causal mask),
 // any Sq and Sk (the ragged edge is masked here, where the Pallas kernel
-// asserted S % block == 0 and Sq == Sk), head dims (Dhk, Dhv) of (32, 32),
-// (64, 64), (128, 128) or MLA's (192, 128) (a key head of 128 + 64 rope dims
-// over a value head of 128, as the JAX model's flash takes them at
+// asserted S % block == 0 and Sq == Sk), head dims (Dhk, Dhv) of (16, 16),
+// (32, 32), (64, 64), (128, 128) or MLA's (192, 128) (a key head of 128 + 64
+// rope dims over a value head of 128, as the JAX model's flash takes them at
 // src/repro/models/attention.py:70; the Pallas kernel takes one Dh), and
-// bf16 or fp32 inputs. Sums are fp32.
+// bf16 or fp32 inputs. Sums are fp32. The softmax scale is an argument: the
+// wrapper zero-pads other widths to an instantiation and passes the scale of
+// the unpadded width.
 //
 // The Pallas grid walks the kv blocks of one q block in order and carries
 // (m, l, acc) in VMEM scratch between grid steps; CUDA blocks run in no
@@ -49,9 +51,11 @@
 //   * The tensor maps are 3-D, (Dh, S, B*heads): a tile that overhangs Sq or
 //     Sk is zero-filled by the TMA and never reads the next head's rows; the
 //     masks still decide what counts. Rows land in 128-byte swizzled column
-//     blocks (64-byte for Dh = 32), the layout the wgmma descriptors name.
+//     blocks (64-byte for Dh = 32, 32-byte for Dh = 16), the layout the
+//     wgmma descriptors name.
 //   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
-//     K-major as they lie, Dhk / 16 k-steps. O += P V is wgmma m64nDhvk16
+//     K-major as they lie, Dhk / 16 k-steps (one at Dh = 16). O += P V is
+//     wgmma m64nDhvk16
 //     with P in registers:
 //     the fp32 score accumulator's layout is the A-fragment layout, so P is
 //     rounded to bf16 in place (as the JAX model's flash rounds P to v's
@@ -209,8 +213,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
   constexpr int SWK = Swizzle<DHK>::SW, ATOMK = Swizzle<DHK>::ATOM;   // Q and K
   constexpr int SWV = Swizzle<DHV>::SW, ATOMV = Swizzle<DHV>::ATOM;   // V
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // 1 KiB alignment: the swizzle pattern repeats every 1024 (512) bytes, and
-  // TMA and wgmma agree on it only from such a boundary
+  // 1 KiB alignment: the swizzle pattern repeats every 1024 (512, 256)
+  // bytes, and TMA and wgmma agree on it only from such a boundary
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t bar_q = base;                          // Q landed
   const uint32_t bar_qe = base + 8;                     // Q free
@@ -584,8 +588,9 @@ cudaError_t dispatch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
 // or all fp32. H % KH == 0. lse, (B, H, Sq) fp32, receives each row's
 // log-sum-exp where it is not nullptr. Launches on `stream` and does not
 // synchronise. Returns the cudaError_t of the launch (0 on success); (Dh, Dhv)
-// other than (32, 32), (64, 64), (128, 128) and (192, 128), or a bf16 array
-// that no TMA tensor map can describe, returns cudaErrorInvalidValue.
+// other than (16, 16), (32, 32), (64, 64), (128, 128) and (192, 128), or a
+// bf16 array that no TMA tensor map can describe, returns
+// cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int B, int H, int KH, int Sq, int Sk, int Dh,
                                    int Dhv, int q_offset, int causal, float scale, int is_bf16,
@@ -595,6 +600,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (Dh == 192 && Dhv == 128) return dispatch<192, 128>(p, B, is_bf16, st);
   if (Dh != Dhv) return cudaErrorInvalidValue;
   switch (Dh) {
+    case 16: return dispatch<16, 16>(p, B, is_bf16, st);
     case 32: return dispatch<32, 32>(p, B, is_bf16, st);
     case 64: return dispatch<64, 64>(p, B, is_bf16, st);
     case 128: return dispatch<128, 128>(p, B, is_bf16, st);

@@ -8,8 +8,10 @@
 // the forward's output o (B, H, Sq, Dhv) and its row log-sum-exp lse (B, H,
 // Sq), and the output's gradient dO, it computes dQ, dK and dV in the inputs'
 // dtype with fp32 sums, for a causal mask or none, any q_offset (query row i
-// at position q_offset + i), any Sq and Sk, (Dhk, Dhv) of (32, 32), (64, 64),
-// (128, 128) or MLA's (192, 128), bf16 or fp32. The FlashAttention-2
+// at position q_offset + i), any Sq and Sk, (Dhk, Dhv) of (16, 16), (32, 32),
+// (64, 64), (128, 128) or MLA's (192, 128) (the wrapper zero-pads other
+// widths and passes the scale of the unpadded one), bf16 or fp32. The
+// FlashAttention-2
 // scheme, in three passes that recompute P = exp(S - lse) tile by tile and
 // never hold a score matrix in device memory:
 //
@@ -64,7 +66,7 @@
 //     3-stage ring; S = Q K^T and dP = dO V^T, then dQ += dS K with K read
 //     MN-major (m64n192k16 at Dhk = 192).
 //   * One layout for TMA and wgmma (hopper.cuh): 128-byte swizzle (64-byte
-//     at Dh = 32), 1 KiB-aligned tiles, 3-D tensor maps (Dh, S, B*heads), so
+//     at Dh = 32, 32-byte at Dh = 16), 1 KiB-aligned tiles, 3-D tensor maps (Dh, S, B*heads), so
 //     a tile that overhangs Sq or Sk is zero-filled and never reads the next
 //     head's rows. A zero-filled query row (lse = delta = 0) adds exactly 0 to
 //     dK and dV, and a zero-filled key row adds 0 to dQ; the causal mask,
@@ -310,7 +312,7 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_f32(const Args a) {
 // (setmaxnreg down to PRODUCER_REGS) whose first warp loads tiles by TMA into
 // mbarrier rings, and two consumers of 64 rows each (up to CONSUMER_REGS)
 // that run every product on wgmma. Tiles land 128-byte swizzled (64-byte at
-// Dh = 32) through 3-D tensor maps (Dh, S, B*heads), so a box that overhangs
+// Dh = 32, 32-byte at Dh = 16) through 3-D tensor maps (Dh, S, B*heads), so a box that overhangs
 // Sq or Sk is zero-filled and never reads the next head's rows; the masks
 // decide what counts. The fp32 accumulator of a product is the A-fragment
 // layout of the next one, so P and dS are rounded to bf16 in registers and
@@ -380,8 +382,8 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tm_q,
   // column blocks of the wider tile: one loop issues both tiles' boxes
   constexpr int NCK = DHK / ATOMK, NCV = DHV / ATOMV, NC = NCK > NCV ? NCK : NCV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // 1 KiB alignment: the swizzle pattern repeats every 1024 (512) bytes, and
-  // TMA and wgmma agree on it only from such a boundary
+  // 1 KiB alignment: the swizzle pattern repeats every 1024 (512, 256)
+  // bytes, and TMA and wgmma agree on it only from such a boundary
   const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
   const uint32_t bar_kv = base;                         // K and V landed
   const uint32_t bar_kve = base + 8;                    // K and V free
@@ -851,8 +853,8 @@ cudaError_t dispatch(const Args& a, int is_bf16, cudaStream_t stream) {
 // bf16 (is_bf16 = 1) or all fp32; H % KH == 0. lse (B, H, Sq) fp32 from
 // flash_attention_fwd; delta (B, H, Sq) fp32 scratch. Launches three kernels
 // on `stream` and does not synchronise. Returns the first cudaError_t (0 on
-// success); (Dh, Dhv) other than (32, 32), (64, 64), (128, 128) and (192,
-// 128) returns cudaErrorInvalidValue.
+// success); (Dh, Dhv) other than (16, 16), (32, 32), (64, 64), (128, 128)
+// and (192, 128) returns cudaErrorInvalidValue.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, int B, int H, int KH, int Sq, int Sk,
@@ -864,6 +866,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (Dh == 192 && Dhv == 128) return dispatch<192, 128>(a, is_bf16, st);
   if (Dh != Dhv) return cudaErrorInvalidValue;
   switch (Dh) {
+    case 16: return dispatch<16, 16>(a, is_bf16, st);
     case 32: return dispatch<32, 32>(a, is_bf16, st);
     case 64: return dispatch<64, 64>(a, is_bf16, st);
     case 128: return dispatch<128, 128>(a, is_bf16, st);

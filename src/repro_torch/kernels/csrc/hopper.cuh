@@ -6,8 +6,9 @@
 //
 // The layout both sides name: a (rows, DH) bf16 tile lands by TMA as DH /
 // ATOM column blocks of rows x SW bytes, 128-byte swizzled (64-byte at DH =
-// 32; three blocks at an MLA key head's DH = 192), each block 1 KiB aligned. A wgmma descriptor reads such a tile K-major
-// (8-row groups SW * 8 bytes apart) or MN-major (column blocks rows * SW bytes
+// 32, 32-byte at DH = 16; three blocks at an MLA key head's DH = 192), each
+// block 1 KiB aligned. A wgmma descriptor reads such a tile K-major (8-row
+// groups SW * 8 bytes apart) or MN-major (column blocks rows * SW bytes
 // apart), so no product needs an element-wise transpose.
 
 #pragma once
@@ -21,11 +22,18 @@ namespace {
 
 constexpr int WG = 128;      // threads in a warpgroup
 
+// The swizzle of a DH-wide bf16 tile: the widest span that a row fills (a
+// row of DH = 16 is 32 bytes, so it takes the 32-byte mode). The pattern
+// repeats every 8 * SW bytes (1024, 512 or 256), so a tile, and the row
+// offset a descriptor starts at (a multiple of 8 rows), sits on such a
+// boundary.
 template <int DH>
 struct Swizzle {
-  static constexpr int SW = DH >= 64 ? 128 : 64;     // swizzle span, bytes
+  static constexpr int SW = DH >= 64 ? 128 : DH >= 32 ? 64 : 32;   // swizzle span, bytes
   static constexpr int ATOM = SW / 2;                // bf16 columns per span
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;   // wgmma descriptor swizzle
+  // wgmma descriptor bits 62-63: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static_assert(DH % ATOM == 0, "a tile is whole swizzle spans wide");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -266,6 +274,19 @@ __device__ __forceinline__ void wgmma_ss_kmajor(float (&d)[N / 2], uint64_t desc
   else wgmma_ss_n32<FIRST>(d, desc_a, desc_b);
 }
 
+// d (64 x 16, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 16),
+// B from shared memory, MN-major (imm-trans-b = 1): the products over a head
+// of 16 dims.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (64 x 32, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 32),
 // B from shared memory, MN-major (imm-trans-b = 1).
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
@@ -353,7 +374,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[DH / 2], const uint32_t (&a)
   if constexpr (DH == 192) wgmma_rs_n192(d, a, desc_b);
   else if constexpr (DH == 128) wgmma_rs_n128(d, a, desc_b);
   else if constexpr (DH == 64) wgmma_rs_n64(d, a, desc_b);
-  else wgmma_rs_n32(d, a, desc_b);
+  else if constexpr (DH == 32) wgmma_rs_n32(d, a, desc_b);
+  else wgmma_rs_n16(d, a, desc_b);
 }
 
 // A 64 x N fp32 accumulator tile as the bf16 A fragments of a product over
@@ -408,8 +430,8 @@ inline EncodeTiled encode_tiled() {
 // (ATOM columns, box_rows rows, one slab). Three dimensions, so a box that
 // overhangs `rows` is zero-filled instead of reading the next slab. TMA needs
 // a 16-byte aligned base and outer strides of a multiple of 16 bytes: the
-// wrappers take only contiguous, 16-byte aligned tensors with DH in {32, 64,
-// 128, 192}, so the strides are multiples of DH * 2 >= 64 bytes.
+// wrappers take only contiguous, 16-byte aligned tensors with DH in {16, 32,
+// 64, 128, 192}, so the strides are multiples of DH * 2 >= 32 bytes.
 template <int DH>
 bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int slabs, int box_rows) {
   const EncodeTiled encode = encode_tiled();
@@ -420,7 +442,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int slabs, int box_
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Swizzle<DH>::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                Swizzle<DH>::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : Swizzle<DH>::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                        : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -11,11 +11,17 @@ fallback from the kernel to the plain version.
 
 The function, beyond the TPU kernel's: ``q_offset`` places query row i at
 position ``q_offset + i`` under the causal mask; Sq and Sk are free (no
-block-multiple assertion); the key and value head dims (Dhk, Dhv) are one of
-``HEAD_DIMS``: (32, 32), (64, 64), (128, 128), or MLA's (192, 128) (a key of
-128 + 64 rope dims, as the JAX model's flash takes Dhk > Dhv), and the scores
-are scaled by Dhk^-1/2; inputs are bf16 or fp32 with fp32 sums; the output,
-(B, H, Sq, Dhv), has q's dtype. A row whose every score is masked is 0.
+block-multiple assertion); the key and value head dims (Dhk, Dhv) are those
+of an instantiation in ``HEAD_DIMS``: (16, 16), (32, 32), (64, 64), (128,
+128), or MLA's (192, 128) (a key of 128 + 64 rope dims, as the JAX model's
+flash takes Dhk > Dhv), or any narrower pair, which the wrapper zero-pads to
+the smallest instantiation that covers it (``instantiation``): 8 and 12 go to
+(16, 16), MLA's (24, 16) to (32, 32). The padding is exact: zero columns add
+nothing to q . k, and zero columns of v give zero output columns, which are
+sliced away; the kernel takes the scale Dhk^-1/2 of the unpadded width. The
+scores are scaled by Dhk^-1/2; inputs are bf16 or fp32 with fp32 sums; the
+output, (B, H, Sq, Dhv), has q's dtype. A row whose every score is masked
+is 0.
 
 Its gradient: where q, k or v requires grad on a CUDA tensor,
 ``flash_attention`` runs ``FlashAttentionFunction``, whose forward is the
@@ -41,7 +47,8 @@ from . import build
 
 SOURCES = ("flash_attention.cu",)
 BWD_SOURCES = ("flash_attention_bwd.cu",)
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))   # (Dhk, Dhv)
+# (Dhk, Dhv) of the kernels' instantiations, the smallest first
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 DTYPES = (torch.bfloat16, torch.float32)
 # The backward kernel against autograd through the plain version on the same
 # inputs. fp32: 1e-4 of each gradient's max |value| (the sums' order only);
@@ -54,14 +61,16 @@ ZERO_GRAD = 1e-3
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool, q_offset: int = 0) -> torch.Tensor:
+                          causal: bool, q_offset: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, Sq, Dhk); k: (B, KH, Sk, Dhk); v: (B, KH, Sk, Dhv) with
     H = KH * G; q head h reads kv head h // G. fp32 softmax attention scaled
-    by Dhk^-1/2, output (B, H, Sq, Dhv) in q's dtype."""
+    by ``scale`` (default Dhk^-1/2), output (B, H, Sq, Dhv) in q's dtype."""
     B, H, Sq, Dh = q.shape
     KH, Sk, Dhv = k.shape[1], k.shape[2], v.shape[-1]
     qg = q.reshape(B, KH, H // KH, Sq, Dh).float()
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * Dh ** -0.5
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * (
+        Dh ** -0.5 if scale is None else scale)
     if causal:
         q_pos = torch.arange(Sq, device=q.device) + q_offset
         kv_pos = torch.arange(Sk, device=q.device)
@@ -99,6 +108,23 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
+def instantiation(Dhk: int, Dhv: int) -> tuple:
+    """The smallest (Dhk', Dhv') of ``HEAD_DIMS`` with Dhk' >= Dhk and Dhv' >=
+    Dhv: the widths the kernel runs the call at, zero-padded. Raises a
+    ``ValueError`` naming the instantiations where none covers them."""
+    for dims in HEAD_DIMS:
+        if dims[0] >= Dhk >= 1 and dims[1] >= Dhv >= 1:
+            return dims
+    raise ValueError(f"head dims (Dhk, Dhv) = {(Dhk, Dhv)}: no instantiation of "
+                     f"{HEAD_DIMS} covers them")
+
+
+def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with its last dim zero-padded to ``width`` (a new contiguous
+    tensor), or ``t`` itself where it is that wide."""
+    return t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
@@ -108,9 +134,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != Dh or H % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"share B and Dh with KH dividing H")
-    if (Dh, v.shape[3]) not in HEAD_DIMS:
-        raise ValueError(f"head dims (Dhk, Dhv) = {(Dh, v.shape[3])} not in "
-                         f"{HEAD_DIMS}")
+    instantiation(Dh, v.shape[3])
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one dtype of {DTYPES}; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -125,35 +149,40 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, q_offset: int, with_lse: bool):
-    """Launch the forward kernel: (out, lse), lse (B, H, Sq) fp32 or None."""
+    """Launch the forward kernel: (out, lse), lse (B, H, Sq) fp32 or None.
+    Head dims between instantiations run zero-padded (``instantiation``)."""
     B, H, Sq, Dh = q.shape
     KH, Sk, Dhv = k.shape[1], k.shape[2], v.shape[3]
-    out = q.new_empty((B, H, Sq, Dhv))
+    dk, dv = instantiation(Dh, Dhv)
+    q, k, v = _pad(q, dk), _pad(k, dk), _pad(v, dv)
+    out = q.new_empty((B, H, Sq, dv))
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
-        return out, lse
+        return out[..., :Dhv], lse
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            B, H, KH, Sq, Sk, Dh, Dhv, q_offset, int(causal), Dh ** -0.5,
+            B, H, KH, Sq, Sk, dk, dv, q_offset, int(causal), Dh ** -0.5,
             int(q.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     flash_attention.launches += 1
-    return out, lse
+    return (out if dv == Dhv else out[..., :Dhv].contiguous()), lse
 
 
 def flash_attention_backward_plain(q, k, v, dout, *, causal: bool,
-                                   q_offset: int = 0):
-    """(dq, dk, dv): autograd through ``flash_attention_plain``."""
+                                   q_offset: int = 0,
+                                   scale: Optional[float] = None):
+    """(dq, dk, dv): autograd through ``flash_attention_plain`` at ``scale``
+    (default Dhk^-1/2)."""
     with torch.enable_grad():
         qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = flash_attention_plain(*qkv, causal=causal, q_offset=q_offset)
+        out = flash_attention_plain(*qkv, causal=causal, q_offset=q_offset, scale=scale)
         return torch.autograd.grad(out, qkv, dout)
 
 
@@ -195,8 +224,11 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention`` given its output ``o``, the
     output's gradient ``dout`` and the forward's row log-sum-exp ``lse``
     (B, H, Sq) fp32. A CUDA tensor launches the Hopper backward kernel
-    (counted in ``flash_attention.backward_launches``); a CPU tensor takes
-    ``flash_attention_backward_plain``, which needs neither o nor lse."""
+    (counted in ``flash_attention.backward_launches``), with q, k, v, o and
+    dout zero-padded to the instantiation as in the forward and dq, dk, dv
+    sliced back (delta = rowsum(dout o o) does not change); a CPU tensor
+    takes ``flash_attention_backward_plain``, which needs neither o nor
+    lse."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, dout, causal=causal,
                                               q_offset=q_offset)
@@ -205,6 +237,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_backward(q, k, v, o, dout, lse, q_offset)
     B, H, Sq, Dh = q.shape
     KH, Sk, Dhv = k.shape[1], k.shape[2], v.shape[3]
+    wk, wv = instantiation(Dh, Dhv)
+    q, k, v = _pad(q, wk), _pad(k, wk), _pad(v, wv)
+    o, dout = _pad(o, wv), _pad(dout, wv)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _bwd_library()
@@ -213,13 +248,16 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, H, KH, Sq, Sk, Dh, Dhv, q_offset,
+            dk.data_ptr(), dv.data_ptr(), B, H, KH, Sq, Sk, wk, wv, q_offset,
             int(causal), Dh ** -0.5, int(q.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError("flash_attention backward kernel launch failed: "
                            + lib.flash_attention_bwd_error_string(err).decode())
     flash_attention.backward_launches += 1
-    return dq, dk, dv
+    if (wk, wv) == (Dh, Dhv):
+        return dq, dk, dv
+    return (dq[..., :Dh].contiguous(), dk[..., :Dh].contiguous(),
+            dv[..., :Dhv].contiguous())
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -247,7 +285,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset: int = 0,
                     impl: Optional[str] = None) -> torch.Tensor:
     """q: (B, H, Sq, Dhk); k: (B, KH, Sk, Dhk); v: (B, KH, Sk, Dhv), (Dhk, Dhv)
-    one of ``HEAD_DIMS``. Returns (B, H, Sq, Dhv).
+    covered by an instantiation of ``HEAD_DIMS``. Returns (B, H, Sq, Dhv).
 
     A CUDA tensor launches the Hopper kernel on the current stream (counted
     in ``flash_attention.launches``), through ``FlashAttentionFunction``

@@ -5,9 +5,11 @@ the port's own log; the job consumes exactly-resumable batches through
 ``LogDataPipeline``; checkpoints (parameters, optimizer state and the data
 cursor in ``extra``) are forks of the same log; a restarted job re-attaches
 to the same ``BoltSystem``, restores the latest checkpoint and replays the
-identical batch stream. The two packages share the log's format, so a job
-the JAX launcher started and checkpointed resumes here too (the restore
-reads the reference's record with ``cfg``). Beyond the reference:
+identical batch stream. The two packages share the log's format and the
+checkpoint record, so a job the JAX launcher started and checkpointed
+resumes here, and one this launcher checkpointed resumes in the JAX
+launcher (save and restore map the reference's layout with ``cfg``; the JAX
+launcher's model is its ``small_config``). Beyond the reference:
 ``config`` trains a registered config at its full width (``n_layers`` cuts
 its depth), ``accum`` splits each batch into microbatches, and the job runs
 on the card unless ``device`` names another.
@@ -124,7 +126,7 @@ def run(steps: int = 100, d_model: int = 128, n_layers: int = 4,
             t0 = time.time()
         if (step + 1) % ckpt_every == 0:
             ckpt.save(step + 1, model, opt_state,
-                      extra={"cursor": list(pipe.cursor())})
+                      extra={"cursor": list(pipe.cursor())}, cfg=cfg)
     return losses, model, system, seconds
 
 

@@ -1,22 +1,26 @@
 """Checkpoint-as-fork: training state as log lineage (DESIGN.md §17).
 
 Port of ``src/repro/train/checkpoint.py`` onto the port's own copy of the
-log. Every behaviour below is the reference's; only the leaves differ. A
-leaf is a tensor (or numpy array) of a nested dict of the model's
-parameters (an ``nn.Module`` is taken by ``named_parameters()``) and the
-optimizer state, named by its path (``params/embed``, ``opt/m/blocks.0.attn.wq``,
-``opt/step``). The record's ``treedef`` holds those names as JSON where the
-reference holds a JAX PyTreeDef proto. bf16 leaves travel through their
-uint16 view, so the ``.npy`` bytes are the reference's.
+log. Every behaviour below is the reference's, and so is the record: the
+two packages read and write one format. ``save`` writes the state
+``{"params": ..., "opt": ...}`` as the reference does: its ``treedef`` the
+hex of its PyTreeDef proto (``pytree_proto.serialize``, without JAX), its
+leaves in JAX's flatten order as ``.npy`` bytes (bf16 through the uint16
+view) with the reference's dtype names. A model (``params`` an
+``nn.Module``) and its AdamW state are first mapped into the reference's
+layout (``convert.params_to_jax``, ``opt_state_to_jax``: each pattern
+entry's layers stacked in one leaf, made only when it is written, so the
+host holds one stacked leaf at a time), which needs the model's config
+(``save(cfg=...)``); any other nested tree of tensors is written as its own
+tree, its dicts in sorted key order as JAX flattens them.
 
-A record the JAX package wrote restores too: ``pytree_proto`` reads its
-treedef without JAX, the leaves are rebuilt into the reference's nested
-state (``{"params": ..., "opt": {"m", "v", "step", "master"}}``, each
-pattern entry's layers stacked in one leaf), and ``convert`` maps that
-state into the port's layout. The stacked leaves do not name the layer
-kinds, so such a restore needs the model's config (``restore(cfg=...)``).
-The reverse, the JAX package restoring a record the port wrote, is not
-possible: the reference reads only its own proto.
+``restore`` reads what either package wrote: ``pytree_proto`` rebuilds the
+tree, and a model's state (params holding ``embed``) is mapped back by
+``convert``, which needs ``restore(cfg=...)``, since the stacked leaves do
+not name the layer kinds. So a job moves between the packages both ways.
+Records of the port's earlier writer, whose ``treedef`` is a JSON list of
+leaf paths (``params/embed``, ``opt/m/blocks.0.attn.wq``), still restore as
+the nested dicts they were.
 
 Checkpoints are log-native, so every checkpoint byte flows through the same
 GC/compaction/tiering machinery as stream data:
@@ -49,32 +53,19 @@ from __future__ import annotations
 
 import io
 import json
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..convert import opt_state_from_jax, params_from_jax
+from ..convert import opt_state_from_jax, opt_state_to_jax, params_from_jax, params_to_jax
 from ..core.api import AgileLog, BoltSystem
 from ..core.errors import AgileLogError
 from ..models.config import ModelConfig
 from ..models.layers import resolve_device
 from ..streams.records import decode_record, encode_record
 from . import pytree_proto
-
-
-def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(path, leaf) pairs of nested dicts in insertion order; a module is
-    its ``named_parameters()``."""
-    if isinstance(tree, nn.Module):
-        tree = dict(tree.named_parameters())
-    if isinstance(tree, Mapping):
-        out: List[Tuple[str, Any]] = []
-        for key, sub in tree.items():
-            out.extend(_flatten(sub, f"{prefix}/{key}" if prefix else str(key)))
-        return out
-    return [(prefix, tree)]
 
 
 def _unflatten(paths: List[str], leaves: List[Any]) -> Dict:
@@ -112,8 +103,8 @@ def _leaf_restore(raw: bytes, dt: str, device) -> torch.Tensor:
 
 
 def _port_paths(rec: Dict) -> Optional[List[str]]:
-    """The leaf names of a save record the port wrote; None where its
-    treedef is not the port's JSON list of names."""
+    """The leaf names of a save record the port's earlier writer wrote;
+    None where its treedef is not a JSON list of names."""
     try:
         paths = json.loads(rec["treedef"])
     except ValueError:
@@ -124,8 +115,8 @@ def _port_paths(rec: Dict) -> Optional[List[str]]:
 
 
 def _jax_tree(rec: Dict) -> pytree_proto.Node:
-    """The tree of a save record the JAX package wrote (a PyTreeDef proto
-    in hex), its leaf count checked against the record's."""
+    """The tree of a save record in the reference's format (a PyTreeDef
+    proto in hex), its leaf count checked against the record's."""
     try:
         data = bytes.fromhex(rec["treedef"])
     except (TypeError, ValueError):
@@ -140,6 +131,15 @@ def _jax_tree(rec: Dict) -> pytree_proto.Node:
         raise ValueError(f"the checkpoint at step {rec['step']}: its PyTreeDef proto "
                          f"holds {n} leaves, its record {len(rec['spans'])}")
     return root
+
+
+def _holds_model(root: pytree_proto.Node) -> bool:
+    """Whether a record's tree is a model's state in the reference's layout:
+    ``{"params": {"embed": ..., ...}, ...}``, as ``init_params`` makes it."""
+    top = dict(zip(root.keys, root.children)) if root.kind == pytree_proto.DICT else {}
+    params = top.get("params")
+    return (params is not None and params.kind == pytree_proto.DICT
+            and "embed" in params.keys)
 
 
 class CheckpointManager:
@@ -190,20 +190,30 @@ class CheckpointManager:
 
     # ---------------------------------------------------------------- save
     def save(self, step: int, params: Any, opt_state: Any,
-             extra: Optional[Dict] = None) -> int:
-        """Write one checkpoint; returns the data fork's log id.
+             extra: Optional[Dict] = None, cfg: Optional[ModelConfig] = None) -> int:
+        """Write one checkpoint in the reference's record; returns the data
+        fork's log id. A model (``params`` an ``nn.Module``) and its AdamW
+        state go in the reference's layout, which needs ``cfg``.
 
         Leaf bytes go to a fresh cFork of the data root first; the catalog
         append is the linearization point (a crash before it leaves only an
         unreferenced fork for :meth:`recover`)."""
+        if isinstance(params, nn.Module):
+            if cfg is None:
+                raise ValueError("saving a model writes its state in the reference's "
+                                 "layout, each pattern entry's layers stacked, which needs "
+                                 "the model's config (save(cfg=...))")
+            opt_state = opt_state_to_jax(cfg, params, opt_state, lazy=True)
+            params = params_to_jax(cfg, params, lazy=True)
         state = {"params": params, "opt": opt_state}
-        paths, leaves = zip(*_flatten(state))
+        leaves = pytree_proto.leaves(state)
+        treedef = pytree_proto.serialize(pytree_proto.structure(state)).hex()
         fork = self.data_root.cfork(promotable=False)
         spans: List[List[int]] = []
         dtypes: List[str] = []
         pos = 0
         for leaf in leaves:
-            raw, dt = _leaf_bytes(leaf)
+            raw, dt = _leaf_bytes(leaf() if callable(leaf) else leaf)   # one at a time
             chunks = [raw[o:o + self.chunk_bytes]
                       for o in range(0, len(raw), self.chunk_bytes)] or [b""]
             fork.append_batch(chunks).wait()
@@ -218,7 +228,7 @@ class CheckpointManager:
             "exp": self.exp,
             "spans": spans,
             "dtypes": dtypes,
-            "treedef": json.dumps(list(paths)),
+            "treedef": treedef,
             "extra": extra or {},
         }
         # atomic commit: this catalog append is the linearization point
@@ -264,33 +274,37 @@ class CheckpointManager:
                 cfg: Optional[ModelConfig] = None) -> Tuple[int, Any, Any, Dict]:
         """``(step, params, opt_state, extra)`` of the checkpoint at ``step``
         (default the latest), the leaves as tensors on ``device`` (the card
-        unless it names another). A record the port wrote comes back as the
-        nested dicts that were saved, a module's parameters by name. A
-        record the JAX package wrote needs ``cfg``, the model's config: its
-        params come back by ``named_parameters()`` name and its optimizer
-        state in ``adamw_init``'s layout."""
+        unless it names another). A model's state (written by either
+        package: its params hold ``embed``, each pattern entry's layers
+        stacked) needs ``cfg``, the model's config: its params come back by
+        ``named_parameters()`` name and its optimizer state in
+        ``adamw_init``'s layout. Any other tree comes back as it was saved,
+        its dicts in sorted key order."""
         step = step if step is not None else self.latest_step()
         assert step is not None, "no checkpoint found"
         rec = self._replay().get(step)
         assert rec is not None, f"no checkpoint at step {step}"
         paths = _port_paths(rec)
         root = _jax_tree(rec) if paths is None else None
-        if root is not None and cfg is None:
+        model_state = root is not None and _holds_model(root)
+        if model_state and cfg is None:
             raise ValueError(
-                f"the checkpoint at step {step} was written by the JAX package: its "
-                "leaves stack each pattern entry's layers, so restoring it needs the "
-                "model's config (restore(cfg=...))")
+                f"the checkpoint at step {step} holds a model's state in the layout "
+                "written by the JAX package: its leaves stack each pattern entry's "
+                "layers, so restoring it needs the model's config (restore(cfg=...))")
         device = resolve_device(device)
         fork = self.system.open_log(rec["data_log"])
         records = list(fork.scan())
         leaves = [_leaf_restore(b"".join(records[lo:hi]), dt,
-                                device if root is None else "cpu")
+                                "cpu" if model_state else device)
                   for (lo, hi), dt in zip(rec["spans"], rec["dtypes"])]
         if root is None:
             state = _unflatten(paths, leaves)
             return step, state.get("params", {}), state.get("opt", {}), rec["extra"]
         state = pytree_proto.unflatten(root, leaves)
         del leaves
+        if not model_state:
+            return step, state["params"], state["opt"], rec["extra"]
         model = params_from_jax(cfg, state["params"], device=device)
         params = {name: p.detach() for name, p in model.named_parameters()}
         return step, params, opt_state_from_jax(cfg, model, state["opt"]), rec["extra"]
@@ -353,9 +367,9 @@ class ExperimentCheckpoints(CheckpointManager):
                                 f"{self._state}")
 
     def save(self, step: int, params: Any, opt_state: Any,
-             extra: Optional[Dict] = None) -> int:
+             extra: Optional[Dict] = None, cfg: Optional[ModelConfig] = None) -> int:
         self._require_open()
-        return super().save(step, params, opt_state, extra)
+        return super().save(step, params, opt_state, extra, cfg)
 
     def merge(self) -> None:
         """Squash-on-merge: promote the catalog fork into the trunk —

@@ -1,4 +1,5 @@
-"""Read the tree structure of a checkpoint the JAX package wrote, without JAX.
+"""Read and write the tree structure of a checkpoint record as the JAX package
+writes it, without JAX.
 
 The reference's ``CheckpointManager.save`` stores its state's structure as
 ``jax.tree_util.tree_structure(state).serialize_using_proto().hex()``
@@ -18,6 +19,14 @@ stored, which is JAX's flatten order (sorted), so the leaves of a record
 follow the depth-first order of this tree. Anything else (an unknown kind or
 field, a truncated message, children that do not add up to one root) raises
 a ``ValueError`` that names the cause: nothing is guessed.
+
+``serialize`` is the inverse of ``parse``, and ``structure`` builds the tree
+of a nested dict, list, tuple or None tree as JAX flattens it (dict keys
+sorted, anything else a leaf), so ``serialize(structure(state))`` equals
+``jax.tree_util.tree_structure(state).serialize_using_proto()`` byte for
+byte: a node's arity and dict keys are left out where empty, the keys are
+one packed field, and each string is interned once, where the post-order
+walk first emits it.
 """
 
 from __future__ import annotations
@@ -190,3 +199,76 @@ def unflatten(root: Node, leaves: Sequence[Any]) -> Any:
         return kids if node.kind == LIST else tuple(kids)
 
     return build(root)
+
+
+def structure(tree: Any) -> Node:
+    """The tree of ``tree`` as JAX flattens it: a dict's children in the
+    order of its sorted keys (strings), a list's or tuple's in order, None a
+    node of no children, anything else a leaf."""
+    if tree is None:
+        return Node(NONE, [])
+    if isinstance(tree, dict):
+        keys = list(tree)
+        bad = [k for k in keys if not isinstance(k, str)]
+        if bad:
+            raise TypeError(f"a PyTreeDef proto names dict keys by strings; got {bad[0]!r}")
+        keys.sort()
+        return Node(DICT, [structure(tree[k]) for k in keys], tuple(keys))
+    if isinstance(tree, (list, tuple)):
+        return Node(LIST if isinstance(tree, list) else TUPLE, [structure(t) for t in tree])
+    return Node(LEAF, [])
+
+
+def leaves(tree: Any) -> List[Any]:
+    """The leaves of ``tree`` in the order of ``structure(tree)``."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def _put_varint(out: bytearray, n: int) -> None:
+    while True:
+        byte, n = n & 0x7F, n >> 7
+        out.append(byte | (0x80 if n else 0))
+        if not n:
+            return
+
+
+def _put_field(out: bytearray, field: int, payload: bytes) -> None:
+    """A length-delimited field."""
+    _put_varint(out, field << 3 | _LEN)
+    _put_varint(out, len(payload))
+    out += payload
+
+
+def serialize(root: Node) -> bytes:
+    """The PyTreeDef proto of ``root``: the inverse of ``parse``."""
+    strings: dict = {}
+    nodes = bytearray()
+
+    def emit(node: Node) -> None:
+        for child in node.children:
+            emit(child)
+        msg = bytearray()
+        if node.children:
+            _put_varint(msg, 1 << 3 | _VARINT)
+            _put_varint(msg, len(node.children))
+        _put_varint(msg, 2 << 3 | _VARINT)
+        _put_varint(msg, node.kind)
+        if node.keys:
+            ids = bytearray()
+            for key in node.keys:
+                _put_varint(ids, strings.setdefault(key, len(strings)))
+            packed = bytearray()
+            _put_field(packed, 1, bytes(ids))
+            _put_field(msg, 3, bytes(packed))
+        _put_field(nodes, 1, bytes(msg))
+
+    emit(root)
+    for key in strings:
+        _put_field(nodes, 2, key.encode("utf-8"))
+    return bytes(nodes)

@@ -7,11 +7,13 @@ parameters), keep-prune through chain-GC, fork-per-experiment (merge =
 promote, abandon = squash + GC), crash-orphan recovery, §4.1 hold interplay,
 the churn property bounding byte amplification at 1.2x, the training
 launcher's crash/resume on the CPU (the losses after the resume equal an
-uninterrupted run's exactly), and records the JAX package wrote: its
-PyTreeDef proto read without JAX (every registered config's state), a
-malformed one or one without the model's config refused with a clear error,
-a reference checkpoint restored bit for bit, and a job the reference's
-launcher checkpointed resumed by the port's. The byte-liveness oracle is the JAX package's JAX-free
+uninterrupted run's exactly), and the one record format both packages
+share: the reference's PyTreeDef proto read and written without JAX (the
+writer's bytes JAX's own for every registered config's state), a malformed
+one or a model's state without its config refused with a clear error, a
+reference checkpoint restored bit for bit, the port's restored by the
+reference leaf for leaf, and a launcher job resumed across the packages
+both ways; records of the port's earlier JSON treedef still restore. The byte-liveness oracle is the JAX package's JAX-free
 ``repro.core.oracle``, applied to the port's system (the same code, copied).
 """
 
@@ -43,17 +45,17 @@ def _opt(seed):
             "step": torch.tensor(seed, dtype=torch.int32)}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for key in tree for x in _leaves(tree[key])]
-    return [tree]
-
-
 def _assert_trees_equal(a, b):
-    assert list(a) == list(b)
-    for x, y in zip(_leaves(a), _leaves(b)):
-        assert x.dtype == y.dtype and x.shape == y.shape
-        assert torch.equal(x, y)
+    """The same keys at every level and every leaf equal bit for bit; the
+    record is JAX's, whose flatten order sorts a dict's keys, so a restored
+    dict holds them in that order."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and sorted(a) == sorted(b)
+        for key in a:
+            _assert_trees_equal(a[key], b[key])
+        return
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a, b)
 
 
 def _drain(system):
@@ -301,25 +303,79 @@ def test_train_checkpoint_restore_trace_audits_clean(config):
 
 
 def test_model_and_optimizer_roundtrip():
-    """A module is saved by its named parameters, the AdamW state as its
-    dicts; both come back bit for bit, bf16 included, as the record's
-    treedef names them."""
-    from repro_torch.train import AdamWConfig, adamw_init
+    """A module and its AdamW state are saved in the reference's layout (a
+    PyTreeDef proto, each pattern entry's layers stacked), which needs the
+    config; restored with it, both come back bit for bit, bf16 included, by
+    parameter name."""
+    from repro_torch.train import AdamWConfig, adamw_init, pytree_proto
     cfg = rt.get_smoke_config("qwen3-8b")
     model = rt.init_params(cfg, 3, device="cpu", trainable=True)
     state = adamw_init(model, AdamWConfig(moments_dtype="bfloat16"))
     state["m"]["embed"].add_(1.5)
     system = BoltSystem(n_brokers=2)
     ckpt = CheckpointManager(system, chunk_bytes=4096)
-    ckpt.save(4, model, state, extra={"cursor": [3, 1]})
+    with pytest.raises(ValueError, match=r"save\(cfg=\.\.\.\)"):
+        ckpt.save(4, model, state)
+    ckpt.save(4, model, state, extra={"cursor": [3, 1]}, cfg=cfg)
     rec = ckpt._replay()[4]
-    names = json.loads(rec["treedef"])
-    assert names[0] == "params/embed" and "opt/m/blocks.0.attn.wq" in names
-    assert "opt/step" in names and len(names) == len(rec["dtypes"])
-    step, params, opt, extra = ckpt.restore(device="cpu")
+    paths = pytree_proto.key_paths(pytree_proto.parse(bytes.fromhex(rec["treedef"])))
+    assert paths[0] == ("opt", "m", "embed") and ("params", "embed") in paths
+    assert ("params", "groups", 0, "attn", "wq") in paths and ("opt", "step") in paths
+    assert len(paths) == len(rec["dtypes"]) and ("opt", "master", "embed") in paths
+    step, params, opt, extra = ckpt.restore(device="cpu", cfg=cfg)
     assert step == 4 and extra == {"cursor": [3, 1]}
     _assert_trees_equal(dict(model.named_parameters()), params)
     _assert_trees_equal(state, opt)
+    assert list(params) == [name for name, _ in model.named_parameters()]
+
+
+def _json_record(ckpt, step, state):
+    """A save record as the port's earlier writer made it: the leaves in
+    insertion order, the treedef a JSON list of their paths."""
+    from repro_torch.train.checkpoint import _leaf_bytes
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [x for key, sub in tree.items()
+                    for x in flat(sub, f"{prefix}/{key}" if prefix else key)]
+        return [(prefix, tree)]
+
+    paths, leaves = zip(*flat(state))
+    fork = ckpt.data_root.cfork(promotable=False)
+    dtypes = []
+    for leaf in leaves:
+        raw, dt = _leaf_bytes(leaf)
+        fork.append_batch([raw]).wait()
+        dtypes.append(dt)
+    fork.flush()
+    ckpt.catalog.append(encode_record({
+        "op": "save", "step": step, "data_log": fork.log_id, "exp": "",
+        "spans": [[i, i + 1] for i in range(len(leaves))], "dtypes": dtypes,
+        "treedef": json.dumps(list(paths)), "extra": {"cursor": [1, 2]}})).wait()
+
+
+def test_json_treedef_records_still_restore():
+    """Records the port wrote before it wrote the reference's record (a
+    JSON treedef of leaf paths) restore as the nested dicts they were, a
+    model's parameters by name, beside a record of the new writer."""
+    from repro_torch.train import AdamWConfig, adamw_init
+    cfg = rt.get_smoke_config("granite-moe-3b-a800m")
+    model = rt.init_params(cfg, 4, device="cpu", trainable=True)
+    state = adamw_init(model, AdamWConfig())
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system)
+    _json_record(ckpt, 3, {"params": dict(model.named_parameters()), "opt": state})
+    ckpt.save(6, model, state, cfg=cfg)
+    for step, kw in ((3, {}), (6, {"cfg": cfg})):
+        got, params, opt, _ = ckpt.restore(step, device="cpu", **kw)
+        assert got == step
+        _assert_trees_equal(dict(model.named_parameters()), params)
+        _assert_trees_equal(state, opt)
+    plain = {"w": torch.arange(6.0).reshape(2, 3), "b": torch.ones(2, dtype=torch.bfloat16)}
+    _json_record(ckpt, 9, {"params": plain, "opt": {"step": torch.tensor(9)}})
+    _, params, opt, extra = ckpt.restore(9, device="cpu")
+    assert list(params) == ["w", "b"] and extra == {"cursor": [1, 2]}
+    _assert_trees_equal(plain, params)
 
 
 def _carry(jsystem, system, prefix="ckpt"):
@@ -579,6 +635,200 @@ def test_port_resumes_a_jax_launcher_job():
     np.testing.assert_allclose(losses, straight[k:], rtol=0, atol=BF16_STEP_TOL["loss"])
     want = JaxCheckpointManager(jsystem)._replay()[2 * k]["extra"]["cursor"]
     assert CheckpointManager(system)._replay()[2 * k]["extra"]["cursor"] == want
+
+
+# ---------------------------------------------------------------------------
+# records the port writes, restored by the JAX package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("master", [True, False])
+@pytest.mark.parametrize("arch", rt.ARCHS)
+def test_proto_writer_bytes_equal_jax(arch, master):
+    """``serialize(structure(state))`` of the reference's state of each
+    smoke config, with and without master weights, is the bytes of JAX's
+    own ``serialize_using_proto``, and ``leaves`` is JAX's leaf order."""
+    import jax
+    from repro_torch.train import pytree_proto
+    _, state = _jax_state(arch, master)
+    want = jax.tree_util.tree_structure(state).serialize_using_proto()
+    assert pytree_proto.serialize(pytree_proto.structure(state)) == want
+    assert pytree_proto.serialize(pytree_proto.parse(want)) == want
+    assert pytree_proto.leaves(state) == jax.tree_util.tree_leaves(state)
+
+
+@pytest.mark.parametrize("tree", [
+    1.0, None, {}, [], (), {"b": 1.0, "a": [1.0, (1.0, None), []]},
+    {"x": {"a": 1.0, "b": 2.0}, "y": {"a": 3.0}, "z": [{"a": None}, ({"c": ()},)]},
+    {f"k{i}": list(range(i)) for i in range(150)},          # arity and ids past one byte
+], ids=["leaf", "none", "empty-dict", "empty-list", "empty-tuple", "lists-none",
+        "shared-keys", "wide"])
+def test_proto_writer_lists_tuples_none(tree):
+    """The kinds the reference's states do not use, shared dict keys (each
+    string interned once) and varints longer than a byte."""
+    jax = pytest.importorskip("jax")
+    from repro_torch.train import pytree_proto
+    want = jax.tree_util.tree_structure(tree).serialize_using_proto()
+    assert pytree_proto.serialize(pytree_proto.structure(tree)) == want
+    assert pytree_proto.leaves(tree) == jax.tree_util.tree_leaves(tree)
+
+
+def _as_numpy(t):
+    """A converter's CPU tensor leaf as the reference's array's bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _jax_bits(leaf):
+    arr = np.asarray(leaf)
+    return arr.view(np.uint16) if arr.dtype.name == "bfloat16" else arr
+
+
+def _jax_random_state(arch, master):
+    """The reference's bf16 smoke state with random values in every leaf
+    (params, m, v and master), step 7."""
+    import jax
+    cfg, shapes = _jax_state(arch, master, dtype="bfloat16")
+    rng = np.random.default_rng(len(arch))
+    state = jax.tree.map(lambda s: jax.numpy.asarray(rng.normal(size=s.shape), s.dtype), shapes)
+    state["opt"]["step"] = np.int32(7)
+    return cfg, jax.device_get(state)
+
+
+@pytest.mark.parametrize("master", [True, False])
+@pytest.mark.parametrize("arch", rt.ARCHS)
+def test_to_jax_converters_round_trip(arch, master):
+    """``params_to_jax`` and ``opt_state_to_jax`` invert ``params_from_jax``
+    and ``opt_state_from_jax`` bit for bit, in the reference's tree
+    (``groups`` a tuple, ``master`` only where the state has it, ``step`` an
+    int32 scalar), on every smoke config in bf16."""
+    import jax
+    from repro_torch.train import pytree_proto
+    cfg, state = _jax_random_state(arch, master)
+    model = rt.params_from_jax(cfg, state["params"], device="cpu")
+    opt = rt.opt_state_from_jax(cfg, model, state["opt"])
+    assert ("master" in opt) == master
+    back = {"params": rt.params_to_jax(cfg, model), "opt": rt.opt_state_to_jax(cfg, model, opt)}
+    assert back["opt"]["step"].dtype == torch.int32 and back["opt"]["step"].shape == ()
+    assert isinstance(back["params"]["groups"], tuple)
+    assert (pytree_proto.serialize(pytree_proto.structure(back))
+            == jax.tree_util.tree_structure(state).serialize_using_proto())
+    for got, want in zip(pytree_proto.leaves(back), jax.tree_util.tree_leaves(state)):
+        got, want = _as_numpy(got), _jax_bits(want)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "whisper-small", "jamba-1.5-large-398b"])
+def test_lazy_to_jax_leaves_are_made_when_called(arch):
+    """With ``lazy``, every leaf of ``params_to_jax`` and ``opt_state_to_jax``
+    but ``step`` is a callable that makes it only when called (the
+    checkpoint writer holds one stacked leaf at a time): a change to the
+    model after the tree was built shows in the leaves, which then equal
+    the eager trees' bit for bit."""
+    from repro_torch.train import AdamWConfig, adamw_init, pytree_proto
+    cfg = rt.get_smoke_config(arch)
+    model = rt.init_params(cfg, 3, device="cpu", trainable=True)
+    opt = adamw_init(model, AdamWConfig())
+    lazy = {"params": rt.params_to_jax(cfg, model, lazy=True),
+            "opt": rt.opt_state_to_jax(cfg, model, opt, lazy=True)}
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1)
+        for t in opt["m"].values():
+            t.normal_()
+    eager = {"params": rt.params_to_jax(cfg, model), "opt": rt.opt_state_to_jax(cfg, model, opt)}
+    assert (pytree_proto.serialize(pytree_proto.structure(lazy))
+            == pytree_proto.serialize(pytree_proto.structure(eager)))
+    for got, want in zip(pytree_proto.leaves(lazy), pytree_proto.leaves(eager)):
+        assert callable(got) == (want.shape != ())
+        got = got() if callable(got) else got
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _carry_back(system, jsystem, prefix="ckpt"):
+    """The reverse of ``_carry``: the port's live saves, each data fork
+    chunk by chunk into a fresh fork of the reference's data root, then its
+    manifest exactly as written with only ``data_log`` renumbered."""
+    from repro.streams.records import encode_record as jax_encode_record
+    from repro.train.checkpoint import CheckpointManager as JaxCheckpointManager
+    from repro_torch.streams.records import decode_record
+    src, dst = CheckpointManager(system, prefix=prefix), JaxCheckpointManager(jsystem, prefix=prefix)
+    index = src._replay()
+    for step in sorted(index):
+        chunks = list(system.open_log(index[step]["data_log"]).scan())
+        fork = dst.data_root.cfork(promotable=False)
+        fork.append_batch(chunks).wait()
+        fork.flush()
+        for raw in src.catalog.scan():
+            rec = decode_record(raw)
+            if rec.get("op") == "save" and rec["step"] == step:
+                dst.catalog.append(jax_encode_record(dict(rec, data_log=fork.log_id))).wait()
+    return dst
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-v2-lite-16b", "whisper-small",
+                                  "xlstm-1.3b"])
+def test_jax_restores_a_port_written_record(arch):
+    """A record the port's ``save`` wrote (a bf16 smoke model and its AdamW
+    state with master weights), carried byte for byte into a reference
+    ``BoltSystem``, restores through the JAX ``CheckpointManager.restore``
+    leaf for leaf equal to ``params_to_jax`` and ``opt_state_to_jax``, in
+    JAX's own tree; the cursor rides ``extra``."""
+    import jax
+    from repro.core import BoltSystem as JaxBoltSystem
+    from repro_torch.train import AdamWConfig, adamw_init
+    cfg = rt.get_smoke_config(arch)
+    model = rt.init_params(cfg, 2, device="cpu", trainable=True)
+    opt = adamw_init(model, AdamWConfig())
+    for key in ("m", "v"):
+        for t in opt[key].values():
+            t.normal_()
+    opt["step"].fill_(5)
+    system = BoltSystem(n_brokers=2)
+    CheckpointManager(system, chunk_bytes=4096).save(5, model, opt, extra={"cursor": [5, 1]},
+                                                     cfg=cfg)
+    jckpt = _carry_back(system, JaxBoltSystem(n_brokers=2))
+    step, params, jopt, extra = jckpt.restore()
+    assert step == 5 and extra == {"cursor": [5, 1]}
+    want = {"params": rt.params_to_jax(cfg, model), "opt": rt.opt_state_to_jax(cfg, model, opt)}
+    got = {"params": params, "opt": jopt}
+    from repro_torch.train import pytree_proto
+    assert (jax.tree_util.tree_structure(got).serialize_using_proto()
+            == pytree_proto.serialize(pytree_proto.structure(want)))
+    for g, w in zip(jax.tree_util.tree_leaves(got), pytree_proto.leaves(want)):
+        g, w = _jax_bits(g), _as_numpy(w)
+        assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w)
+    assert np.asarray(jopt["step"]).dtype == np.int32 and int(jopt["step"]) == 5
+
+
+@pytest.mark.slow
+def test_jax_launcher_resumes_a_port_launcher_job():
+    """The mirror of ``test_port_resumes_a_jax_launcher_job``: the port's
+    launcher trains k steps and checkpoints; the records carried into a
+    reference system, the JAX launcher's ``run(resume=True)`` continues to
+    step 2k. Its losses stay within the bf16 step tolerance of the port's
+    uninterrupted 2k-step run, and its data cursor at 2k, which it took back
+    from the record's ``extra``, equals the port's."""
+    from repro.core import BoltSystem as JaxBoltSystem
+    from repro.launch.train import run as jax_run
+    from repro.train.checkpoint import CheckpointManager as JaxCheckpointManager
+    from repro_torch.launch.train import run
+    from repro_torch.train.step import BF16_STEP_TOL
+    k = 4
+    kw = dict(d_model=32, n_layers=2, batch=2, seq=32, vocab=256, log_every=100, ckpt_every=k)
+    system = BoltSystem(n_brokers=2)
+    straight, _, _, _ = run(steps=2 * k, system=system, device="cpu", **kw)
+    half = BoltSystem(n_brokers=2)
+    first, _, _, _ = run(steps=k, system=half, device="cpu", **kw)
+    assert first == straight[:k]
+    jsystem = JaxBoltSystem(n_brokers=2)
+    _carry_back(half, jsystem)
+    losses, _, _ = jax_run(steps=2 * k, system=jsystem, resume=True, **kw)
+    assert len(losses) == k
+    np.testing.assert_allclose(losses, straight[k:], rtol=0, atol=BF16_STEP_TOL["loss"])
+    want = CheckpointManager(system)._replay()[2 * k]["extra"]["cursor"]
+    assert JaxCheckpointManager(jsystem)._replay()[2 * k]["extra"]["cursor"] == want
 
 
 # ---------------------------------------------------------------------------

@@ -56,8 +56,8 @@ TWINS = sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def test_port_sources_import_no_jax_or_repro():
-    assert [p.name for p in TWINS] == ["agents_on_streams_torch.py", "serve_torch.py",
-                                       "train_e2e_torch.py"]
+    assert [p.name for p in TWINS] == ["agents_on_streams_torch.py", "quickstart_torch.py",
+                                       "serve_torch.py", "train_e2e_torch.py"]
     for path in sorted(PORT.rglob("*.py")) + TWINS:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"

@@ -100,10 +100,12 @@ def _transposed():
     (lambda: _qkv(dtype=torch.float32, Dh=128), None, None),
     (lambda: _qkv(dtype=torch.float16), TypeError, "dtype"),
     (lambda: (*_qkv()[:2], _qkv()[2].float()), TypeError, "dtype"),
-    (lambda: _qkv(Dh=96), ValueError, "head dim"),
+    (lambda: _qkv(Dh=96), None, None),                # zero-padded to (128, 128)
     (lambda: (_qkv(Dh=192)[0], _qkv(Dh=192)[1], _qkv(Dh=128)[2]), None, None),
-    (lambda: (*_qkv(Dh=128)[:2], _qkv(Dh=64)[2]), ValueError, "head dims"),
+    (lambda: (*_qkv(Dh=128)[:2], _qkv(Dh=64)[2]), None, None),   # v padded to 128
     (lambda: (*_qkv(Dh=192)[:2], _qkv(Dh=192)[2]), ValueError, "head dims"),
+    (lambda: _qkv(Dh=256), ValueError, "no instantiation"),
+    (lambda: _qkv(Dh=8), None, None),                 # zero-padded to (16, 16)
     (lambda: (*_qkv()[:2], _qkv(Sq=9)[2]), ValueError, "want q"),
     (lambda: (_qkv()[0][0], *_qkv()[1:]), ValueError, "want q"),
     (lambda: _qkv(H=4, KH=3), ValueError, "KH dividing H"),
@@ -111,7 +113,7 @@ def _transposed():
     (_misaligned, ValueError, "16-byte aligned"),
     (_transposed, ValueError, "contiguous"),
 ], ids=["bf16", "fp32", "fp16", "mixed-dtype", "dh96", "mla-192-128", "dhv-differs-128-64",
-        "mla-192-192", "v-length-differs", "q-3d", "kh-not-dividing", "two-devices", "misaligned",
+        "mla-192-192", "dh256", "dh8", "v-length-differs", "q-3d", "kh-not-dividing", "two-devices", "misaligned",
         "non-contiguous"])
 def test_flash_wrapper_checks(make, error, match):
     q, k, v = make()
@@ -428,6 +430,52 @@ def test_flash_backward_matches_plain(B, H, KH, Sq, Sk, Dh, q_offset, causal, dt
     assert all(torch.equal(a, b) for a, b in zip(got, again))      # no atomics
     ref = flash_attention_backward_plain(q, k, v, do, causal=causal, q_offset=q_offset)
     _grads_close(got, ref)
+
+
+# Head dims below 32: the (16, 16) instantiation (32-byte swizzle, m64n16k16
+# products) and the widths the wrapper zero-pads to an instantiation: 8 and
+# 12 to (16, 16), MLA's (24, 16) to (32, 32), at the smoke configs' and the
+# serve example's shapes and on the edges of the tiles
+SMALL_DIMS = [(16, 16), (8, 8), (12, 12), (24, 16)]
+SMALL_CASES = [
+    (4, 2, 1, 8, 8, 0, True),               # examples/serve_torch.py's draft: the engine's batch
+    (1, 2, 1, 19, 19, 0, True),             # a verify prompt
+    (2, 4, 2, 32, 32, 0, True),             # a smoke config's train batch
+    (2, 7, 1, 129, 129, 0, True),           # llava-smoke's G = 7, ragged
+    (1, 4, 2, 16, 48, 32, True),            # q_offset
+    (2, 4, 4, 65, 300, 0, False),           # non-causal Sq != Sk
+    (1, 4, 2, 4097, 4097, 0, True),         # long S
+]
+
+
+@cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", SMALL_DIMS, ids=lambda d: f"{d[0]}-{d[1]}")
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,q_offset,causal", SMALL_CASES)
+def test_flash_small_head_dims_match_plain(B, H, KH, Sq, Sk, q_offset, causal, dims, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention_backward_plain
+    Dhk, Dhv = dims
+    rng = np.random.default_rng(Sq + Sk + Dhk)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to("cuda", getattr(torch, dtype))
+                   for s in ((B, H, Sq, Dhk), (B, KH, Sk, Dhk), (B, KH, Sk, Dhv),
+                             (B, H, Sq, Dhv)))
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = flash_attention.launches, flash_attention.backward_launches
+    out = flash_attention(*qkv, causal=causal, q_offset=q_offset)
+    got = torch.autograd.grad(out, qkv, do)
+    again = flash_attention(*qkv, causal=causal, q_offset=q_offset)
+    got_again = torch.autograd.grad(again, qkv, do)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 2 and flash_attention.backward_launches == bwd + 2
+    assert out.shape == (B, H, Sq, Dhv) and torch.equal(out, again)
+    assert all(torch.equal(a, b) for a, b in zip(got, got_again))  # no atomics
+    ref = flash_attention(q, k, v, causal=causal, q_offset=q_offset, impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    _grads_close(got, flash_attention_backward_plain(q, k, v, do, causal=causal,
+                                                     q_offset=q_offset))
 
 
 @cuda

@@ -303,8 +303,9 @@ def test_train_step_matches_jax(accum):
 
 def test_checkpoint_roundtrip_is_exact():
     """A trained whisper-smoke model and its AdamW state saved to the port's
-    log come back bit for bit, the encoder's and the cross attention's
-    leaves named; the converter's AdamW state walks the same leaves."""
+    log (in the reference's record, so with its config) come back bit for
+    bit, the encoder's and the cross attention's leaves named; the
+    converter's AdamW state walks the same leaves."""
     cfg, jp, model = _models("smoke", trainable=True)
     opt_cfg = AdamWConfig(lr=1e-3)
     _, tb = _batch(cfg, 2, 6, 7)
@@ -312,8 +313,8 @@ def test_checkpoint_roundtrip_is_exact():
         model, adamw_init(model, opt_cfg), tb)
     system = BoltSystem(n_brokers=2)
     ckpt = CheckpointManager(system, chunk_bytes=4096)
-    ckpt.save(1, model, state, extra={"cursor": [1]})
-    step, params, opt, extra = ckpt.restore(device="cpu")
+    ckpt.save(1, model, state, extra={"cursor": [1]}, cfg=cfg)
+    step, params, opt, extra = ckpt.restore(device="cpu", cfg=cfg)
     assert step == 1 and extra == {"cursor": [1]}
     named = dict(model.named_parameters())
     assert set(params) == set(named) and "encoder.blocks.0.mlp.w_in" in params

@@ -31,6 +31,8 @@ _BLOCKED = (
     "assert not bad, bad\n")
 
 TWINS = {
+    "quickstart_torch.py": ((), ("committed at", "losing path rejected:",
+                                 "next poll sees the new record:")),
     "serve_torch.py": ((), ("engine served 4 requests", "byte-identical to sequential")),
     "train_e2e_torch.py": (("--steps", "60"), ("resumed from step", "phase2 final")),
     "agents_on_streams_torch.py": ((), ("[analytics] root log untouched: True",

@@ -18,10 +18,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
 from repro.models.attention import flash_attention as xla_flash  # noqa: E402
-from repro_torch.kernels.flash_attention import (_check_backward,  # noqa: E402
+from repro_torch.kernels.flash_attention import (_check, _check_backward,  # noqa: E402
                                                  flash_attention,
                                                  flash_attention_backward,
-                                                 flash_attention_plain)
+                                                 flash_attention_backward_plain,
+                                                 flash_attention_plain, instantiation)
 
 # fp32: the two differ only in summation order (tests/test_kernels.py's
 # tolerance); bf16: the frameworks round at different places
@@ -160,3 +161,63 @@ def test_backward_wrapper_on_cpu_is_the_plain_gradient():
     out = flash_attention(*qkv, causal=True, q_offset=16)
     for g, r in zip(got, torch.autograd.grad(out, qkv, do)):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+# Head dims between the kernel's instantiations: the wrapper zero-pads q, k,
+# v (and o, dO in the backward) to the smallest instantiation that covers
+# them and passes the kernel the scale of the unpadded width. The identity
+# that makes it exact, on the plain versions: padded inputs at the unpadded
+# scale, sliced, equal the originals' results. Dh 8 (llava-smoke), 12
+# (deepseek-67b-smoke), 16 (six smoke configs and the serve example's
+# draft) and MLA's (24, 16) (deepseek-v2-lite-smoke)
+PAD_DIMS = {8: (16, 16), 12: (16, 16), 16: (16, 16), (24, 16): (32, 32)}
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (True, 7), (False, 0)],
+                         ids=["causal", "q_offset", "full"])
+@pytest.mark.parametrize("dims", list(PAD_DIMS), ids=lambda d: str(d).replace(", ", "-"))
+def test_zero_padding_is_exact(dims, causal, q_offset):
+    Dhk, Dhv = dims if isinstance(dims, tuple) else (dims, dims)
+    wk, wv = instantiation(Dhk, Dhv)
+    assert (wk, wv) == PAD_DIMS[dims]
+    B, H, KH, Sq = 2, 4, 2, 19
+    Sk = Sq + q_offset if causal else 23
+    q, k, v = (torch.from_numpy(a) for a in _qkv(Dhk + Sk, B, H, KH, Sq, Sk, Dhk, Dhv))
+    do = torch.from_numpy(_qkv(Dhv, B, H, KH, Sq, Sq, Dhv)[0])
+    pad = lambda t, w: torch.nn.functional.pad(t, (0, w - t.shape[-1]))  # noqa: E731
+    kw = dict(causal=causal, q_offset=q_offset)
+    out = flash_attention_plain(q, k, v, **kw)
+    padded = flash_attention_plain(pad(q, wk), pad(k, wk), pad(v, wv), scale=Dhk ** -0.5, **kw)
+    assert padded.shape == (B, H, Sq, wv) and not padded[..., Dhv:].any()
+    torch.testing.assert_close(padded[..., :Dhv], out, rtol=1e-6, atol=1e-6)
+    grads = flash_attention_backward_plain(q, k, v, do, **kw)
+    pgrads = flash_attention_backward_plain(pad(q, wk), pad(k, wk), pad(v, wv), pad(do, wv),
+                                            scale=Dhk ** -0.5, **kw)
+    for g, p in zip(grads, pgrads):
+        assert not p[..., g.shape[-1]:].any()
+        torch.testing.assert_close(p[..., :g.shape[-1]], g, rtol=1e-6, atol=1e-6)
+    # at the padded width's own scale the scores differ: the scale matters
+    assert wk == Dhk or not torch.allclose(flash_attention_plain(pad(q, wk), pad(k, wk), pad(v, wv), **kw)
+                              [..., :Dhv], out, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dims,want", [
+    ((16, 16), (16, 16)), ((32, 32), (32, 32)), ((64, 64), (64, 64)), ((96, 96), (128, 128)),
+    ((128, 64), (128, 128)), ((192, 128), (192, 128)), ((130, 100), (192, 128)),
+    ((1, 1), (16, 16)), ((17, 16), (32, 32)),
+])
+def test_instantiation_is_the_smallest_cover(dims, want):
+    assert instantiation(*dims) == want
+
+
+@pytest.mark.parametrize("dims", [(256, 256), (192, 192), (64, 129), (193, 128), (0, 16)])
+def test_uncovered_head_dims_raise(dims):
+    """A width that no instantiation covers raises, naming the instantiations,
+    before any launch."""
+    Dhk, Dhv = dims
+    q, k = torch.zeros(1, 2, 4, Dhk), torch.zeros(1, 2, 4, Dhk)
+    v = torch.zeros(1, 2, 4, Dhv)
+    with pytest.raises(ValueError, match=r"no instantiation of \(\(16, 16\)"):
+        instantiation(Dhk, Dhv)
+    with pytest.raises(ValueError, match="head dims"):
+        _check(q, k, v, 0)

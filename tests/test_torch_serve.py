@@ -167,3 +167,50 @@ def test_torch_target_draft_speculative_is_exact():
     assert ref == jax_sequential(JaxTarget(tcfg, jt), prompt, 8)
     assert (draft.propose(prompt + ref[:3], 4)
             == JaxDraft(dcfg, jd).propose(prompt + ref[:3], 4))
+
+
+def _serve_example_configs():
+    """``examples/serve.py``'s target and draft, unchanged: bf16 (the
+    config's default), a target of 2 heads of 32 and a draft of 2 of 16."""
+    cfg = ModelConfig(name="serve-demo", n_layers=2, d_model=64, n_heads=2,
+                      n_kv_heads=1, d_ff=128, vocab_size=256,
+                      tie_embeddings=True, attn_chunk=32)
+    dcfg = ModelConfig(name="serve-draft", n_layers=1, d_model=32, n_heads=2,
+                       n_kv_heads=1, d_ff=64, vocab_size=256,
+                       tie_embeddings=True, attn_chunk=32)
+    return cfg, dcfg
+
+
+def test_serve_example_bf16_speculative_is_exact():
+    """Quirk 16 pinned: ``examples/serve.py``'s two configurations in bf16,
+    the reference's own weights carried into the port, on the CPU. Each
+    model's bf16 logits hold against JAX's at test_torch_lm.py's bf16
+    tolerance, and the port's speculative decode of the example's request
+    equals its sequential decode token for token."""
+    from repro.models.lm import forward as jax_forward
+    tol = 0.15                                    # tests/test_torch_lm.py's LOGIT_TOL["bfloat16"]
+    cfg, dcfg = _serve_example_configs()
+    assert cfg.dtype == dcfg.dtype == "bfloat16" and dcfg.head_dim_ == 16
+    models = {}
+    for c, seed in ((cfg, 0), (dcfg, 1)):
+        jparams = jax_init_params(c, jax.random.key(seed))
+        models[c.name] = rt.params_from_jax(c, jax.device_get(jparams), device="cpu")
+        toks = np.random.default_rng(seed).integers(2, 256, (2, 19)).astype(np.int32)
+        jlogits = jax_forward(c, jparams, {"tokens": jax.numpy.asarray(toks)})[0]
+        with torch.no_grad():
+            logits = rt.forward(c, models[c.name], {"tokens": torch.from_numpy(toks).long()})[0]
+        np.testing.assert_allclose(logits.float().numpy(), np.asarray(jlogits, np.float32),
+                                   rtol=tol, atol=tol)
+    system = BoltSystem(n_brokers=2)
+    target = ModelTarget(cfg, models[cfg.name], stats=system.serve_stats)
+    draft = ModelDraft(dcfg, models[dcfg.name], stats=system.serve_stats)
+    rng = np.random.default_rng(0)
+    for _ in range(4):                            # the example's four requests come first
+        rng.integers(2, 256, 8)
+    prompt = [int(t) for t in rng.integers(2, 256, 8)]
+    ref = sequential_decode(target, prompt, 12)
+    log = system.create_log("spec-responses")
+    res = SpeculativeDecoder(target, draft, k=2, stats=system.serve_stats).decode_request(
+        log, "spec-0", prompt, 12)
+    assert res.tokens == ref
+    assert decode_response(log.read(0, log.visible_tail)) == {"spec-0": ref}

@@ -397,14 +397,15 @@ def test_xlstm_adamw_update_matches_jax():
 
 def test_xlstm_checkpoint_roundtrip():
     """xLSTM's parameters (bf16 and fp32 leaves) and AdamW state go through a
-    checkpoint fork and come back bit for bit, into a model that trains on."""
+    checkpoint fork (in the reference's record, so with the config) and come
+    back bit for bit, into a model that trains on."""
     cfg = rt.get_smoke_config(ARCH)
     model = rt.init_params(cfg, 3, device="cpu", trainable=True)
     state = adamw_init(model, AdamWConfig())
     system = BoltSystem(n_brokers=2)
     ckpt = CheckpointManager(system, chunk_bytes=4096)
-    ckpt.save(2, model, state, extra={"cursor": [1, 2]})
-    step, params, opt, extra = ckpt.restore(device="cpu")
+    ckpt.save(2, model, state, extra={"cursor": [1, 2]}, cfg=cfg)
+    step, params, opt, extra = ckpt.restore(device="cpu", cfg=cfg)
     assert step == 2 and extra == {"cursor": [1, 2]}
     names = [n for n, _ in model.named_parameters()]
     assert list(params) == names and "blocks.7.slstm.s_rec" in names
