@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --serve-timing N     # only the served paths' times
+    python3 chip_smoke.py --tp-rank R W DIR    # one rank of phase 20 (it starts them)
 
 Phases, each of which fails the run (non-zero exit, no "ok" line):
   1. device: build the flash-attention forward and backward and the mLSTM
@@ -76,7 +77,7 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      the bound and the design floor (the walks' split products at the bf16
      rate, their scratch bytes at the memory rate), each __global__ by
      torch.profiler (ms a call, mean of 3 calls); (b) xlstm-1.3b at full
-     width and depth (48 layers, 42 mLSTM + 6 sLSTM) trained 2 steps by the
+     width and 24 of its 48 layers (21 mLSTM + 3 sLSTM) trained 2 steps by the
      launcher (bf16, AdamW with fp32 master and moments, remat full, batch
      2 x 2048), its first loss against the plain version's on the same
      weights and batch, with step time, tokens/s, peak memory, the busy and
@@ -205,6 +206,29 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      prefill's (whisper on forward + decode_step, llava also with its image
      prefix); (c) one train step, kernels against plain, fp32 and bf16. A
      main path of all four kernels ("smoke configs").
+ 20. tp: tensor parallelism over 'model' on the one card. (a) the
+     one-rank port on qwen3-8b at full width with 2 layers (bf16, seed 5):
+     a forward of 2 x 1024 tokens through the kernels, through the plain
+     version and through the plain version with one sum split (the floor),
+     the kernels' logits within 3x the floor or PREFILL_TOL of the plain
+     version's, the greedy stream of 4 prompts x 32 tokens and 16 new, and
+     one bf16 train step, written to build/tp and the card freed; (b) 2
+     ranks, this script with --tp-rank, gloo over a FileStore, both on
+     cuda:0 (NCCL refuses two ranks on one device), joined within
+     TP_TIMEOUT: each checks first that gloo's all_reduce of a CUDA tensor
+     sums right (the transport: a rank fails where gloo refuses or garbles
+     it), splits the model over the (1,
+     2) (data, model) mesh (repro_torch.distributed.tp.split_model; its
+     parameter bytes the rules' bytes_per_device), and as a main path runs
+     the forward (logits made whole by gather_vocab, within 3x the floor or
+     PREFILL_TOL of the one-rank port's), the greedy stream (tp.greedy; equal
+     to the one-rank stream, or parting only at a near-tie) and one
+     make_zero1_train_step (within BF16_STEP_TOL of the one-rank step), the
+     flash kernels on 16 of the 32 q heads and 4 of the 8 kv heads (their
+     shapes, (2, 16, 4, 1024) and (4, 16, 4, 32) at Dh 128, are in
+     KERNEL_CASES, held against plain by phases 1 and 9a). The ranks'
+     launches are summed. Their times are printed, but two ranks share one
+     card: they are no measure of a split's speed.
 Checkpoints cross between the packages both ways only on the CPU
 (tests/test_torch_checkpoint.py): this machine has no JAX to read or write
 the reference's side; phases 9d-12d resume through the reference's record.
@@ -278,6 +302,8 @@ KERNEL_CASES = [
     (2, 4, 2, 129, 300, 16, True, 171),        # Dh 16 past a tile, q_offset
     (1, 4, 2, 4097, 4097, 16, True, 0),        # Dh 16, long S
     (2, 4, 4, 65, 300, (24, 16), False, 0),    # padded MLA, non-causal Sq != Sk
+    (2, 16, 4, 1024, 1024, 128, True, 0),      # phase 20: a rank's half of qwen3-8b's
+    (4, 16, 4, 32, 32, 128, True, 0),          # heads, MESH_STEP's batch and the prefill
 ]
 # bf16 kernel against plain on the edges of its 128-row q and kv tiles and
 # of its TMA boxes: (B, H, KH, Sq, Sk, Dh, causal, q_offset)
@@ -377,18 +403,21 @@ RESUME_K = 3
 # floor exp(-m) wins
 MLSTM_BWD_CASES = MLSTM_CASES + [(1, 2, 128, 96, 64, True, "floor")]
 MLSTM_TRAIN_SHAPE = (2, 4, 2048, 1024, 64)     # xlstm-1.3b training: B, H, S, Dh, chunk
-# phase 10b: xlstm-1.3b at full width and depth (1.3 B parameters x 16 bytes
-# of bf16 weights, fp32 master and moments and bf16 gradients, ~21 GB, fit
-# one card); 2 x 2048 tokens (xLSTM's published context for 1.3B), remat full.
-# 2 steps, not 4: a step takes ~48 s on an H100, nearly all of it the eager
-# sLSTM step loop (6 layers x 2048 steps, ~90 kernels a step with its remat
-# and backward). Its tied embeddings start it far above ln V (the residual
-# stream still holds the input token's embedding, whose logit is ~|e| sqrt(d);
-# the JAX reference starts there too, tests/test_torch_xlstm_train.py), so
-# its first loss is held against a forward of the initial weights on the
-# first batch through the plain version, within XLSTM_FLOOR_FACTOR times the
-# floor of two plain forwards (chunk 64 against 32) or BF16_STEP_TOL's loss
-XLSTM_TRAIN_RUN = dict(config="xlstm-1.3b", n_layers=48, batch=2, seq=2048, accum=1, steps=2)
+# phase 10b: xlstm-1.3b at full width (at full depth, 1.3 B parameters x 16
+# bytes of bf16 weights, fp32 master and moments and bf16 gradients, ~21 GB,
+# fit one card); 2 x 2048 tokens (xLSTM's published context for 1.3B), remat
+# full. 2 steps, not 4: a step took ~48 s on an H100 at 48 layers, nearly all
+# of it the eager sLSTM step loop (6 layers x 2048 steps, ~90 kernels a step
+# with its remat and backward). Cut to 24 of the 48 layers (three whole
+# patterns: 21 mLSTM + 3 sLSTM), which halves that loop, to keep the script
+# within its time limit once phase 20 runs; PERF.md section 4 lists the cut.
+# Its tied embeddings start it far above ln V (the residual stream still holds
+# the input token's embedding, whose logit is ~|e| sqrt(d); the JAX reference
+# starts there too, tests/test_torch_xlstm_train.py), so its first loss is
+# held against a forward of the initial weights on the first batch through the
+# plain version, within XLSTM_FLOOR_FACTOR times the floor of two plain
+# forwards (chunk 64 against 32) or BF16_STEP_TOL's loss
+XLSTM_TRAIN_RUN = dict(config="xlstm-1.3b", n_layers=24, batch=2, seq=2048, accum=1, steps=2)
 # phase 10c: one step, kernels against plain, full width with one whole
 # pattern (7 mLSTM + 1 sLSTM), batch 2 x 512 (8 chunks); where random-weight
 # ill-conditioning puts the floor of two plain steps (chunk 64 against 32)
@@ -493,6 +522,16 @@ MESH_STEP = dict(config="qwen3-8b", n_layers=2, shape=(2, 1024))
 # tokens and 4 new tokens served, and one train step of B x S
 SMOKE_SERVE = (4, 16, 4)
 SMOKE_STEP = (2, 64)
+# phase 20: MESH_STEP's qwen3-8b (full width, 2 layers, bf16) split over
+# 'model' by TP_WORLD gloo ranks, each a process on the one card, held
+# against the one-rank port: MESH_STEP's batch forward and step, and a
+# greedy stream of TP_NEW tokens after TP_PROMPT's prompts; the ranks end
+# within TP_TIMEOUT seconds or fail the phase
+TP_WORLD = 2
+TP_PROMPT = (4, 32)
+TP_NEW = 16
+TP_TIMEOUT = 600
+TP_FLOOR_FACTOR = 3.0
 # phase 17: the train twin at its default 150 steps (4 layers, 4 x 128)
 EXAMPLE_TRAIN_ARGS = ("--steps", "150")
 DRYRUN_CELLS = ([(a, "decode_32k") for a in ("smollm-135m", "deepseek-67b",
@@ -3401,6 +3440,326 @@ def phase_smoke() -> tuple:
     return got
 
 
+def tp_batch(cfg) -> dict:
+    """MESH_STEP's batch (B, S), seeded: the same tokens in every process."""
+    B, S = MESH_STEP["shape"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def tp_reference(cfg, out: Path) -> dict:
+    """(a) of phase 20: the one-rank port on the weights the ranks make
+    (seed 5). MESH_STEP's batch forward through the kernels, through the
+    plain version and through the plain version with one sum split (the
+    floor), the kernels' logits within TP_FLOOR_FACTOR times the floor or
+    PREFILL_TOL of the plain version's (the ranks' rule; else it raises);
+    the greedy stream of TP_PROMPT (``greedy_stream``); one bf16
+    ``make_train_step`` (the (1, 1) ZeRO-1 step's numbers bit for bit, by
+    phase 16). Written to ``out`` for the ranks, the updated parameters cut
+    into each rank's slices; the card is freed after. Returns the one-rank
+    times."""
+    from repro_torch import forward, init_params
+    from repro_torch.distributed import tp
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    batch = tp_batch(cfg)
+    tokens = {"tokens": batch["tokens"]}
+    model = init_params(cfg, seed=5)
+    with torch.no_grad():
+        kern = forward(cfg, model, tokens)[0]
+        plain = forward(cfg, model, tokens, attn_impl="plain")[0]
+        with flash_calls(lambda flash, *args, **kw: attention_split_sum(*args, **kw)):
+            split = forward(cfg, model, tokens)[0]
+        floor, kvp = logit_diff(split, plain), logit_diff(kern, plain)
+        del plain, split
+        tol = PREFILL_TOL[torch.bfloat16]
+        if any(kvp[key] > max(TP_FLOOR_FACTOR * floor[key], tol[key]) for key in tol):
+            raise AssertionError(f"the one-rank port's kernels against plain {kvp}, beyond "
+                                 f"{TP_FLOOR_FACTOR}x the floor {floor} and {tol}")
+        fwd_ms = cuda_ms(lambda: forward(cfg, model, tokens), iters=3, warmup=1)
+    torch.save({"logits": kern.cpu(), "floor": floor}, out / "forward.pt")
+    del kern
+    toks, margins, first = greedy_stream(cfg, model, {"tokens": prefill_tokens(cfg, TP_PROMPT)},
+                                         TP_NEW)
+    torch.save({"tokens": toks.cpu(), "margins": margins.cpu(), "first": first.cpu()},
+               out / "stream.pt")
+    del model, first
+    torch.cuda.empty_cache()
+    model = init_params(cfg, seed=5, trainable=True)
+    opt = AdamWConfig(lr=STEP_LR, weight_decay=0.01)
+    state = adamw_init(model, opt)
+    t0 = time.perf_counter()
+    _, state, m = make_train_step(cfg, opt)(model, state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del state
+    dims = tp.split_dims(cfg, MeshShape(("data", "model"), (1, TP_WORLD)))
+    for r in range(TP_WORLD):
+        torch.save({n: (p.detach().chunk(TP_WORLD, dims[n][0])[r] if n in dims
+                        else p.detach()).cpu() for n, p in model.named_parameters()},
+                   out / f"step{r}.pt")
+    (out / "step.json").write_text(json.dumps({"loss": float(m["loss"]),
+                                               "grad_norm": float(m["grad_norm"])}))
+    del model, m
+    torch.cuda.empty_cache()
+    say(f"[tp] one-rank port, {cfg.name} {cfg.n_layers} layers bf16: forward B={batch['tokens'].shape[0]} "
+        f"S={batch['tokens'].shape[1]} {fwd_ms:.3f} ms, kernels vs plain max_abs "
+        f"{kvp['max_abs']:.3e} rel_rms {kvp['rel_rms']:.3e}, floor (plain split sum vs plain) "
+        f"max_abs {floor['max_abs']:.3e} rel_rms {floor['rel_rms']:.3e}; greedy stream "
+        f"{tuple(toks.shape)}; one step {step_s:.3f} s")
+    return {"forward_ms": fwd_ms, "step_s": step_s}
+
+
+def tp_stream(cfg, model, prompts, mg) -> tuple:
+    """``greedy_stream`` on the split model: the prefill and TP_NEW - 1
+    ``decode_step``s, each token ``tp.greedy`` over the ranks' vocabulary
+    slices. Returns (tokens (B, TP_NEW), the prefill's logits made whole)."""
+    from repro_torch import decode_step, forward
+    from repro_torch.distributed import tp
+    S = prompts.shape[1]
+    logits, _, caches, _ = forward(cfg, model, {"tokens": prompts}, want_caches=True,
+                                   max_len=S + TP_NEW)
+    first = tp.gather_vocab(logits, mg)
+    outs = []
+    for t in range(TP_NEW):
+        outs.append(tp.greedy(logits[:, -1], cfg.vocab_size, mg))
+        if t + 1 < TP_NEW:
+            logits, caches = decode_step(cfg, model, caches, outs[-1][:, None], S + t)
+    return torch.stack(outs, 1), first
+
+
+def tp_rank(rank: int, world: int, out: Path) -> int:
+    """One rank of phase 20 (``chip_smoke.py --tp-rank RANK WORLD DIR``):
+    gloo over a FileStore in DIR, on cuda:0 beside the other ranks. First
+    the transport: gloo's all_reduce of a CUDA tensor, summed right (the
+    rank fails where gloo refuses or garbles it). Then on the (1,
+    WORLD) (data, model) mesh, as a main path (the flash counts set to 0
+    before and read after): qwen3-8b split by ``tp.split_model`` (its bytes
+    the rules' ``bytes_per_device``), its forward of MESH_STEP's batch made
+    whole by ``tp.gather_vocab`` against the one-rank port's within
+    TP_FLOOR_FACTOR times the floor or PREFILL_TOL; the greedy stream
+    against the one-rank stream, equal or parting only at a near-tie; one
+    ``make_zero1_train_step`` against the one-rank step at BF16_STEP_TOL;
+    every flash call on the rank's heads. Writes DIR/rank{RANK}.json; any
+    failure raises, so the rank exits non-zero."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch import forward, get_config, init_params
+    from repro_torch.distributed import tp, use_mesh
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.dryrun import param_bytes
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.train import (AdamWConfig, adamw_init, distribute_opt_state,
+                                   local_batch, make_zero1_train_step, opt_state_shardings)
+    from repro_torch.train.step import BF16_STEP_TOL
+    dist.init_process_group("gloo", store=dist.FileStore(str(out / "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    torch.cuda.set_device(0)
+    probe = torch.full((1 << 20,), float(rank + 1), device="cuda")
+    dist.all_reduce(probe)                  # raises where gloo takes no CUDA tensor
+    if not bool((probe == world * (world + 1) / 2).all()):
+        raise AssertionError(f"gloo's all_reduce of a CUDA tensor over {world} ranks "
+                             f"gave {probe[:4]}")
+    rep = {"transport": f"gloo takes a CUDA tensor for all_reduce: {probe.numel()} "
+                        f"floats summed right over {world} ranks (torch {torch.__version__})"}
+    mesh = make_mesh((1, world), ("data", "model"))
+    cfg = get_config(MESH_STEP["config"]).with_(n_layers=MESH_STEP["n_layers"])
+    batch = tp_batch(cfg)
+    prompts = prefill_tokens(cfg, TP_PROMPT)
+    mg = tp.vocab_group
+    model = tp.split_model(cfg, init_params(cfg, seed=5), mesh)
+    rep["bytes"] = [sum(p.numel() * p.element_size() for p in model.parameters()),
+                    param_bytes(cfg, mesh)]
+    heads = set()
+
+    def seen(flash, q, k, v, **kw):
+        heads.add((q.shape[1], k.shape[1]))
+        return flash(q, k, v, **kw)
+
+    ref = torch.load(out / "forward.pt")
+    one = torch.load(out / "stream.pt")
+    with flash_calls(seen), use_mesh(mesh):
+        torch.cuda.synchronize()
+        flash_attention.launches = flash_attention.backward_launches = 0   # main path
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits = forward(cfg, model, {"tokens": batch["tokens"]})[0]
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            local_vocab = logits.shape[-1]
+            whole = tp.gather_vocab(logits, mg(cfg))
+            del logits
+            t0 = time.perf_counter()
+            toks, first = tp_stream(cfg, model, prompts, mg(cfg))
+            torch.cuda.synchronize()
+            stream_s = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+        whole_model = init_params(cfg, seed=5, trainable=True)
+        opt = AdamWConfig(lr=STEP_LR, weight_decay=0.01)
+        osh = opt_state_shardings(cfg, whole_model, mesh, opt)
+        state = distribute_opt_state(adamw_init(whole_model, opt), osh, mesh)
+        model = tp.split_model(cfg, whole_model, mesh)
+        del whole_model
+        step = make_zero1_train_step(cfg, opt, mesh, osh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, m = step(model, state, local_batch(batch, mesh))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        got = (flash_attention.launches, flash_attention.backward_launches)  # ... ends
+        peak = torch.cuda.max_memory_allocated()
+    del state, step
+    torch.cuda.empty_cache()
+    n = cfg.n_layers
+    want = (4 * n, n)       # the two prefills, the step's forward twice (remat full)
+    d = logit_diff(whole, ref["logits"].cuda())
+    floor = ref["floor"]
+    tol = PREFILL_TOL[torch.bfloat16]
+    logits_ok = all(d[key] <= max(TP_FLOOR_FACTOR * floor[key], tol[key]) for key in tol)
+    del whole, ref
+    parted = (toks.cpu() != one["tokens"]).any(0).nonzero()
+    if not len(parted):
+        stream = "equals the one-rank stream"
+    else:
+        at = int(parted[0])
+        rows = (toks.cpu()[:, at] != one["tokens"][:, at]).nonzero()[:, 0]
+        worst = one["margins"][rows, at].max().item()
+        diff = (first.float().cpu() - one["first"].float()).abs().max().item()
+        stream = (f"parts from the one-rank stream at step {at} of {TP_NEW}, one-rank top-2 "
+                  f"margin {worst:.4f} (a near-tie within twice the prefills' logit "
+                  f"difference {diff:.4f}: {worst <= 2 * diff})")
+        if worst > 2 * diff:
+            raise AssertionError(f"rank {rank}: the stream {stream}")
+    # the step against the one-rank step's slices, in BF16_STEP_TOL's terms;
+    # the replicated leaves' sums counted on rank 0 alone
+    ref_step = json.loads((out / "step.json").read_text())
+    want_p = torch.load(out / f"step{rank}.pt")
+    old = tp.split_model(cfg, init_params(cfg, seed=5), mesh)
+    split = tp.split_dims(cfg, describe(mesh))
+    sums = torch.zeros(2, dtype=torch.float64, device="cuda")
+    worst_agree = 1.0
+    for (name, p), (_, o) in zip(model.named_parameters(), old.named_parameters()):
+        w, p, o = want_p[name].cuda().float(), p.detach().float(), o.float()
+        agree = ((p - o) - (w - o)).abs().le(STEP_LR / 2).float().mean().item()
+        worst_agree = min(worst_agree, agree)
+        if name in split or rank == 0:
+            sums += torch.stack([(p - w).square().sum(), w.square().sum()]).double()
+    dist.all_reduce(sums)
+    rel = (sums[0] / sums[1]).sqrt().item()
+    st = BF16_STEP_TOL
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    step_ok = (abs(loss - ref_step["loss"]) <= st["loss"]
+               and abs(gnorm - ref_step["grad_norm"]) <= st["grad_norm"] * ref_step["grad_norm"]
+               and worst_agree >= st["update_agree"] and rel <= st["params_rel_rms"])
+    H, KH = cfg.n_heads_padded // world, cfg.n_kv_heads // world
+    rep.update({
+        "launches": list(got), "want": list(want), "heads": sorted(heads), "peak": peak,
+        "local_vocab": local_vocab, "logits": d, "floor": floor, "stream": stream,
+        "step": {"loss": [loss, ref_step["loss"]], "grad_norm": [gnorm, ref_step["grad_norm"]],
+                 "update_agree": worst_agree, "params_rel_rms": rel},
+        "seconds": {"forward": fwd_s, "stream": stream_s, "step": step_s}})
+    (out / f"rank{rank}.json").write_text(json.dumps(rep))
+    say(f"[tp rank {rank}] {json.dumps(rep)}")
+    dist.destroy_process_group()
+    bad = []
+    if rep["bytes"][0] != rep["bytes"][1]:
+        bad.append(f"parameter bytes {rep['bytes']}")
+    if got != want:
+        bad.append(f"flash launches {got}, want {want}")
+    if sorted(heads) != [(H, KH)]:
+        bad.append(f"flash calls on (q, kv) heads {sorted(heads)}, want {(H, KH)}")
+    if not logits_ok:
+        bad.append(f"logits {d} against the floor {floor}")
+    if not step_ok:
+        bad.append(f"step {rep['step']}")
+    if bad:
+        raise AssertionError(f"rank {rank}: " + "; ".join(bad))
+    return 0
+
+
+def run_tp_ranks(out: Path) -> list:
+    """(b) of phase 20: TP_WORLD ranks, each this script with ``--tp-rank``,
+    started together and joined; a rank's failure, or TP_TIMEOUT passing,
+    fails the phase (the ranks still running are killed). Returns each
+    rank's report."""
+    procs, logs = [], []
+    for r in range(TP_WORLD):
+        logs.append(open(out / f"rank{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--tp-rank", str(r),
+             str(TP_WORLD), str(out)], stdout=logs[-1], stderr=subprocess.STDOUT, cwd=ROOT))
+    deadline = time.perf_counter() + TP_TIMEOUT
+    rcs = []
+    try:
+        for p in procs:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.perf_counter())))
+    except subprocess.TimeoutExpired:
+        rcs.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if rcs != [0] * TP_WORLD:
+        for r in range(TP_WORLD):
+            for line in (out / f"rank{r}.log").read_text().splitlines()[-30:]:
+                say(f"[tp rank {r} log] {line}")
+        raise AssertionError(f"the tensor-parallel ranks ended {rcs}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
+
+
+def phase_tp() -> tuple:
+    """Phase 20: tensor parallelism over 'model' on the one card. (a) the
+    one-rank reference (``tp_reference``), the card freed after; (b)
+    TP_WORLD gloo ranks on cuda:0, each first checking that gloo's
+    all_reduce takes a CUDA tensor, run the split (``tp_rank``) and are
+    joined. NCCL refuses two ranks on one device; gloo's all_reduce and
+    broadcast, all the split needs, take CUDA tensors. Two ranks share one card, so their
+    times are no measure of a split's speed. Returns the flash forward's
+    and backward's launches, summed over the ranks."""
+    import shutil
+    from repro_torch import get_config
+    t_phase = time.perf_counter()
+    out = ROOT / "build" / "tp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cfg = get_config(MESH_STEP["config"]).with_(n_layers=MESH_STEP["n_layers"])
+    one = tp_reference(cfg, out)
+    t0 = time.perf_counter()
+    reports = run_tp_ranks(out)
+    ranks_s = time.perf_counter() - t0
+    for r, rep in enumerate(reports):
+        sec = rep["seconds"]
+        say(f"[tp] rank {r} of {TP_WORLD} on the one card ({rep['transport']}): "
+            f"{rep['bytes'][0] / 2 ** 30:.3f} GiB of parameters (the rules' bytes_per_device "
+            f"on (1, {TP_WORLD}): {rep['bytes'][1] / 2 ** 30:.3f}), vocabulary slice "
+            f"{rep['local_vocab']} of {cfg.padded_vocab}, flash calls on (q, kv) heads "
+            f"{rep['heads']} of ({cfg.n_heads_padded}, {cfg.n_kv_heads}); launches forward "
+            f"{rep['launches'][0]}, backward {rep['launches'][1]} (want {rep['want']}); "
+            f"logits vs the one-rank port max_abs {rep['logits']['max_abs']:.3e} rel_rms "
+            f"{rep['logits']['rel_rms']:.3e} (floor {rep['floor']['max_abs']:.3e} / "
+            f"{rep['floor']['rel_rms']:.3e}, tol {TP_FLOOR_FACTOR}x floor or "
+            f"{PREFILL_TOL[torch.bfloat16]}); stream {rep['stream']}; ZeRO-1 step loss "
+            f"{rep['step']['loss'][0]:.6f} / {rep['step']['loss'][1]:.6f}, grad norm "
+            f"{rep['step']['grad_norm'][0]:.6f} / {rep['step']['grad_norm'][1]:.6f}, updates "
+            f"within lr/2 on >= {rep['step']['update_agree']:.4f}, params rel_rms "
+            f"{rep['step']['params_rel_rms']:.3e}; peak {rep['peak'] / 2 ** 30:.2f} GiB; forward "
+            f"{sec['forward']:.3f} s, stream {sec['stream']:.3f} s, step {sec['step']:.3f} s "
+            f"(two ranks share one card: no measure of a split's speed)")
+    shutil.rmtree(out, ignore_errors=True)
+    got = tuple(sum(rep["launches"][i] for rep in reports) for i in (0, 1))
+    say(f"[tp] phase 20 {time.perf_counter() - t_phase:.1f} s: the ranks {ranks_s:.1f} s; the "
+        f"one-rank port's forward {one['forward_ms']:.3f} ms and step {one['step_s']:.3f} s "
+        f"alone on the card; flash launches over the ranks forward {got[0]}, backward {got[1]}")
+    return got
+
+
 def serve_timing(repeats: int) -> None:
     """``--serve-timing N``: only the served paths' times, N times each, to
     compare two commits' packages in alternating processes (this script
@@ -3462,12 +3821,25 @@ def main() -> int:
     if sys.argv[1:2] == ["--serve-timing"]:
         serve_timing(int(sys.argv[2]))
         return 0
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return tp_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     from repro_torch import get_config, init_params
     from repro_torch.kernels.flash_attention import flash_attention
+    seconds, then = {}, [time.perf_counter()]
+
+    def lap(phases: str) -> None:
+        """Book the seconds since the last lap to ``phases`` and free the card."""
+        torch.cuda.empty_cache()
+        now = time.perf_counter()
+        seconds[phases] = round(now - then[0], 1)
+        then[0] = now
 
     phase_device()
+    lap("1")
     kernel = phase_kernel()
+    lap("2")
     mlstm = phase_mlstm_kernel()
+    lap("6")
     cfg = get_config("qwen3-8b")
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0)
@@ -3479,42 +3851,45 @@ def main() -> int:
     timed = phase_prefill(cfg, model)
     served, _ = phase_serve(cfg, model, flash_attention, cfg.n_layers, SERVE_PROMPTS, "serve")
     del model
-    torch.cuda.empty_cache()
+    lap("3-4")
     phase_speculative()
-    torch.cuda.empty_cache()
+    lap("5")
     mlstm["launches_by_path"] = {"serve xlstm-1.3b": phase_xlstm()}
-    torch.cuda.empty_cache()
+    lap("7-8")
     backward, trained_fwd, trained_bwd = phase_train()
-    torch.cuda.empty_cache()
+    lap("9")
     mlstm_bwd, xlstm_fwd, xlstm_bwd = phase_train_xlstm()
-    torch.cuda.empty_cache()
+    lap("10")
     moe_fwd, moe_bwd = phase_moe()
-    torch.cuda.empty_cache()
+    lap("11")
     mla_fwd, mla_bwd = phase_mla()
-    torch.cuda.empty_cache()
+    lap("12")
     jamba = phase_jamba()
-    torch.cuda.empty_cache()
+    lap("13")
     whisper_fwd, whisper_bwd = phase_whisper()
-    torch.cuda.empty_cache()
+    lap("14")
     llava = phase_llava()
-    torch.cuda.empty_cache()
+    lap("15")
     mesh_fwd, mesh_bwd = phase_mesh()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    lap("16")
     example_fwd, example_bwd = phase_examples()
-    t1 = time.perf_counter()
+    lap("17")
     phase_costs(timed)
-    t2 = time.perf_counter()
+    lap("18")
     smoke = phase_smoke()
-    say(f"[examples] phase 17 {t1 - t0:.1f} s; [costs] phase 18 {t2 - t1:.1f} s; [smoke] "
-        f"phase 19 {time.perf_counter() - t2:.1f} s")
+    lap("19")
+    tp_fwd, tp_bwd = phase_tp()
+    lap("20")
+    say(f"[time] seconds by phase: {json.dumps(seconds)}, {sum(seconds.values()):.1f} in all")
     mesh_path = "train qwen3-8b ZeRO-1 on the host mesh"
+    tp_path = f"qwen3-8b split over 'model' by {TP_WORLD} gloo ranks on one card"
     kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd, **mla_fwd,
                                   "serve jamba-1.5-large-398b": jamba, **whisper_fwd, **llava,
-                                  mesh_path: mesh_fwd, **example_fwd, "smoke configs": smoke[0]}
+                                  mesh_path: mesh_fwd, **example_fwd, "smoke configs": smoke[0],
+                                  tp_path: tp_fwd}
     backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd, **whisper_bwd,
                                     mesh_path: mesh_bwd, **example_bwd,
-                                    "smoke configs": smoke[1]}
+                                    "smoke configs": smoke[1], tp_path: tp_bwd}
     mlstm["launches_by_path"].update(xlstm_fwd)
     mlstm["launches_by_path"]["smoke configs"] = smoke[2]
     mlstm_bwd["launches_by_path"] = {**xlstm_bwd, "smoke configs": smoke[3]}

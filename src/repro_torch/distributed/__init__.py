@@ -1,5 +1,6 @@
 """Distribution layer: mesh context, activation sharding helpers, parameter
-sharding rules with divisibility-aware fallbacks, and their DTensor layouts."""
+sharding rules with divisibility-aware fallbacks, their DTensor layouts, and
+tensor parallelism over 'model' (``tp``)."""
 
 from .context import P, PartitionSpec, axis_size, get_mesh, pspec, shard, use_mesh
 from .sharding import Sharding, distribute, param_shardings, placements, zero_extend

@@ -8,8 +8,10 @@ not divide the dim falls back to its suffix. ``shard(x, ...)`` does nothing
 with no mesh active. Under a mesh it redistributes a ``DTensor`` to the
 filtered spec, the counterpart of ``with_sharding_constraint``; a plain
 tensor is a rank's own data with no global layout to constrain, and comes
-back as it is. The port's models do not call ``shard`` yet: the reference's
-activation constraints wait for tensor parallelism (ROADMAP.md).
+back as it is. The port's models do not call ``shard``: they run on plain
+local tensors, and mark the reference's ``shard()`` sites with the
+collectives of ``distributed/tp.py`` (``copy_to_model``,
+``reduce_from_model``), which a split over 'model' needs there.
 """
 
 from __future__ import annotations
@@ -97,7 +99,8 @@ def _filter_axes(axes, shape=None) -> Optional[P]:
 
 def shard(x, *axes: AxisName):
     """Redistribute a ``DTensor`` to ``axes`` filtered to the active mesh;
-    anything else, or with no mesh, comes back as it is."""
+    anything else, or with no mesh, comes back as it is. The models' own
+    activation sites use ``tp.copy_to_model`` and ``tp.reduce_from_model``."""
     spec = _filter_axes(axes, getattr(x, "shape", None))
     if spec is None or not isinstance(x, DTensor):
         return x

@@ -1,0 +1,370 @@
+"""Tensor parallelism over the mesh's 'model' axis, Megatron style.
+
+The reference splits the weights over 'model' by the rules of
+``distributed/sharding.py`` and pins its activations to that axis with
+``shard()``; XLA's partitioner then writes the collectives. torch runs no
+partitioner, so the port writes them at the reference's ``shard()`` sites,
+on plain local tensors and two autograd functions:
+
+* ``copy_to_model`` (identity forward, all-reduce backward) where a
+  replicated activation enters a column-parallel product: q, k and v on the
+  rank's heads (``src/repro/models/attention.py:202``, ``:239-240``), the
+  MLP's ``w_in``/``w_gate`` on its ``d_ff`` slice (``layers.py:67``), the
+  head on its vocabulary slice (``lm.py:289``);
+* ``reduce_from_model`` (all-reduce forward, identity backward) where a
+  row-parallel product's partial sums come back replicated: after ``wo``
+  (``attention.py:245``) and ``w_out`` (``lm.py:153``), and after the
+  vocab-parallel embedding lookup (``lm.py:242``, ``:264``).
+
+The only collectives on the 'model' group are ``all_reduce`` and
+``broadcast``, so one program runs on NCCL across cards and on gloo ranks
+sharing one card. Sums cross ranks in fp32.
+
+A dim splits leaf by leaf, exactly as the rules decide it: only where
+'model' divides it. So a split can be mixed. Where ``wq`` splits and
+``wk``/``wv`` do not ('model' divides H but not KH), each rank's H/m q
+heads lie in one kv group of G = H/KH that several ranks share, and the
+rank takes that kv head (q head h reads kv head h // G, the flash kernel's
+mapping). Where a rank's q heads would straddle kv groups instead (H/m does
+not divide G), ``check_split`` refuses the split (ROADMAP item 7d); no
+registered configuration meets that on the meshes the repo names. The replicated
+weights those heads read (``wk``, ``wv``, the qk-norm scales) pass through
+``copy_to_model`` too, so their partial gradients are summed over 'model'.
+
+A split runs where the ambient mesh (``use_mesh``) is a ``DeviceMesh`` whose
+'model' axis has more than one rank, and only for the dense ``attn+mlp``
+model: ``check_split`` refuses every other block kind (ROADMAP item 7d). A
+``MeshShape``, such as the dry run's production meshes, has no process
+group and runs no split.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..launch.mesh import Mesh, MeshShape, describe
+from ..models.config import ModelConfig
+from .context import get_mesh
+from .sharding import _spec_for, param_shardings
+
+ROADMAP_ITEM = "ROADMAP item 7d"
+
+
+@dataclass(frozen=True)
+class ModelGroup:
+    """The 'model' process group of a mesh, its size and this rank's
+    coordinate on it."""
+    group: dist.ProcessGroup
+    size: int
+    rank: int
+
+
+def model_group(mesh: Optional[Mesh] = None) -> Optional[ModelGroup]:
+    """The 'model' group of ``mesh`` (default the ambient mesh) where it is a
+    ``DeviceMesh`` with more than one rank on 'model'; else None."""
+    mesh = get_mesh() if mesh is None else mesh
+    if not isinstance(mesh, DeviceMesh) or "model" not in (mesh.mesh_dim_names or ()):
+        return None
+    size = mesh.size(mesh.mesh_dim_names.index("model"))
+    if size == 1:
+        return None
+    return ModelGroup(mesh.get_group("model"), size, mesh.get_local_rank("model"))
+
+
+# ------------------------------------------------------------ collectives
+def summed(t: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """``t`` summed over the 'model' group in fp32, in ``t``'s dtype; ``t``
+    itself is left as it was."""
+    acc = torch.empty(t.shape, dtype=torch.float32, device=t.device).copy_(t)
+    dist.all_reduce(acc, group=mg.group)
+    return acc.to(t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return summed(grad, ctx.mg), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg):
+        return summed(x, mg)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
+    """Identity forward, gradient summed over 'model': a replicated tensor
+    entering this rank's part of a product. ``mg`` None: ``x``."""
+    return x if mg is None else _CopyToModel.apply(x, mg)
+
+
+def reduce_from_model(x: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
+    """Partial sums summed over 'model', gradient passed through: a
+    row-parallel product made replicated. ``mg`` None: ``x``."""
+    return x if mg is None else _ReduceFromModel.apply(x, mg)
+
+
+# ------------------------------------------------------------ the split plan
+def _split_dim(name: str, shape: Tuple[int, ...],
+               mesh: Optional[Mesh] = None) -> Optional[int]:
+    """The dim of leaf ``name`` (its whole ``shape``) that the rules split
+    over 'model' on ``mesh`` (default the ambient mesh), or None."""
+    spec = _spec_for(name, shape, get_mesh() if mesh is None else mesh)
+    return next((i for i, a in enumerate(spec) if a == "model"), None)
+
+
+def _kv_group_run(cfg: ModelConfig, mesh: Mesh) -> Optional[Tuple[int, int]]:
+    """``(H/m, G)`` where the rules split ``wq`` over 'model' on ``mesh``
+    and keep ``wk``/``wv`` whole, so each rank reads its q heads' kv head
+    of the replicated ones; else None."""
+    D, H, KH, Dh = cfg.d_model, cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
+    if (_split_dim("wq", (D, H, Dh), mesh) is None
+            or _split_dim("wk", (D, KH, Dh), mesh) is not None):
+        return None
+    return H // describe(mesh).shape["model"], H // KH
+
+
+@dataclass(frozen=True)
+class HeadSplit:
+    """This rank's attention heads: q heads ``rank * H/m`` on, and the
+    ``n_kv`` kv heads they read, those in its cache. ``kv0`` None: ``wk``/
+    ``wv`` split by the rules and the rank holds its own KH/m; else the one
+    kv head (``n_kv`` 1) this rank's q heads share, taken of the replicated
+    ``wk``/``wv``."""
+    mg: ModelGroup
+    kv0: Optional[int]
+    n_kv: int
+
+    def local_kv(self, w: torch.Tensor) -> torch.Tensor:
+        """The rank's kv heads of ``wk`` or ``wv`` (D, KH, Dh)."""
+        if self.kv0 is None:
+            return w
+        return copy_to_model(w, self.mg).narrow(1, self.kv0, self.n_kv)
+
+
+def head_split(cfg: ModelConfig) -> Optional[HeadSplit]:
+    """The split of attention on the ambient mesh; None where there is no
+    'model' group or the rules keep ``wq`` whole (every rank then computes
+    all heads)."""
+    mg = model_group()
+    if mg is None:
+        return None
+    H, KH = cfg.n_heads_padded, cfg.n_kv_heads
+    if _split_dim("wq", (cfg.d_model, H, cfg.head_dim_)) is None:
+        return None
+    run = _kv_group_run(cfg, get_mesh())
+    if run is None:
+        return HeadSplit(mg, None, KH // mg.size)
+    Hl, G = run
+    if G % Hl:
+        check_split(cfg)                          # raises
+    return HeadSplit(mg, mg.rank * Hl // G, 1)
+
+
+def cache_kv_heads(cfg: ModelConfig) -> int:
+    """The kv heads of this rank's self-attention cache."""
+    sp = head_split(cfg)
+    return cfg.n_kv_heads if sp is None else sp.n_kv
+
+
+def ff_group(cfg: ModelConfig) -> Optional[ModelGroup]:
+    """The 'model' group where the rules split the MLP's d_ff; else None."""
+    mg = model_group()
+    if mg is None or _split_dim("w_in", (cfg.d_model, cfg.d_ff)) is None:
+        return None
+    return mg
+
+
+def vocab_group(cfg: ModelConfig) -> Optional[ModelGroup]:
+    """The 'model' group where the rules split the vocabulary (``embed``
+    and ``head`` alike); else None."""
+    mg = model_group()
+    if mg is None or _split_dim("embed", (cfg.padded_vocab, cfg.d_model)) is None:
+        return None
+    return mg
+
+
+def check_split(cfg: ModelConfig, mesh: Optional[Mesh] = None) -> None:
+    """Refuse a split over 'model' of anything but the dense ``attn+mlp``
+    decoder, and of one whose ranks' q heads would straddle kv groups
+    (see the module's docstring). ``mesh`` defaults to the ambient mesh where it is a
+    ``DeviceMesh`` (a ``MeshShape`` runs no split)."""
+    if mesh is None:
+        mg = model_group()
+        size = 1 if mg is None else mg.size
+    else:
+        size = describe(mesh).shape.get("model", 1)
+    if size == 1:
+        return
+    from ..models.lm import layer_kinds        # lm reaches this module at run time
+    kinds = sorted(set(layer_kinds(cfg)) - {"attn+mlp"})
+    what = ("an encoder-decoder" if cfg.is_encdec else "a VLM prefix" if cfg.vlm
+            else f"block kinds {kinds}" if kinds else None)
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over 'model' ({size} ranks) covers the "
+            f"dense attn+mlp decoder only; a split of {what} is a later part of "
+            f"{ROADMAP_ITEM}")
+    run = _kv_group_run(cfg, get_mesh() if mesh is None else mesh)
+    if run is not None and run[1] % run[0]:
+        raise NotImplementedError(
+            f"{cfg.name}: {run[0]} q heads a rank over 'model' ({size} ranks) straddle "
+            f"the kv groups of {run[1]} while wk/wv stay whole; that split "
+            f"is a later part of {ROADMAP_ITEM}")
+
+
+@functools.lru_cache(maxsize=64)
+def split_dims(cfg: ModelConfig, shape: MeshShape) -> Dict[str, Tuple[int, int]]:
+    """``{name: (dim, whole size)}`` of each parameter the rules split over
+    'model', from the whole model on the meta device."""
+    from ..models.lm import init_params        # lm reaches this module at run time
+    whole = init_params(cfg, None, device="meta")
+    shardings = param_shardings(cfg, whole, shape)
+    out = {}
+    for name, p in whole.named_parameters():
+        dim = next((i for i, a in enumerate(shardings[name].spec) if a == "model"), None)
+        if dim is not None:
+            out[name] = (dim, p.shape[dim])
+    return out
+
+
+def check_model(cfg: ModelConfig, model: torch.nn.Module) -> None:
+    """Under a split, refuse a model that is not this rank's part (a whole
+    model would read its slices as wrong heads and rows)."""
+    mg = model_group()
+    if mg is None:
+        return
+    params = dict(model.named_parameters())
+    for name, (dim, whole) in split_dims(cfg, describe(get_mesh())).items():
+        if params[name].shape[dim] * mg.size != whole:
+            raise ValueError(f"{name} has {params[name].shape[dim]} of {whole} along "
+                             f"dim {dim} under a 'model' axis of {mg.size}: pass the "
+                             "model through split_model first")
+
+
+# ------------------------------------------------------------ whole and split
+@torch.no_grad()
+def split_model(cfg: ModelConfig, model: torch.nn.Module,
+                mesh: Optional[DeviceMesh] = None) -> torch.nn.Module:
+    """This rank's part of the whole ``model`` (from ``init_params`` or
+    ``convert.params_from_jax``) on ``mesh`` (default the ambient mesh):
+    each leaf cut in place to this rank's chunk where ``param_shardings``
+    lays it out on 'model', the rest left whole. Returns ``model``."""
+    mesh = get_mesh() if mesh is None else mesh
+    check_split(cfg, mesh)
+    mg = model_group(mesh)
+    if mg is None:
+        return model
+    for name, p in model.named_parameters():
+        dim_whole = split_dims(cfg, describe(mesh)).get(name)
+        if dim_whole is None:
+            continue
+        dim, whole = dim_whole
+        if p.shape[dim] != whole:
+            raise ValueError(f"{name} is not whole: {tuple(p.shape)}")
+        p.data = p.data.chunk(mg.size, dim)[mg.rank].clone(
+            memory_format=torch.contiguous_format)
+    return model
+
+
+@torch.no_grad()
+def gather_model(cfg: ModelConfig, model: torch.nn.Module,
+                 mesh: Optional[DeviceMesh] = None) -> torch.nn.Module:
+    """The reverse of ``split_model``, in place, by all-reduce only: each
+    split leaf made whole on every rank. Returns ``model``."""
+    mesh = get_mesh() if mesh is None else mesh
+    mg = model_group(mesh)
+    if mg is None:
+        return model
+    for name, p in model.named_parameters():
+        dim_whole = split_dims(cfg, describe(mesh)).get(name)
+        if dim_whole is None:
+            continue
+        dim, whole = dim_whole
+        full = p.new_zeros(p.shape[:dim] + (whole,) + p.shape[dim + 1:])
+        full.narrow(dim, mg.rank * p.shape[dim], p.shape[dim]).copy_(p)
+        p.data = summed(full, mg)
+    return model
+
+
+# ------------------------------------------------------------ the vocabulary
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 mg: ModelGroup) -> torch.Tensor:
+    """Rows of the whole embedding from this rank's slice ``table`` (V/m, D):
+    ids outside the slice masked to zero, then summed over 'model'."""
+    n = table.shape[0]
+    local = tokens.long() - mg.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+    return reduce_from_model(rows, mg)
+
+
+def _global_ids(logits: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    n = logits.shape[-1]
+    return torch.arange(mg.rank * n, (mg.rank + 1) * n, device=logits.device)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
+                       mg: ModelGroup) -> torch.Tensor:
+    """-log softmax over the whole vocabulary at ``labels``, a position at a
+    time, from this rank's slice of fp32 ``logits`` (..., V/m): the padded
+    vocabulary (global id >= ``vocab_size``) masked as ``loss_fn`` masks it,
+    the log-sum-exp's max and sum and the gold logit taken over 'model'."""
+    ids = _global_ids(logits, mg)
+    logits = logits.masked_fill(ids >= vocab_size, -1e30)
+    top = logits.detach().amax(-1, keepdim=True)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mg.group)
+    logz = top[..., 0] + torch.log(reduce_from_model(torch.exp(logits - top).sum(-1), mg))
+    n = logits.shape[-1]
+    local = labels.long() - mg.rank * n
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    inside = (local >= 0) & (local < n)
+    return logz - reduce_from_model(torch.where(inside, gold, torch.zeros_like(gold)), mg)
+
+
+@torch.no_grad()
+def greedy(logits: torch.Tensor, vocab_size: int,
+           mg: Optional[ModelGroup] = None) -> torch.Tensor:
+    """The argmax over the first ``vocab_size`` ids of the last dim; with
+    ``mg``, of vocab-split ``logits`` (..., V/m), by all-reduce only: the
+    largest value, then the lowest id among equals (``argmax``'s tie rule)."""
+    if mg is None:
+        return logits[..., :vocab_size].argmax(-1)
+    ids = _global_ids(logits, mg)
+    lf = logits.float().masked_fill(ids >= vocab_size, float("-inf"))
+    idx = lf.argmax(-1)
+    val = lf.gather(-1, idx[..., None])[..., 0]
+    top = val.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mg.group)
+    cand = torch.where(val == top, ids[idx], torch.full_like(idx, torch.iinfo(idx.dtype).max))
+    dist.all_reduce(cand, op=dist.ReduceOp.MIN, group=mg.group)
+    return cand
+
+
+@torch.no_grad()
+def gather_vocab(logits: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
+    """The whole logits (..., V) from this rank's slice: an all-reduce of a
+    zero-filled whole buffer. ``mg`` None: ``logits``."""
+    if mg is None:
+        return logits
+    n = logits.shape[-1]
+    full = logits.new_zeros(logits.shape[:-1] + (n * mg.size,))
+    full[..., mg.rank * n:(mg.rank + 1) * n] = logits
+    return summed(full, mg)

@@ -24,10 +24,15 @@ over the mesh's devices. The step is the global one on either mesh, so
 a process counts each (config, shape) once for both.
 
 Those bytes and FLOPs follow the reference's plan, which splits the
-parameters over 'model' (tensor parallelism). The port's ZeRO-1 step keeps
-every parameter whole on each rank, so a train cell's line also carries
-``port_step``: the port's own bytes a device and its FLOPs split over
-'pod' x 'data' only.
+parameters over 'model' (tensor parallelism). A train cell's line also
+carries ``port_step``, the port's own ZeRO-1 step on the mesh: for the
+dense ``attn+mlp`` model it is split over 'model' as the rules lay it out
+(``distributed/tp.py``), so its bytes are the plan's and its FLOPs are
+split over every device; any other block kind the port refuses to split
+(ROADMAP item 7d), and its figures are those of the data-parallel step it
+runs on the same devices with 'model' folded into 'data': parameters whole
+on each rank, the optimizer state and batch over every rank, FLOPs split
+over every device.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
@@ -38,7 +43,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import time
 from typing import Dict, Tuple
@@ -47,6 +51,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ARCHS, get_config
+from ..distributed import tp
 from ..distributed.context import use_mesh
 from ..distributed.sharding import param_shardings
 from ..models.lm import decode_step, forward
@@ -64,13 +69,20 @@ NULLS = {
                    "inserts; the port runs no partitioner",
     "raw_cpu_hlo": _NO_HLO,
 }
-_NO_PORT_MESH = "the port prefills and decodes on one card: it has no mesh path to lay out"
+_NO_PORT_MESH = ("port_step reckons train cells only: the port's split prefill and "
+                 "decode (attn+mlp) hold the cache by kv heads where the reference "
+                 "splits it on the sequence, and are not laid out here")
 LAYOUT = ("memory.bytes_per_device, flops_per_device and roofline follow the "
           "reference's plan: parameters split over 'model' by the rules (tensor "
-          "parallelism) and the step's FLOPs split over every device. The port's "
-          "ZeRO-1 step has no tensor parallelism: for a train cell, port_step gives "
-          "its own figures (parameters whole on each rank, FLOPs split over "
-          "'pod' x 'data' only)")
+          "parallelism) and the step's FLOPs split over every device. For a train "
+          "cell, port_step gives the port's own ZeRO-1 step: the same plan for the "
+          "dense attn+mlp model, which the port splits over 'model'; for any other "
+          "block kind, which it does not split yet, the data-parallel step it runs "
+          "on the same devices with 'model' folded into 'data'")
+_SPLIT = ("split over 'model' as the rules lay it out (distributed/tp.py): the plan's "
+          "bytes, FLOPs split evenly over every device (a leaf the rules leave whole, "
+          "such as heads 'model' does not divide, repeats its products on each "
+          "'model' rank, which this even split does not count)")
 
 
 def model_flops(cfg, shape_name: str) -> float:
@@ -103,14 +115,21 @@ def _opt_cfg(cfg) -> AdamWConfig:
         moments_dtype="bfloat16" if cfg.count_params()[0] > 2e11 else "float32")
 
 
+def param_bytes(cfg, mesh) -> float:
+    """The parameters' bytes a device on ``mesh`` (a ``MeshShape`` or a
+    ``DeviceMesh``), from the rules' shard shapes: what a rank of the
+    port's split over 'model' holds."""
+    model = abstract_params(cfg)
+    return _bytes(dict(model.named_parameters()), param_shardings(cfg, model, mesh), mesh)
+
+
 def cell_bytes(cfg, shape_name: str, mesh: MeshShape) -> Dict[str, float]:
     """Per-device bytes of the cell's inputs by kind, from the shard shapes
     of the rules: parameters, the optimizer state (train), the batch, and
     the caches (decode's input, prefill's output)."""
     seq, batch, kind = SHAPES[shape_name]
     model = abstract_params(cfg)
-    out = {"params": _bytes(dict(model.named_parameters()),
-                            param_shardings(cfg, model, mesh), mesh)}
+    out = {"params": param_bytes(cfg, mesh)}
     if kind == "train":
         opt_cfg = _opt_cfg(cfg)
         state = adamw_init(model, opt_cfg)
@@ -172,25 +191,46 @@ def count_flops(cfg, shape_name: str, accum: int) -> Tuple[float, float]:
     return _COUNTS[key]
 
 
-def _data_parallel(mesh: MeshShape) -> int:
-    return math.prod(mesh.shape.get(a, 1) for a in ("pod", "data"))
+def folded(mesh: MeshShape) -> MeshShape:
+    """``mesh`` with its 'model' ranks folded into 'data': the mesh on which
+    the port runs, data-parallel, a model it does not split over 'model'."""
+    sizes = mesh.shape
+    return MeshShape(mesh.axis_names, tuple(
+        sizes["data"] * sizes["model"] if a == "data" else 1 if a == "model" else n
+        for a, n in sizes.items()))
 
 
 def port_step(cfg, shape_name: str, mesh: MeshShape, nbytes: Dict[str, float],
               flops: float):
-    """The port's own layout of a train cell, beside the reference's plan:
-    ``make_zero1_train_step`` keeps every parameter whole on each rank, lays
-    the optimizer state and the batch out as the rules do, and splits the
-    step over the 'pod' x 'data' ranks only (a rank's 'model' peers repeat
-    it). ``None`` for prefill and decode, which the port runs on no mesh."""
+    """The port's own layout of a train cell, beside the reference's plan.
+    ``make_zero1_train_step`` splits the dense ``attn+mlp`` model over
+    'model' as the rules do, so its bytes are ``nbytes`` and its FLOPs are
+    split over every device. Any other block kind it refuses to split
+    (``tp.check_split``, ROADMAP item 7d), so on ``mesh`` its step raises:
+    its figures are those of the step the port runs on the same devices
+    with 'model' folded into 'data' (``folded``), the rules' layout on that
+    mesh: parameters whole on each rank, the optimizer state ZeRO-1 over
+    every rank, the batch split over every rank, FLOPs split over every
+    device. ``layout`` says which. ``None`` for prefill and decode
+    (``_NO_PORT_MESH``)."""
     if SHAPES[shape_name][2] != "train":
         return None
-    params = float(sum(p.numel() * p.element_size()
-                       for p in abstract_params(cfg).parameters()))
-    flops_dev = flops / _data_parallel(mesh)
-    return {"bytes_per_device": dict(nbytes, params=params),
-            "flops_per_device": flops_dev,
-            "compute_s": flops_dev / PEAK_FLOPS}
+    flops_dev = flops / mesh.size
+    try:
+        tp.check_split(cfg, mesh)
+    except NotImplementedError as e:
+        fold = folded(mesh)
+        with use_mesh(fold):
+            fbytes = cell_bytes(cfg, shape_name, fold)
+        return {"bytes_per_device": fbytes,
+                "flops_per_device": flops_dev, "compute_s": flops_dev / PEAK_FLOPS,
+                "layout": f"not split: {e}. The figures are the port's data-parallel "
+                          f"step on the {fold.tag} mesh, 'model' folded into 'data': "
+                          "parameters whole on each rank, the optimizer state and the "
+                          "batch as the rules lay them out there, FLOPs split over "
+                          "every device"}
+    return {"bytes_per_device": dict(nbytes), "flops_per_device": flops_dev,
+            "compute_s": flops_dev / PEAK_FLOPS, "layout": _SPLIT}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:

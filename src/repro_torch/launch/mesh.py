@@ -22,8 +22,6 @@ from typing import Dict, Tuple, Union
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from ..models.layers import resolve_device
-
 
 @dataclass(frozen=True)
 class MeshShape:
@@ -60,6 +58,7 @@ def start_single_rank(device=None) -> None:
     first collective), gloo for the CPU. Does nothing if a group runs."""
     if dist.is_initialized():
         return
+    from ..models.layers import resolve_device     # the models import the distribution layer
     dev = resolve_device(device)
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             store=dist.HashStore(), rank=0, world_size=1)
@@ -69,6 +68,7 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device=None) -> Dev
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the process group's
     ranks, on the card unless ``device`` names another. With no group
     running, a one-device mesh starts a one-rank group (``start_single_rank``)."""
+    from ..models.layers import resolve_device
     dev = resolve_device(device)
     n = math.prod(shape)
     if not dist.is_initialized():

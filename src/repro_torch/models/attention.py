@@ -13,7 +13,10 @@ RoPE, in the layout the decode step reads; MLA's hold the compressed
 ``c_kv`` (r) and the rope key (rope) of each position. ``attention_block``
 also takes the reference's cross attention (whisper's decoder: k and v of
 the encoder's output, no mask, no RoPE; in decode, the fixed cross cache)
-and ``use_rope=False``.
+and ``use_rope=False``. Under a split over 'model' (``distributed/tp.py``)
+``attention_block`` runs the rank's heads: q, k and v projected on them,
+``flash_attention`` over them, ``wo``'s partial sums reduced over 'model';
+its cache holds the rank's kv heads.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..distributed import tp
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, pdtype, rms_norm
@@ -160,13 +164,30 @@ def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     to ``max_len`` along the sequence, the cache the decode step reads; for
     ``kv_x`` of the encoder's length, the cross cache. ``use_rope=False``
     leaves q and k without RoPE (the encoder, whisper's decoder forward and
-    cross attention, as the reference's ``attention_block`` takes it)."""
+    cross attention, as the reference's ``attention_block`` takes it).
+
+    Under a split over 'model' that cuts ``wq`` (``tp.head_split``) the block
+    runs this rank's heads, where the reference's ``shard()`` pins q, k and v
+    to 'model' (``src/repro/models/attention.py:202``, ``:239-240``): x
+    enters through ``copy_to_model``, the rank's q heads and the kv heads they
+    read are projected and attended, and ``wo``'s partial sums leave through
+    ``reduce_from_model`` (``:245``). The cache holds the rank's kv heads:
+    the reference splits it on the sequence over 'model' instead (``:144``),
+    which would need q gathered and the prefill's cache laid out anew; the
+    results are equal (ROADMAP.md Queue 3, quirk 17)."""
     B, S, D = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
+    sp = tp.head_split(cfg)
+    wk, wv, q_norm, k_norm = p.wk, p.wv, p.q_norm, p.k_norm
+    if sp is not None:
+        x = tp.copy_to_model(x, sp.mg)
+        wk, wv = sp.local_kv(wk), sp.local_kv(wv)
+        if cfg.qk_norm:             # read by the rank's heads only: gradients summed
+            q_norm, k_norm = tp.copy_to_model(q_norm, sp.mg), tp.copy_to_model(k_norm, sp.mg)
     q = torch.einsum("bsd,dhq->bhsq", x, p.wq)                 # (B,H,S,Dh)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
 
@@ -176,10 +197,10 @@ def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                                cfg.decode_seq_shards)
         return torch.einsum("bhsq,hqd->bsd", out, p.wo), None
     src = x if kv_x is None else kv_x
-    k = torch.einsum("bsd,dhq->bhsq", src, p.wk)               # (B,KH,Sk,Dh)
-    v = torch.einsum("bsd,dhq->bhsq", src, p.wv)
+    k = torch.einsum("bsd,dhq->bhsq", src, wk)                 # (B,KH,Sk,Dh)
+    v = torch.einsum("bsd,dhq->bhsq", src, wv)
     if cfg.qk_norm:
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
     if use_rope:
         k = apply_rope(k, positions if kv_x is None else
                        torch.arange(src.shape[1], device=x.device), cfg.rope_theta)
@@ -207,7 +228,7 @@ def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache = {"k": torch.nn.functional.pad(k, (0, 0, 0, pad)),
                          "v": torch.nn.functional.pad(v, (0, 0, 0, pad))}
     y = torch.einsum("bhsq,hqd->bsd", out, p.wo)
-    return y, new_cache
+    return tp.reduce_from_model(y, None if sp is None else sp.mg), new_cache
 
 
 # ------------------------------------------------------------------ MLA block
@@ -275,7 +296,8 @@ def mla_block(p: MLA, x: torch.Tensor, cfg: ModelConfig, *,
 
 def init_self_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
                          device) -> Dict[str, torch.Tensor]:
-    """Zero k and v caches (B, KH, max_len, Dh) of the original kv heads; for
+    """Zero k and v caches (B, KH, max_len, Dh) of the original kv heads
+    (under a split over 'model', this rank's, ``tp.cache_kv_heads``); for
     an MLA config, ``c_kv`` (B, max_len, r) and ``k_rope`` (B, max_len, rope)."""
     dt = pdtype(cfg)
     if cfg.mla is not None:
@@ -283,6 +305,6 @@ def init_self_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
         return {"c_kv": torch.zeros(base + (cfg.mla.kv_lora_rank,), dtype=dt, device=device),
                 "k_rope": torch.zeros(base + (cfg.mla.rope_head_dim,), dtype=dt,
                                       device=device)}
-    shp = (batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
+    shp = (batch, tp.cache_kv_heads(cfg), max_len, cfg.head_dim_)
     return {"k": torch.zeros(shp, dtype=dt, device=device),
             "v": torch.zeros(shp, dtype=dt, device=device)}

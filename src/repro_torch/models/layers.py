@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import tp
 from .config import ModelConfig
 
 
@@ -115,14 +116,20 @@ def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig, device,
     return MLP(w_in, w_out, w_gate)
 
 
-def apply_mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p: MLP, x: torch.Tensor, mg: Optional[tp.ModelGroup] = None) -> torch.Tensor:
+    """The gated (SwiGLU) or 2-matrix GELU MLP. ``mg``, the 'model' group
+    where the rules split d_ff (``tp.ff_group``): x enters this rank's d_ff
+    slice through ``copy_to_model`` (``w_in``/``w_gate`` column-parallel,
+    the reference's ``src/repro/models/layers.py:67``) and ``w_out``'s
+    partial sums leave through ``reduce_from_model`` (row-parallel)."""
+    x = tp.copy_to_model(x, mg)
     h = torch.einsum("bsd,df->bsf", x, p.w_in)
     if p.w_gate is not None:
         g = torch.einsum("bsd,df->bsf", x, p.w_gate)
         h = h * F.silu(g.float()).to(h.dtype)
     else:
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return torch.einsum("bsf,fd->bsd", h, p.w_out)
+    return tp.reduce_from_model(torch.einsum("bsf,fd->bsd", h, p.w_out), mg)
 
 
 def init_norm(cfg: ModelConfig, device) -> nn.Parameter:

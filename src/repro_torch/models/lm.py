@@ -42,6 +42,15 @@ by autograd through its step loop, Mamba by autograd through its log-depth
 scan (``ssm.py``), MoE by autograd through its dispatch and combine gathers
 (``moe.py``). Serving runs under ``torch.no_grad()``:
 ``decode_step`` here, the prefill in the engine.
+
+Tensor parallelism (``distributed/tp.py``): under ``use_mesh`` of a
+``DeviceMesh`` whose 'model' axis has more than one rank, ``forward``,
+``loss_fn``, ``decode_step`` and ``init_caches`` run this rank's part of
+the dense ``attn+mlp`` model (``tp.split_model``): its heads, its d_ff
+slice and, where the rules split ``embed``/``head``, its vocabulary slice,
+so the logits are this rank's slice (the reference's ``lm.py:289``
+layout; ``tp.gather_vocab`` makes them whole). ``check_split`` refuses
+every other block kind there (ROADMAP item 7d).
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..distributed import tp
 from .attention import (MLA, Attention, attention_block, init_attention, init_mla,
                         init_self_attn_cache, mla_block)
 from .config import ModelConfig
@@ -74,6 +84,17 @@ def check_ported(cfg: ModelConfig) -> None:
     for blk in dict.fromkeys(layer_kinds(cfg)):
         if blk not in _PORTED:
             raise NotImplementedError(f"{cfg.name}: unknown block {blk!r}")
+
+
+def check_split(cfg: ModelConfig, model: Optional[nn.Module] = None) -> None:
+    """Under a split over 'model' on the ambient mesh, raise
+    NotImplementedError for any model but the dense ``attn+mlp`` decoder
+    (MoE, MLA, Mamba, xLSTM, an encoder-decoder, a VLM prefix: ROADMAP item
+    7d), never computing them whole in silence; and ValueError for a
+    ``model`` that is not this rank's part (``tp.split_model``)."""
+    tp.check_split(cfg)
+    if model is not None:
+        tp.check_model(cfg, model)
 
 
 # ================================================================ modules
@@ -268,6 +289,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     zero ``cross_k``/``cross_v`` (B, KH, enc_len, Dh), as the reference's:
     decode attends over them as they are until a prefill's are put there."""
     check_ported(cfg)
+    check_split(cfg)
     device = resolve_device(device)
 
     def attn():
@@ -331,7 +353,7 @@ def _apply_block(blk: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
     if isinstance(blk, (MoEBlock, MLAMoEBlock, MambaMoEBlock)):
         y, aux = apply_moe(blk.moe, h, cfg)
         return x + y, aux, cache
-    return x + apply_mlp(blk.mlp, h), None, cache
+    return x + apply_mlp(blk.mlp, h, tp.ff_group(cfg)), None, cache
 
 
 # The matrix products that ``remat="dots"`` keeps, as the reference's
@@ -362,14 +384,18 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def _logits(cfg: ModelConfig, model: LM, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    """The logits; where the vocabulary splits over 'model', this rank's
+    slice of them (x enters the column-parallel head by ``copy_to_model``)."""
+    x = tp.copy_to_model(rms_norm(x, model.final_norm, cfg.norm_eps), tp.vocab_group(cfg))
     head = model.embed.T if cfg.tie_embeddings else model.head
     return torch.einsum("bsd,dv->bsv", x, head)
 
 
 def _embed(cfg: ModelConfig, model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    mg = tp.vocab_group(cfg)
+    rows = model.embed[tokens] if mg is None else tp.embed_lookup(model.embed, tokens, mg)
     # scaled in the parameter dtype, as the reference multiplies in bf16
-    return model.embed[tokens] * (cfg.d_model ** 0.5)
+    return rows * (cfg.d_model ** 0.5)
 
 
 def embed_inputs(cfg: ModelConfig, model: LM,
@@ -432,7 +458,10 @@ def forward(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
     encoder-decoder's ``cross_k``/``cross_v`` of T positions.
     ``attn_impl="plain"`` and ``mlstm_impl="plain"`` run attention and the
     mLSTM scan through their kernels' plain versions. Where grad is enabled
-    it builds a graph, each block rematerialised as ``cfg.remat`` says."""
+    it builds a graph, each block rematerialised as ``cfg.remat`` says.
+    Under a split over 'model', the logits are this rank's vocabulary slice
+    where the vocabulary splits, and the caches hold its kv heads."""
+    check_split(cfg, model)
     x, n_prefix = embed_inputs(cfg, model, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     enc_out = None
@@ -460,6 +489,10 @@ def loss_fn(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
                                        mlstm_impl=mlstm_impl)
     labels = batch["labels"]
     logits = logits[:, n_prefix:n_prefix + labels.shape[1]].float()
+    mg = tp.vocab_group(cfg)
+    if mg is not None:              # this rank's vocabulary slice
+        nll = tp.vocab_parallel_nll(logits, labels, cfg.vocab_size, mg).mean()
+        return nll + aux, {"nll": nll, "aux": aux}
     # mask vocab padding out of the partition function
     vmask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
     logits = logits.masked_fill(~vmask, -1e30)
@@ -480,7 +513,10 @@ def decode_step(cfg: ModelConfig, model: LM, caches: Dict, tokens: torch.Tensor,
     place (the reference returns new arrays) and the same dict is returned.
     An encoder-decoder's cross attention reads its layers' ``cross_k`` and
     ``cross_v``, and its self attention ropes q and the new keys, as the
-    reference's decode does and its forward does not (quirk 14)."""
+    reference's decode does and its forward does not (quirk 14). Under a
+    split over 'model' the logits are this rank's vocabulary slice where the
+    vocabulary splits (``tp.greedy`` takes the argmax over the ranks)."""
+    check_split(cfg, model)
     x = _embed(cfg, model, tokens)
     positions = pos + torch.arange(x.shape[1], device=x.device)
     cross_len = cfg.encdec.enc_len if cfg.is_encdec else 0

@@ -25,6 +25,12 @@ cache and ropes every position where a forward does not, so the two could
 not agree (ROADMAP.md Queue 3, quirk 15). Whisper serves through the model's
 own entry points: ``forward(batch with frames, want_caches=True)`` and
 greedy ``decode_step``.
+
+A model split over 'model' (``distributed/tp.py``) is refused too: its
+logits are a rank's vocabulary slice and its caches a rank's kv heads, so
+the engine's and the adapters' argmax would give a rank's local ids. The
+split model serves through ``forward``, ``decode_step`` and ``tp.greedy``;
+the engine over it is a later part of ROADMAP item 7d.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from ..core.sim import ServeStats
+from ..distributed import tp
 from ..models.config import ModelConfig
 from ..models.lm import LM, decode_step, forward
 from ..streams.topics import Consumer, Topic
@@ -42,13 +49,22 @@ from .speculative import encode_eos, encode_token
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """Refuse an encoder-decoder config: see the module docstring."""
+    """Refuse an encoder-decoder config, and any model under a split over
+    'model' on the ambient mesh: see the module docstring."""
     if cfg.is_encdec:
         raise ValueError(
             f"{cfg.name} is an encoder-decoder: a request on the log carries no "
             "audio frames to encode, so the engine cannot prefill it (ROADMAP.md "
             "Queue 3, quirk 15); serve it through forward(batch with 'frames', "
             "want_caches=True) and decode_step")
+    mg = tp.model_group()
+    if mg is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the engine and the speculative adapters serve a whole model; "
+            f"under a split over 'model' ({mg.size} ranks) the logits are a rank's "
+            "vocabulary slice, so serve it through forward, decode_step and "
+            f"tp.greedy (the engine over a split model is a later part of "
+            f"{tp.ROADMAP_ITEM})")
 
 
 class _Stepper:
@@ -71,6 +87,7 @@ class _Stepper:
     def _run(self, tokens: List[int], extra: int) -> tuple:
         """Prefill ``tokens``; returns (logits, caches) with cache room for
         ``extra`` more positions."""
+        check_servable(self.cfg)
         arr = torch.tensor([tokens], dtype=torch.long, device=self.device)
         logits, _, caches, _ = forward(self.cfg, self.model, {"tokens": arr},
                                        want_caches=True,
@@ -141,6 +158,7 @@ class ServeEngine:
         #served. Response tokens are appended as ``(id, seq)`` records plus
         an EOS marker per request; the receipt is waited before the request
         cursor commits (at-least-once across a crash, deduped by key)."""
+        check_servable(self.cfg)
         reqs = self.consumer.poll(self.batch_size)
         if not reqs:
             return 0

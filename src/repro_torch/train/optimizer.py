@@ -14,13 +14,14 @@ lays ``m``, ``v`` and ``master`` out by each parameter's spec extended over
 'data' and 'pod' (``zero_extend``), ``step`` replicated;
 ``distribute_opt_state`` makes the state DTensors of that layout and
 ``zero1_adamw_update`` updates each rank's chunk and gathers the new
-parameters whole onto every rank, with ``adamw_update``'s arithmetic.
+parameters onto every rank, with ``adamw_update``'s arithmetic: whole, or
+under tensor parallelism (``distributed/tp.py``) each rank's slice of them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -28,8 +29,9 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from ..distributed import tp
 from ..distributed.context import P
-from ..distributed.sharding import Sharding, distribute, param_shardings
+from ..distributed.sharding import Sharding, _axes_of, distribute, param_shardings
 from ..launch.mesh import Mesh
 from ..models.config import ModelConfig
 
@@ -62,9 +64,22 @@ def adamw_init(model: nn.Module, cfg: AdamWConfig) -> Dict:
     return state
 
 
-def _scalars(grads, step: torch.Tensor, cfg: AdamWConfig):
-    """The global grad norm, the clip scale and the bias corrections."""
-    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+def _scalars(grads, step: torch.Tensor, cfg: AdamWConfig,
+             mg: Optional[tp.ModelGroup] = None, split=()):
+    """The global grad norm, the clip scale and the bias corrections. Under
+    a split over 'model' (``mg``) ``grads`` are this rank's slices where
+    ``split`` says so: their squares are summed over 'model', and the
+    replicated ones counted once (from 'model' rank 0), so every rank has
+    the same norm."""
+    if mg is None:
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    else:
+        sq = torch.zeros((), dtype=torch.float32, device=step.device)
+        for g, cut in zip(grads, split):
+            if cut or mg.rank == 0:
+                sq = sq + g.float().square().sum()
+        dist.all_reduce(sq, group=mg.group)
+        gnorm = torch.sqrt(sq)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     stepf = step.float()
     bc1 = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device) ** stepf
@@ -132,10 +147,26 @@ def distribute_opt_state(state: Dict, shardings: Dict, mesh: DeviceMesh) -> Dict
     return out
 
 
-def _chunk(t: torch.Tensor, like: DTensor) -> torch.Tensor:
-    """This rank's chunk of ``t`` (whole on every rank) in ``like``'s layout."""
-    return distribute_tensor(t, like.device_mesh, like.placements,
-                             src_data_rank=None).to_local()
+def _zero_layout(like: DTensor) -> Tuple[Optional[DeviceMesh], Tuple]:
+    """The mesh and placements over which ZeRO-1 chunks and gathers a
+    parameter of the state tensor ``like``: ``like``'s own, or, where
+    'model' has more than one rank, its axes but 'model' (the parameter is
+    then this rank's 'model' slice, chunked inside its 'model' coordinate;
+    None where no other axis is left)."""
+    mesh, names = like.device_mesh, like.device_mesh.mesh_dim_names
+    if "model" not in names or mesh.size(names.index("model")) == 1:
+        return mesh, like.placements
+    keep = tuple(n for n in names if n != "model")
+    placements = tuple(pl for n, pl in zip(names, like.placements) if n != "model")
+    return (mesh[keep] if keep else None), placements
+
+
+def _chunk(t: torch.Tensor, mesh: Optional[DeviceMesh], placements) -> torch.Tensor:
+    """This rank's chunk of ``t`` (the same on every rank of ``mesh``) laid
+    out by ``placements``; ``mesh`` None: ``t``."""
+    if mesh is None:
+        return t
+    return distribute_tensor(t, mesh, placements, src_data_rank=None).to_local()
 
 
 @torch.no_grad()
@@ -143,33 +174,39 @@ def zero1_adamw_update(model: nn.Module, grads: Mapping[str, torch.Tensor],
                        state: Dict, shardings: Dict, mesh: DeviceMesh,
                        cfg: AdamWConfig) -> Tuple[nn.Module, Dict, torch.Tensor]:
     """``adamw_update`` over the ZeRO-1 state of ``distribute_opt_state``.
-    ``grads`` are whole on every rank and already averaged over the
-    data-parallel ranks, so the norm and the clip scale are the same
-    everywhere. Each rank updates its chunks of ``m``, ``v`` and ``master``
-    with ``adamw_update``'s arithmetic; each parameter is then gathered
-    whole from the chunks of the ranks that hold it, and a layer given to
-    one coordinate of a stack axis is broadcast from there along it. A mesh
-    of one device holds every tensor whole and communicates nothing."""
+    ``grads`` are already averaged over the data-parallel ranks, so the
+    norm and the clip scale are the same everywhere. Where 'model' has one
+    rank, ``model`` and ``grads`` are whole on every rank; with more, they
+    are this rank's part (``tp.split_model``), a split leaf its 'model'
+    slice. Each rank updates its chunks of ``m``, ``v`` and ``master`` with
+    ``adamw_update``'s arithmetic; each parameter (or its 'model' slice) is
+    then gathered from the chunks of the ranks that hold it, over the axes
+    but 'model', and a layer given to one coordinate of a stack axis is
+    broadcast from there along it. A mesh of one device, or of one rank on
+    every axis but 'model', communicates nothing here."""
     params = dict(model.named_parameters())
     step = state["step"].to_local() + 1
-    gnorm, scale, bc1, bc2 = _scalars(grads.values(), step, cfg)
+    mg = tp.model_group(mesh)
+    split = [any("model" in _axes_of(a) for a in shardings["m"][n].spec) for n in grads]
+    gnorm, scale, bc1, bc2 = _scalars(grads.values(), step, cfg, mg, split)
     mdt = getattr(torch, cfg.moments_dtype)
     for name, p in params.items():
         m = state["m"][name]
         held = m.device_mesh
         if held.get_coordinate() is not None:
+            zmesh, zplace = _zero_layout(m)
             w = (state["master"][name].to_local() if "master" in state
-                 else _chunk(p, m))
-            w32, m32, v32 = _leaf(_chunk(grads[name], m), m.to_local(),
+                 else _chunk(p, zmesh, zplace))
+            w32, m32, v32 = _leaf(_chunk(grads[name], zmesh, zplace), m.to_local(),
                                   state["v"][name].to_local(), w, scale, bc1, bc2, cfg)
             m.to_local().copy_(m32.to(mdt))
             state["v"][name].to_local().copy_(v32.to(mdt))
             if "master" in state:
                 state["master"][name].to_local().copy_(w32)
-            if held.size() == 1:
+            if zmesh is None or zmesh.size() == 1:
                 p.copy_(w32)                          # rounds to the param dtype
             else:
-                p.copy_(DTensor.from_local(w32.to(p.dtype), held, m.placements,
+                p.copy_(DTensor.from_local(w32.to(p.dtype), zmesh, zplace,
                                            shape=p.shape, stride=p.stride()).full_tensor())
             del w32, m32, v32      # one tensor's fp32 temporaries live at a time
         sh = shardings["m"][name]

@@ -7,7 +7,8 @@ kernels), added to an accumulator in ``grad_dtype``, and the sum is scaled
 by ``1 / accum`` in that dtype before ``adamw_update``. Activation memory is
 one microbatch's, as the reference's ``lax.scan`` keeps it.
 ``make_zero1_train_step`` is the same step in one microbatch under a mesh,
-data parallel with the optimizer state sharded (ZeRO-1).
+data parallel with the optimizer state sharded (ZeRO-1), and tensor
+parallel over the mesh's 'model' axis (``distributed/tp.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..distributed.context import use_mesh
 from ..models.config import ModelConfig
 from ..models.lm import LM, loss_fn
 from .optimizer import AdamWConfig, adamw_update, zero1_adamw_update
@@ -95,17 +97,20 @@ def local_batch(batch: Dict[str, torch.Tensor], mesh: DeviceMesh) -> Dict[str, t
 
 def make_zero1_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMesh,
                           shardings: Dict, grad_dtype: str = "bfloat16"):
-    """ZeRO-1 data parallelism on ``mesh``: ``train_step(model, opt_state,
-    batch)`` with ``batch`` this rank's rows (``local_batch``), the model's
-    parameters whole on every rank and ``opt_state`` the DTensors of
+    """ZeRO-1 data parallelism and tensor parallelism on ``mesh``:
+    ``train_step(model, opt_state, batch)`` with ``batch`` this rank's rows
+    (``local_batch``, whole along 'model') and ``opt_state`` the DTensors of
     ``distribute_opt_state`` laid out by ``shardings``
-    (``opt_state_shardings``). Each rank takes the gradient of its rows; the
-    gradients and the loss are averaged in fp32 over the 'pod' and 'data'
-    ranks (a rank's 'model' peers hold the same rows and compute the same
-    gradient: the port has no tensor parallelism); ``zero1_adamw_update``
-    updates the state's chunks and gathers the parameters. With one rank on
-    those axes nothing is averaged, and the step's numbers are
-    ``make_train_step``'s."""
+    (``opt_state_shardings``), both made from the whole model. Where 'model'
+    has one rank the parameters are whole on every rank; with more, the
+    model is this rank's part (``tp.split_model``): the step runs under
+    ``use_mesh(mesh)``, so the forward and backward are split over 'model'
+    and each gradient is that of the rank's slice of its parameter (dense
+    ``attn+mlp`` models only: ROADMAP item 7d). The gradients and the loss
+    are averaged in fp32 over the 'pod' and 'data' ranks;
+    ``zero1_adamw_update`` updates the state's chunks and gathers each
+    parameter's slice. With one rank on every axis nothing is averaged, and
+    the step's numbers are ``make_train_step``'s."""
     gdt = getattr(torch, grad_dtype)
     groups = [mesh.get_group(a) for a in data_parallel_axes(mesh)
               if mesh.size(mesh.mesh_dim_names.index(a)) > 1]
@@ -117,7 +122,8 @@ def make_zero1_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMe
         return t / math.prod(dist.get_world_size(g) for g in groups)
 
     def train_step(model: LM, opt_state: Dict, batch: Dict[str, torch.Tensor]):
-        names, grads, loss = _grads(cfg, model, batch, 1, gdt, None, None)
+        with use_mesh(mesh):
+            names, grads, loss = _grads(cfg, model, batch, 1, gdt, None, None)
         if groups:
             grads = [average(g).to(gdt) for g in grads]
             loss = average(loss)

@@ -39,6 +39,7 @@ from repro.train import optimizer as jopt  # noqa: E402
 from repro.train.step import make_train_step as jmake_train_step  # noqa: E402
 from repro.distributed.sharding import param_shardings as jparam_shardings  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.distributed import use_mesh  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.models.lm import forward  # noqa: E402
@@ -182,20 +183,45 @@ def test_cli_prints_a_line_a_cell(capsys):
 
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_port_step_of_a_train_cell(multi_pod):
-    """A train cell's ``port_step``: the parameters whole on each rank, the
-    optimizer state and batch as the rules lay them out, the FLOPs split over
-    'pod' x 'data' only."""
+    """A dense attn+mlp train cell's ``port_step``: the port splits the model
+    over 'model' (``distributed/tp.py``), so its parameters, optimizer state
+    and batch are laid out as the rules lay them (the reference's plan,
+    equal to JAX's shard shapes by ``test_cell_bytes_match_jax_shard_shapes``)
+    and its FLOPs split over every device."""
     r = dryrun.run_cell("smollm-135m", "train_4k", multi_pod)
     port, nbytes = r["port_step"], r["memory"]["bytes_per_device"]
     whole = sum(p.numel() * p.element_size()
                 for p in specs.abstract_params(get_config("smollm-135m")).parameters())
-    assert port["bytes_per_device"] == dict(nbytes, params=whole)
+    assert port["bytes_per_device"] == nbytes
     assert nbytes["params"] < whole
-    data_parallel = 32 if multi_pod else 16
-    assert port["flops_per_device"] == pytest.approx(
-        r["flops_per_device"] * r["devices"] / data_parallel, rel=1e-12)
+    assert port["flops_per_device"] == r["flops_per_device"]
     assert port["compute_s"] == port["flops_per_device"] / 989e12
+    assert port["layout"].startswith("split over 'model'")
     assert "port_step" not in r["nulls"]
+
+
+def test_port_step_of_a_train_cell_the_port_does_not_split():
+    """An MoE train cell's ``port_step`` is the step the port can run: it
+    refuses to split the experts over 'model' (ROADMAP item 7d), so its
+    figures are its data-parallel step on the same 256 devices with 'model'
+    folded into 'data' (16x16 -> 256x1): parameters whole on each rank, the
+    optimizer state and batch as the rules lay them out on that mesh, and
+    its FLOPs split over every device."""
+    arch = "granite-moe-3b-a800m"
+    r = dryrun.run_cell(arch, "train_4k", False)
+    port, nbytes = r["port_step"], r["memory"]["bytes_per_device"]
+    cfg = get_config(arch)
+    whole = sum(p.numel() * p.element_size() for p in specs.abstract_params(cfg).parameters())
+    fold = dryrun.folded(make_production_mesh(multi_pod=False))
+    assert fold.shape == {"data": 256, "model": 1}
+    with use_mesh(fold):
+        assert port["bytes_per_device"] == dryrun.cell_bytes(cfg, "train_4k", fold)
+    assert port["bytes_per_device"]["params"] == whole > nbytes["params"]
+    # the state goes ZeRO-1 over all 256 ranks, not 16 'data' ranks of a split
+    assert port["bytes_per_device"]["opt_state"] < nbytes["opt_state"]
+    assert port["flops_per_device"] == r["flops_per_device"]
+    assert port["compute_s"] == port["flops_per_device"] / 989e12
+    assert "ROADMAP item 7d" in port["layout"] and "256x1" in port["layout"]
 
 
 def test_cli_runs_without_jax(tmp_path):

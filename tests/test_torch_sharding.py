@@ -20,8 +20,10 @@ of 81 of the reference's 290 ``m`` leaves, on (16, 16) on none.
 Two checks run in a subprocess, so that no process group starts inside a
 test worker: 4 gloo ranks (rendezvous through a ``FileStore``) place a smoke
 model's parameters and ZeRO-1 state as DTensors on a (2, 2) and a (2, 1, 2)
-mesh and take a ZeRO-1 step; and one rank takes a ZeRO-1 step on the (1, 1)
-host mesh, equal bit for bit to the step without a mesh.
+mesh and take a ZeRO-1 step, the model split over 'model' (tensor
+parallelism, ``distributed/tp.py``) and gathered whole again; and one rank
+takes a ZeRO-1 step on the (1, 1) host mesh, equal bit for bit to the step
+without a mesh.
 """
 
 import json
@@ -330,6 +332,7 @@ if world > 1:
                             world_size=world, timeout=datetime.timedelta(seconds=60))
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed.context import shard, use_mesh
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import distribute, param_shardings
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.models.config import ModelConfig
@@ -377,7 +380,11 @@ for tag, case in cases.items():
     ref_state = adamw_init(ref, opt_cfg)
     _, _, rm = make_train_step(cfg, opt_cfg, grad_dtype=gdt)(ref, ref_state, batch)
     step = make_zero1_train_step(cfg, opt_cfg, mesh, osh, grad_dtype=gdt)
+    # the step splits the model over 'model' (tensor parallelism), so it takes
+    # this rank's part; gathered whole again to be held against the reference
+    tp.split_model(cfg, model, mesh)
     _, dstate, zm = step(model, dstate, local_batch(batch, mesh))
+    tp.gather_model(cfg, model, mesh)
     errs = {"loss": abs(float(zm["loss"]) - float(rm["loss"])),
             "grad_norm": abs(float(zm["grad_norm"]) - float(rm["grad_norm"]))}
     exact = float(zm["loss"]) == float(rm["loss"])
