@@ -206,29 +206,35 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      prefill's (whisper on forward + decode_step, llava also with its image
      prefix); (c) one train step, kernels against plain, fp32 and bf16. A
      main path of all four kernels ("smoke configs").
- 20. tp: tensor parallelism over 'model' on the one card. (a) the
-     one-rank port on qwen3-8b at full width with 2 layers (bf16, seed 5):
-     a forward of 2 x 1024 tokens through the kernels, through the plain
-     version and through the plain version with one sum split (the floor),
-     the kernels' logits within 3x the floor or PREFILL_TOL of the plain
-     version's, the greedy stream of 4 prompts x 32 tokens and 16 new, and
-     one bf16 train step, written to build/tp and the card freed; (b) 2
-     ranks, this script with --tp-rank, gloo over a FileStore, both on
-     cuda:0 (NCCL refuses two ranks on one device), joined within
-     TP_TIMEOUT: each checks first that gloo's all_reduce of a CUDA tensor
-     sums right (the transport: a rank fails where gloo refuses or garbles
-     it), splits the model over the (1,
-     2) (data, model) mesh (repro_torch.distributed.tp.split_model; its
-     parameter bytes the rules' bytes_per_device), and as a main path runs
-     the forward (logits made whole by gather_vocab, within 3x the floor or
-     PREFILL_TOL of the one-rank port's), the greedy stream (tp.greedy; equal
-     to the one-rank stream, or parting only at a near-tie) and one
-     make_zero1_train_step (within BF16_STEP_TOL of the one-rank step), the
-     flash kernels on 16 of the 32 q heads and 4 of the 8 kv heads (their
-     shapes, (2, 16, 4, 1024) and (4, 16, 4, 32) at Dh 128, are in
-     KERNEL_CASES, held against plain by phases 1 and 9a). The ranks'
-     launches are summed. Their times are printed, but two ranks share one
-     card: they are no measure of a split's speed.
+ 20. tp: tensor parallelism over 'model' on the one card, for each of
+     qwen3-8b and deepseek-v2-lite-16b at full width with 2 layers (bf16,
+     seed 5; deepseek's dense mla+mlp first layer and one mla+moe). (a) the
+     one-rank port: a forward of 2 x 1024 tokens through the kernels (its
+     MoE expert choices recorded), through the plain version and through
+     the plain version with one sum split (the floor), the kernels' logits
+     within 3x the floor or PREFILL_TOL of the plain version's, the greedy
+     stream of 4 prompts x 32 tokens and 16 new, and one bf16 train step,
+     written to build/tp and the card freed; (b) 2 ranks, this script with
+     --tp-rank, gloo over a FileStore, both on cuda:0 (NCCL refuses two
+     ranks on one device), joined within TP_TIMEOUT: each checks first that
+     gloo's all_reduce of a CUDA tensor sums right (the transport: a rank
+     fails where gloo refuses or garbles it), then for each model splits it
+     over the (1, 2) (data, model) mesh (repro_torch.distributed.tp.
+     split_model; its parameter bytes the rules' bytes_per_device) and as
+     a main path of its own runs the forward (logits made whole by
+     gather_vocab, within 3x the floor or PREFILL_TOL of the one-rank
+     port's; MoE expert choices that differ from the one-rank forward's
+     counted, and where any do, a forward pinned to the one-rank choices
+     held instead), the greedy stream (tp.greedy; equal to the one-rank
+     stream, or parting only at a near-tie) and one make_zero1_train_step
+     (within BF16_STEP_TOL of the one-rank step). The flash kernels run on
+     16 of qwen3's 32 q heads and 4 of its 8 kv heads, and on 8 of
+     deepseek's 16 MLA heads at (192, 128), beside 32 of its 64 experts a
+     rank (their shapes, (2, 16, 4, 1024) and (4, 16, 4, 32) at Dh 128, (2,
+     8, 8, 1024) and (4, 8, 8, 32) at (192, 128), are in KERNEL_CASES, held
+     against plain by phases 1 and 9a). Each model's launches are summed
+     over the ranks. Their times are printed, but two ranks share one card:
+     they are no measure of a split's speed.
 Checkpoints cross between the packages both ways only on the CPU
 (tests/test_torch_checkpoint.py): this machine has no JAX to read or write
 the reference's side; phases 9d-12d resume through the reference's record.
@@ -303,7 +309,9 @@ KERNEL_CASES = [
     (1, 4, 2, 4097, 4097, 16, True, 0),        # Dh 16, long S
     (2, 4, 4, 65, 300, (24, 16), False, 0),    # padded MLA, non-causal Sq != Sk
     (2, 16, 4, 1024, 1024, 128, True, 0),      # phase 20: a rank's half of qwen3-8b's
-    (4, 16, 4, 32, 32, 128, True, 0),          # heads, MESH_STEP's batch and the prefill
+    (4, 16, 4, 32, 32, 128, True, 0),          # heads, MESH_STEP's batch and the prefill,
+    (2, 8, 8, 1024, 1024, (192, 128), True, 0),   # and of deepseek-v2-lite-16b's MLA
+    (4, 8, 8, 32, 32, (192, 128), True, 0),
 ]
 # bf16 kernel against plain on the edges of its 128-row q and kv tiles and
 # of its TMA boxes: (B, H, KH, Sq, Sk, Dh, causal, q_offset)
@@ -528,6 +536,11 @@ SMOKE_STEP = (2, 64)
 # greedy stream of TP_NEW tokens after TP_PROMPT's prompts; the ranks end
 # within TP_TIMEOUT seconds or fail the phase
 TP_WORLD = 2
+# the models split, in turn: qwen3-8b (attn+mlp), then deepseek-v2-lite-16b
+# at full width and 2 layers (its dense mla+mlp first layer and one
+# mla+moe), MLA's 16 heads and the 64 experts split over the ranks
+TP_RUNS = ({"config": MESH_STEP["config"], "n_layers": MESH_STEP["n_layers"]},
+           {"config": "deepseek-v2-lite-16b", "n_layers": 2})
 TP_PROMPT = (4, 32)
 TP_NEW = 16
 TP_TIMEOUT = 600
@@ -3449,26 +3462,34 @@ def tp_batch(cfg) -> dict:
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
+def tp_config(run: dict):
+    from repro_torch import get_config
+    return get_config(run["config"]).with_(n_layers=run["n_layers"])
+
+
 def tp_reference(cfg, out: Path) -> dict:
-    """(a) of phase 20: the one-rank port on the weights the ranks make
-    (seed 5). MESH_STEP's batch forward through the kernels, through the
-    plain version and through the plain version with one sum split (the
-    floor), the kernels' logits within TP_FLOOR_FACTOR times the floor or
-    PREFILL_TOL of the plain version's (the ranks' rule; else it raises);
-    the greedy stream of TP_PROMPT (``greedy_stream``); one bf16
-    ``make_train_step`` (the (1, 1) ZeRO-1 step's numbers bit for bit, by
-    phase 16). Written to ``out`` for the ranks, the updated parameters cut
-    into each rank's slices; the card is freed after. Returns the one-rank
-    times."""
+    """(a) of phase 20 for one model: the one-rank port on the weights the
+    ranks make (seed 5). MESH_STEP's batch forward through the kernels (its
+    MoE layers' expert choices recorded), through the plain version and
+    through the plain version with one sum split (the floor), the kernels'
+    logits within TP_FLOOR_FACTOR times the floor or PREFILL_TOL of the
+    plain version's (the ranks' rule; else it raises); the greedy stream of
+    TP_PROMPT (``greedy_stream``); one bf16 ``make_train_step`` (the (1, 1)
+    ZeRO-1 step's numbers bit for bit, by phase 16). Written to ``out`` for
+    the ranks, the updated parameters cut into each rank's slices; the card
+    is freed after. Returns the one-rank times."""
     from repro_torch import forward, init_params
     from repro_torch.distributed import tp
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    out.mkdir(parents=True)
     batch = tp_batch(cfg)
     tokens = {"tokens": batch["tokens"]}
     model = init_params(cfg, seed=5)
+    routes = []
     with torch.no_grad():
-        kern = forward(cfg, model, tokens)[0]
+        with moe_routes(routes):
+            kern = forward(cfg, model, tokens)[0]
         plain = forward(cfg, model, tokens, attn_impl="plain")[0]
         with flash_calls(lambda flash, *args, **kw: attention_split_sum(*args, **kw)):
             split = forward(cfg, model, tokens)[0]
@@ -3479,7 +3500,8 @@ def tp_reference(cfg, out: Path) -> dict:
             raise AssertionError(f"the one-rank port's kernels against plain {kvp}, beyond "
                                  f"{TP_FLOOR_FACTOR}x the floor {floor} and {tol}")
         fwd_ms = cuda_ms(lambda: forward(cfg, model, tokens), iters=3, warmup=1)
-    torch.save({"logits": kern.cpu(), "floor": floor}, out / "forward.pt")
+    torch.save({"logits": kern.cpu(), "floor": floor, "routes": [r.cpu() for r in routes]},
+               out / "forward.pt")
     del kern
     toks, margins, first = greedy_stream(cfg, model, {"tokens": prefill_tokens(cfg, TP_PROMPT)},
                                          TP_NEW)
@@ -3530,53 +3552,51 @@ def tp_stream(cfg, model, prompts, mg) -> tuple:
     return torch.stack(outs, 1), first
 
 
-def tp_rank(rank: int, world: int, out: Path) -> int:
-    """One rank of phase 20 (``chip_smoke.py --tp-rank RANK WORLD DIR``):
-    gloo over a FileStore in DIR, on cuda:0 beside the other ranks. First
-    the transport: gloo's all_reduce of a CUDA tensor, summed right (the
-    rank fails where gloo refuses or garbles it). Then on the (1,
-    WORLD) (data, model) mesh, as a main path (the flash counts set to 0
-    before and read after): qwen3-8b split by ``tp.split_model`` (its bytes
-    the rules' ``bytes_per_device``), its forward of MESH_STEP's batch made
-    whole by ``tp.gather_vocab`` against the one-rank port's within
-    TP_FLOOR_FACTOR times the floor or PREFILL_TOL; the greedy stream
-    against the one-rank stream, equal or parting only at a near-tie; one
-    ``make_zero1_train_step`` against the one-rank step at BF16_STEP_TOL;
-    every flash call on the rank's heads. Writes DIR/rank{RANK}.json; any
-    failure raises, so the rank exits non-zero."""
-    import datetime
+def tp_flash_heads(cfg, world: int) -> tuple:
+    """(q heads, kv heads, Dhk, Dhv) of a rank's flash calls: MLA's k is
+    made per head, so its kv heads are its q heads."""
+    H, Dh = cfg.n_heads_padded // world, cfg.head_dim_
+    if cfg.mla is not None:
+        return (H, H, Dh + cfg.mla.rope_head_dim, Dh)
+    return (H, cfg.n_kv_heads // world, Dh, Dh)
+
+
+def tp_model(rank: int, world: int, mesh, cfg, out: Path) -> tuple:
+    """One model of a rank of phase 20, as a main path (the flash counts set
+    to 0 before and read after): ``cfg`` split by ``tp.split_model`` (its
+    bytes the rules' ``bytes_per_device``), its forward of MESH_STEP's batch
+    made whole by ``tp.gather_vocab``, the greedy stream and one
+    ``make_zero1_train_step``. Then held against the one-rank port in
+    ``out``: the logits within TP_FLOOR_FACTOR times the floor or
+    PREFILL_TOL (MoE expert choices that differ from the one-rank forward's
+    counted, as phase 11 counts them; where any do, a forward pinned to the
+    one-rank choices is held instead, outside the main path), the stream
+    equal or parting only at a near-tie, the step at BF16_STEP_TOL, every
+    flash call on the rank's heads. Returns (report, what failed)."""
     import torch.distributed as dist
-    from repro_torch import forward, get_config, init_params
+    from repro_torch import forward, init_params
     from repro_torch.distributed import tp, use_mesh
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.dryrun import param_bytes
-    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.launch.mesh import describe
     from repro_torch.train import (AdamWConfig, adamw_init, distribute_opt_state,
                                    local_batch, make_zero1_train_step, opt_state_shardings)
     from repro_torch.train.step import BF16_STEP_TOL
-    dist.init_process_group("gloo", store=dist.FileStore(str(out / "store"), world),
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
-    torch.cuda.set_device(0)
-    probe = torch.full((1 << 20,), float(rank + 1), device="cuda")
-    dist.all_reduce(probe)                  # raises where gloo takes no CUDA tensor
-    if not bool((probe == world * (world + 1) / 2).all()):
-        raise AssertionError(f"gloo's all_reduce of a CUDA tensor over {world} ranks "
-                             f"gave {probe[:4]}")
-    rep = {"transport": f"gloo takes a CUDA tensor for all_reduce: {probe.numel()} "
-                        f"floats summed right over {world} ranks (torch {torch.__version__})"}
-    mesh = make_mesh((1, world), ("data", "model"))
-    cfg = get_config(MESH_STEP["config"]).with_(n_layers=MESH_STEP["n_layers"])
+    rep = {}
     batch = tp_batch(cfg)
     prompts = prefill_tokens(cfg, TP_PROMPT)
     mg = tp.vocab_group
+    torch.cuda.reset_peak_memory_stats()
     model = tp.split_model(cfg, init_params(cfg, seed=5), mesh)
     rep["bytes"] = [sum(p.numel() * p.element_size() for p in model.parameters()),
                     param_bytes(cfg, mesh)]
-    heads = set()
+    moe = next((blk.moe for blk in model.blocks if hasattr(blk, "moe")), None)
+    if moe is not None:
+        rep["experts"] = [moe.e_in.shape[0], cfg.n_experts_padded]
+    heads, routes = set(), []
 
     def seen(flash, q, k, v, **kw):
-        heads.add((q.shape[1], k.shape[1]))
+        heads.add((q.shape[1], k.shape[1], q.shape[-1], v.shape[-1]))
         return flash(q, k, v, **kw)
 
     ref = torch.load(out / "forward.pt")
@@ -3586,7 +3606,8 @@ def tp_rank(rank: int, world: int, out: Path) -> int:
         flash_attention.launches = flash_attention.backward_launches = 0   # main path
         with torch.no_grad():
             t0 = time.perf_counter()
-            logits = forward(cfg, model, {"tokens": batch["tokens"]})[0]
+            with moe_routes(routes):
+                logits = forward(cfg, model, {"tokens": batch["tokens"]})[0]
             torch.cuda.synchronize()
             fwd_s = time.perf_counter() - t0
             local_vocab = logits.shape[-1]
@@ -3596,27 +3617,38 @@ def tp_rank(rank: int, world: int, out: Path) -> int:
             toks, first = tp_stream(cfg, model, prompts, mg(cfg))
             torch.cuda.synchronize()
             stream_s = time.perf_counter() - t0
-        del model
-        torch.cuda.empty_cache()
         whole_model = init_params(cfg, seed=5, trainable=True)
         opt = AdamWConfig(lr=STEP_LR, weight_decay=0.01)
         osh = opt_state_shardings(cfg, whole_model, mesh, opt)
         state = distribute_opt_state(adamw_init(whole_model, opt), osh, mesh)
-        model = tp.split_model(cfg, whole_model, mesh)
+        step_model = tp.split_model(cfg, whole_model, mesh)
         del whole_model
         step = make_zero1_train_step(cfg, opt, mesh, osh)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, state, m = step(model, state, local_batch(batch, mesh))
+        _, state, m = step(step_model, state, local_batch(batch, mesh))
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         got = (flash_attention.launches, flash_attention.backward_launches)  # ... ends
         peak = torch.cuda.max_memory_allocated()
-    del state, step
-    torch.cuda.empty_cache()
+        del state, step
+        torch.cuda.empty_cache()
+        n_flips = flips(routes, [r.cuda() for r in ref["routes"]])
+        n_routed = sum(r.numel() // r.shape[-1] for r in routes)
+        d = logit_diff(whole, ref["logits"].cuda())
+        held = "the main path's forward"
+        if n_flips:                 # outside the main path: routed as the one rank was
+            with use_mesh(mesh), torch.no_grad(), \
+                    moe_routes([r.cuda() for r in ref["routes"]], pin=True):
+                pinned = tp.gather_vocab(forward(cfg, model, {"tokens": batch["tokens"]})[0],
+                                         mg(cfg))
+            rep["logits_unpinned"] = d
+            d = logit_diff(pinned, ref["logits"].cuda())
+            held = "a forward pinned to the one-rank expert choices"
+            del pinned
+    del model
     n = cfg.n_layers
     want = (4 * n, n)       # the two prefills, the step's forward twice (remat full)
-    d = logit_diff(whole, ref["logits"].cuda())
     floor = ref["floor"]
     tol = PREFILL_TOL[torch.bfloat16]
     logits_ok = all(d[key] <= max(TP_FLOOR_FACTOR * floor[key], tol[key]) for key in tol)
@@ -3633,7 +3665,7 @@ def tp_rank(rank: int, world: int, out: Path) -> int:
                   f"margin {worst:.4f} (a near-tie within twice the prefills' logit "
                   f"difference {diff:.4f}: {worst <= 2 * diff})")
         if worst > 2 * diff:
-            raise AssertionError(f"rank {rank}: the stream {stream}")
+            raise AssertionError(f"rank {rank}: {cfg.name}'s stream {stream}")
     # the step against the one-rank step's slices, in BF16_STEP_TOL's terms;
     # the replicated leaves' sums counted on rank 0 alone
     ref_step = json.loads((out / "step.json").read_text())
@@ -3642,12 +3674,15 @@ def tp_rank(rank: int, world: int, out: Path) -> int:
     split = tp.split_dims(cfg, describe(mesh))
     sums = torch.zeros(2, dtype=torch.float64, device="cuda")
     worst_agree = 1.0
-    for (name, p), (_, o) in zip(model.named_parameters(), old.named_parameters()):
+    for (name, p), (_, o) in zip(step_model.named_parameters(), old.named_parameters()):
         w, p, o = want_p[name].cuda().float(), p.detach().float(), o.float()
         agree = ((p - o) - (w - o)).abs().le(STEP_LR / 2).float().mean().item()
         worst_agree = min(worst_agree, agree)
         if name in split or rank == 0:
             sums += torch.stack([(p - w).square().sum(), w.square().sum()]).double()
+        del w, p, o
+    del old, want_p, step_model
+    torch.cuda.empty_cache()
     dist.all_reduce(sums)
     rel = (sums[0] / sums[1]).sqrt().item()
     st = BF16_STEP_TOL
@@ -3655,27 +3690,63 @@ def tp_rank(rank: int, world: int, out: Path) -> int:
     step_ok = (abs(loss - ref_step["loss"]) <= st["loss"]
                and abs(gnorm - ref_step["grad_norm"]) <= st["grad_norm"] * ref_step["grad_norm"]
                and worst_agree >= st["update_agree"] and rel <= st["params_rel_rms"])
-    H, KH = cfg.n_heads_padded // world, cfg.n_kv_heads // world
     rep.update({
         "launches": list(got), "want": list(want), "heads": sorted(heads), "peak": peak,
-        "local_vocab": local_vocab, "logits": d, "floor": floor, "stream": stream,
+        "local_vocab": local_vocab, "logits": d, "held": held, "floor": floor,
+        "flips": [n_flips, n_routed], "stream": stream,
         "step": {"loss": [loss, ref_step["loss"]], "grad_norm": [gnorm, ref_step["grad_norm"]],
                  "update_agree": worst_agree, "params_rel_rms": rel},
         "seconds": {"forward": fwd_s, "stream": stream_s, "step": step_s}})
-    (out / f"rank{rank}.json").write_text(json.dumps(rep))
-    say(f"[tp rank {rank}] {json.dumps(rep)}")
-    dist.destroy_process_group()
     bad = []
     if rep["bytes"][0] != rep["bytes"][1]:
         bad.append(f"parameter bytes {rep['bytes']}")
+    if moe is not None and rep["experts"][0] * world != rep["experts"][1]:
+        bad.append(f"experts a rank {rep['experts']}")
     if got != want:
         bad.append(f"flash launches {got}, want {want}")
-    if sorted(heads) != [(H, KH)]:
-        bad.append(f"flash calls on (q, kv) heads {sorted(heads)}, want {(H, KH)}")
+    if sorted(heads) != [tp_flash_heads(cfg, world)]:
+        bad.append(f"flash calls on (q, kv, Dhk, Dhv) {sorted(heads)}, want "
+                   f"{tp_flash_heads(cfg, world)}")
     if not logits_ok:
         bad.append(f"logits {d} against the floor {floor}")
     if not step_ok:
         bad.append(f"step {rep['step']}")
+    return rep, [f"{cfg.name}: {b}" for b in bad]
+
+
+def tp_rank(rank: int, world: int, out: Path) -> int:
+    """One rank of phase 20 (``chip_smoke.py --tp-rank RANK WORLD DIR``):
+    gloo over a FileStore in DIR, on cuda:0 beside the other ranks. First
+    the transport: gloo's all_reduce of a CUDA tensor, summed right (the
+    rank fails where gloo refuses or garbles it). Then on the (1, WORLD)
+    (data, model) mesh each of TP_RUNS in turn (``tp_model``), the card
+    freed between them. Writes DIR/rank{RANK}.json; any failure raises, so
+    the rank exits non-zero."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(str(out / "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    torch.cuda.set_device(0)
+    probe = torch.full((1 << 20,), float(rank + 1), device="cuda")
+    dist.all_reduce(probe)                  # raises where gloo takes no CUDA tensor
+    if not bool((probe == world * (world + 1) / 2).all()):
+        raise AssertionError(f"gloo's all_reduce of a CUDA tensor over {world} ranks "
+                             f"gave {probe[:4]}")
+    rep = {"transport": f"gloo takes a CUDA tensor for all_reduce: {probe.numel()} "
+                        f"floats summed right over {world} ranks (torch {torch.__version__})"}
+    del probe
+    mesh = make_mesh((1, world), ("data", "model"))
+    bad = []
+    for run in TP_RUNS:
+        cfg = tp_config(run)
+        rep[cfg.name], failed = tp_model(rank, world, mesh, cfg, out / cfg.name)
+        bad += failed
+        torch.cuda.empty_cache()
+    (out / f"rank{rank}.json").write_text(json.dumps(rep))
+    say(f"[tp rank {rank}] {json.dumps(rep)}")
+    dist.destroy_process_group()
     if bad:
         raise AssertionError(f"rank {rank}: " + "; ".join(bad))
     return 0
@@ -3714,50 +3785,69 @@ def run_tp_ranks(out: Path) -> list:
     return [json.loads((out / f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
 
 
-def phase_tp() -> tuple:
+def phase_tp() -> dict:
     """Phase 20: tensor parallelism over 'model' on the one card. (a) the
-    one-rank reference (``tp_reference``), the card freed after; (b)
-    TP_WORLD gloo ranks on cuda:0, each first checking that gloo's
-    all_reduce takes a CUDA tensor, run the split (``tp_rank``) and are
-    joined. NCCL refuses two ranks on one device; gloo's all_reduce and
-    broadcast, all the split needs, take CUDA tensors. Two ranks share one card, so their
-    times are no measure of a split's speed. Returns the flash forward's
-    and backward's launches, summed over the ranks."""
+    one-rank reference of each of TP_RUNS (``tp_reference``), the card
+    freed after each; (b) TP_WORLD gloo ranks on cuda:0, each first checking
+    that gloo's all_reduce takes a CUDA tensor, run the split of each model
+    (``tp_rank``) and are joined. NCCL refuses two ranks on one device;
+    gloo's all_reduce and broadcast, all the split needs, take CUDA tensors.
+    Two ranks share one card, so their times are no measure of a split's
+    speed. Returns ``{path: (forward launches, backward launches)}``, each
+    model a main path, its launches summed over the ranks."""
     import shutil
-    from repro_torch import get_config
     t_phase = time.perf_counter()
     out = ROOT / "build" / "tp"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    cfg = get_config(MESH_STEP["config"]).with_(n_layers=MESH_STEP["n_layers"])
-    one = tp_reference(cfg, out)
+    cfgs = [tp_config(run) for run in TP_RUNS]
+    one, ref_s = {}, {}
+    for cfg in cfgs:
+        t0 = time.perf_counter()
+        one[cfg.name] = tp_reference(cfg, out / cfg.name)
+        ref_s[cfg.name] = time.perf_counter() - t0
     t0 = time.perf_counter()
     reports = run_tp_ranks(out)
     ranks_s = time.perf_counter() - t0
-    for r, rep in enumerate(reports):
-        sec = rep["seconds"]
-        say(f"[tp] rank {r} of {TP_WORLD} on the one card ({rep['transport']}): "
-            f"{rep['bytes'][0] / 2 ** 30:.3f} GiB of parameters (the rules' bytes_per_device "
-            f"on (1, {TP_WORLD}): {rep['bytes'][1] / 2 ** 30:.3f}), vocabulary slice "
-            f"{rep['local_vocab']} of {cfg.padded_vocab}, flash calls on (q, kv) heads "
-            f"{rep['heads']} of ({cfg.n_heads_padded}, {cfg.n_kv_heads}); launches forward "
-            f"{rep['launches'][0]}, backward {rep['launches'][1]} (want {rep['want']}); "
-            f"logits vs the one-rank port max_abs {rep['logits']['max_abs']:.3e} rel_rms "
-            f"{rep['logits']['rel_rms']:.3e} (floor {rep['floor']['max_abs']:.3e} / "
-            f"{rep['floor']['rel_rms']:.3e}, tol {TP_FLOOR_FACTOR}x floor or "
-            f"{PREFILL_TOL[torch.bfloat16]}); stream {rep['stream']}; ZeRO-1 step loss "
-            f"{rep['step']['loss'][0]:.6f} / {rep['step']['loss'][1]:.6f}, grad norm "
-            f"{rep['step']['grad_norm'][0]:.6f} / {rep['step']['grad_norm'][1]:.6f}, updates "
-            f"within lr/2 on >= {rep['step']['update_agree']:.4f}, params rel_rms "
-            f"{rep['step']['params_rel_rms']:.3e}; peak {rep['peak'] / 2 ** 30:.2f} GiB; forward "
-            f"{sec['forward']:.3f} s, stream {sec['stream']:.3f} s, step {sec['step']:.3f} s "
-            f"(two ranks share one card: no measure of a split's speed)")
+    paths = {}
+    for cfg in cfgs:
+        for r, rank_rep in enumerate(reports):
+            rep, sec = rank_rep[cfg.name], rank_rep[cfg.name]["seconds"]
+            experts = (f"{rep['experts'][0]} of {rep['experts'][1]} experts a layer, "
+                       if "experts" in rep else "")
+            unpinned = (f" (unpinned: max_abs {rep['logits_unpinned']['max_abs']:.3e} rel_rms "
+                        f"{rep['logits_unpinned']['rel_rms']:.3e})"
+                        if "logits_unpinned" in rep else "")
+            say(f"[tp] {cfg.name} {cfg.n_layers} layers, rank {r} of {TP_WORLD} on the one "
+                f"card ({rank_rep['transport']}): {rep['bytes'][0] / 2 ** 30:.3f} GiB of "
+                f"parameters (the rules' bytes_per_device on (1, {TP_WORLD}): "
+                f"{rep['bytes'][1] / 2 ** 30:.3f}), {experts}vocabulary slice "
+                f"{rep['local_vocab']} of {cfg.padded_vocab}, flash calls on (q, kv, Dhk, Dhv) "
+                f"{rep['heads']} of {cfg.n_heads_padded} heads; launches forward "
+                f"{rep['launches'][0]}, backward {rep['launches'][1]} (want {rep['want']}); "
+                f"MoE expert choices differing from the one-rank forward's "
+                f"{rep['flips'][0]} of {rep['flips'][1]} (token, layer); logits of "
+                f"{rep['held']} vs the one-rank port max_abs {rep['logits']['max_abs']:.3e} "
+                f"rel_rms {rep['logits']['rel_rms']:.3e}{unpinned} (floor "
+                f"{rep['floor']['max_abs']:.3e} / {rep['floor']['rel_rms']:.3e}, tol "
+                f"{TP_FLOOR_FACTOR}x floor or {PREFILL_TOL[torch.bfloat16]}); stream "
+                f"{rep['stream']}; ZeRO-1 step loss {rep['step']['loss'][0]:.6f} / "
+                f"{rep['step']['loss'][1]:.6f}, grad norm {rep['step']['grad_norm'][0]:.6f} / "
+                f"{rep['step']['grad_norm'][1]:.6f}, updates within lr/2 on >= "
+                f"{rep['step']['update_agree']:.4f}, params rel_rms "
+                f"{rep['step']['params_rel_rms']:.3e}; peak {rep['peak'] / 2 ** 30:.2f} GiB; "
+                f"forward {sec['forward']:.3f} s, stream {sec['stream']:.3f} s, step "
+                f"{sec['step']:.3f} s (two ranks share one card: no measure of a split's "
+                f"speed)")
+        got = tuple(sum(rep[cfg.name]["launches"][i] for rep in reports) for i in (0, 1))
+        paths[f"{cfg.name} split over 'model' by {TP_WORLD} gloo ranks on one card"] = got
+        say(f"[tp] {cfg.name}: the one-rank reference {ref_s[cfg.name]:.1f} s, its forward "
+            f"{one[cfg.name]['forward_ms']:.3f} ms and step {one[cfg.name]['step_s']:.3f} s "
+            f"alone on the card; flash launches over the ranks forward {got[0]}, backward "
+            f"{got[1]}")
     shutil.rmtree(out, ignore_errors=True)
-    got = tuple(sum(rep["launches"][i] for rep in reports) for i in (0, 1))
-    say(f"[tp] phase 20 {time.perf_counter() - t_phase:.1f} s: the ranks {ranks_s:.1f} s; the "
-        f"one-rank port's forward {one['forward_ms']:.3f} ms and step {one['step_s']:.3f} s "
-        f"alone on the card; flash launches over the ranks forward {got[0]}, backward {got[1]}")
-    return got
+    say(f"[tp] phase 20 {time.perf_counter() - t_phase:.1f} s: the ranks {ranks_s:.1f} s")
+    return paths
 
 
 def serve_timing(repeats: int) -> None:
@@ -3878,18 +3968,18 @@ def main() -> int:
     lap("18")
     smoke = phase_smoke()
     lap("19")
-    tp_fwd, tp_bwd = phase_tp()
+    tp_paths = phase_tp()
     lap("20")
     say(f"[time] seconds by phase: {json.dumps(seconds)}, {sum(seconds.values()):.1f} in all")
     mesh_path = "train qwen3-8b ZeRO-1 on the host mesh"
-    tp_path = f"qwen3-8b split over 'model' by {TP_WORLD} gloo ranks on one card"
     kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd, **mla_fwd,
                                   "serve jamba-1.5-large-398b": jamba, **whisper_fwd, **llava,
                                   mesh_path: mesh_fwd, **example_fwd, "smoke configs": smoke[0],
-                                  tp_path: tp_fwd}
+                                  **{path: n[0] for path, n in tp_paths.items()}}
     backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd, **whisper_bwd,
                                     mesh_path: mesh_bwd, **example_bwd,
-                                    "smoke configs": smoke[1], tp_path: tp_bwd}
+                                    "smoke configs": smoke[1],
+                                    **{path: n[1] for path, n in tp_paths.items()}}
     mlstm["launches_by_path"].update(xlstm_fwd)
     mlstm["launches_by_path"]["smoke configs"] = smoke[2]
     mlstm_bwd["launches_by_path"] = {**xlstm_bwd, "smoke configs": smoke[3]}

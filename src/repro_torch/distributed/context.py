@@ -12,6 +12,13 @@ back as it is. The port's models do not call ``shard``: they run on plain
 local tensors, and mark the reference's ``shard()`` sites with the
 collectives of ``distributed/tp.py`` (``copy_to_model``,
 ``reduce_from_model``), which a split over 'model' needs there.
+
+A rank's batch is either the whole batch, the same on every rank (the
+default), or only its own rows of the global batch, split over 'pod' and
+'data' (``use_mesh(mesh, local_rows=True)``, as the ZeRO-1 step enters it
+with ``train.step.local_batch``'s rows). The MoE reads which
+(``local_rows``): its token groups and its router loss are the global
+batch's, as the reference's are.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from torch.distributed.tensor import DTensor
 from ..launch.mesh import Mesh, describe
 
 _ACTIVE_MESH: Optional[Mesh] = None
+_LOCAL_ROWS = False
 
 AxisName = Union[str, Sequence[str], None]
 
@@ -44,14 +52,17 @@ P = PartitionSpec
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Optional[Mesh]):
-    global _ACTIVE_MESH
-    prev = _ACTIVE_MESH
-    _ACTIVE_MESH = mesh
+def use_mesh(mesh: Optional[Mesh], local_rows: bool = False):
+    """Make ``mesh`` ambient. ``local_rows``: each rank's batch holds only
+    its own rows of the global batch, split over 'pod' and 'data'; else
+    every rank holds the whole batch."""
+    global _ACTIVE_MESH, _LOCAL_ROWS
+    prev = _ACTIVE_MESH, _LOCAL_ROWS
+    _ACTIVE_MESH, _LOCAL_ROWS = mesh, local_rows
     try:
         yield mesh
     finally:
-        _ACTIVE_MESH = prev
+        _ACTIVE_MESH, _LOCAL_ROWS = prev
 
 
 def get_mesh() -> Optional[Mesh]:
@@ -62,6 +73,12 @@ def axis_size(name: str) -> int:
     if _ACTIVE_MESH is None:
         return 1
     return describe(_ACTIVE_MESH).shape.get(name, 1)
+
+
+def local_rows() -> bool:
+    """Whether each rank's batch is its own rows of the global batch (see
+    ``use_mesh``) on a mesh with more than one rank over 'pod' x 'data'."""
+    return _LOCAL_ROWS and axis_size("pod") * axis_size("data") > 1
 
 
 def _filter_axes(axes, shape=None) -> Optional[P]:

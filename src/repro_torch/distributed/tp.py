@@ -8,12 +8,16 @@ on plain local tensors and two autograd functions:
 
 * ``copy_to_model`` (identity forward, all-reduce backward) where a
   replicated activation enters a column-parallel product: q, k and v on the
-  rank's heads (``src/repro/models/attention.py:202``, ``:239-240``), the
-  MLP's ``w_in``/``w_gate`` on its ``d_ff`` slice (``layers.py:67``), the
-  head on its vocabulary slice (``lm.py:289``);
+  rank's heads (``src/repro/models/attention.py:202``, ``:239-240``), MLA's
+  q, k and v on the rank's heads (``:290-291``), the MLP's
+  ``w_in``/``w_gate`` on its ``d_ff`` slice (``layers.py:67``), the tokens
+  and gates of the MoE's dispatch and combine on the rank's experts
+  (``moe.py:108``), the head on its vocabulary slice (``lm.py:289``);
 * ``reduce_from_model`` (all-reduce forward, identity backward) where a
   row-parallel product's partial sums come back replicated: after ``wo``
-  (``attention.py:245``) and ``w_out`` (``lm.py:153``), and after the
+  (``attention.py:245``, ``:296``), ``w_out`` (``lm.py:153``) and the MoE's
+  combine (the reference gathers the expert outputs over 'model' instead,
+  ``moe.py:115``: G·E·C·D numbers where this moves T·D), and after the
   vocab-parallel embedding lookup (``lm.py:242``, ``:264``).
 
 The only collectives on the 'model' group are ``all_reduce`` and
@@ -28,14 +32,19 @@ rank takes that kv head (q head h reads kv head h // G, the flash kernel's
 mapping). Where a rank's q heads would straddle kv groups instead (H/m does
 not divide G), ``check_split`` refuses the split (ROADMAP item 7d); no
 registered configuration meets that on the meshes the repo names. The replicated
-weights those heads read (``wk``, ``wv``, the qk-norm scales) pass through
-``copy_to_model`` too, so their partial gradients are summed over 'model'.
+weights those heads read (``wk``, ``wv``, the qk-norm scales; MLA's
+``w_dkv`` and ``kv_norm``) pass through ``copy_to_model`` too, so their
+partial gradients are summed over 'model'. The MoE splits its experts
+(``e_in``, ``e_gate``, ``e_out`` on E) and keeps the router whole: every
+rank routes every token alike, and runs only its own experts' slots. Its
+shared experts split on their own width (``shared_group``).
 
 A split runs where the ambient mesh (``use_mesh``) is a ``DeviceMesh`` whose
-'model' axis has more than one rank, and only for the dense ``attn+mlp``
-model: ``check_split`` refuses every other block kind (ROADMAP item 7d). A
-``MeshShape``, such as the dry run's production meshes, has no process
-group and runs no split.
+'model' axis has more than one rank, for the decoders of ``attn+mlp``,
+``attn+moe``, ``mla+mlp`` and ``mla+moe`` blocks (a dense first layer
+included): ``check_split`` refuses Mamba, xLSTM, the encoder-decoder and the
+VLM prefix (ROADMAP item 7d). A ``MeshShape``, such as the dry run's
+production meshes, has no process group and runs no split.
 """
 
 from __future__ import annotations
@@ -78,12 +87,17 @@ def model_group(mesh: Optional[Mesh] = None) -> Optional[ModelGroup]:
 
 
 # ------------------------------------------------------------ collectives
+def _summed_over(t: torch.Tensor, groups: list) -> torch.Tensor:
+    acc = torch.empty(t.shape, dtype=torch.float32, device=t.device).copy_(t)
+    for g in groups:
+        dist.all_reduce(acc, group=g)
+    return acc.to(t.dtype)
+
+
 def summed(t: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
     """``t`` summed over the 'model' group in fp32, in ``t``'s dtype; ``t``
     itself is left as it was."""
-    acc = torch.empty(t.shape, dtype=torch.float32, device=t.device).copy_(t)
-    dist.all_reduce(acc, group=mg.group)
-    return acc.to(t.dtype)
+    return _summed_over(t, [mg.group])
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -182,10 +196,38 @@ def cache_kv_heads(cfg: ModelConfig) -> int:
     return cfg.n_kv_heads if sp is None else sp.n_kv
 
 
-def ff_group(cfg: ModelConfig) -> Optional[ModelGroup]:
-    """The 'model' group where the rules split the MLP's d_ff; else None."""
+def ff_group(cfg: ModelConfig, d_ff: int = 0) -> Optional[ModelGroup]:
+    """The 'model' group where the rules split an MLP of width ``d_ff``
+    (default ``cfg.d_ff``); else None."""
     mg = model_group()
-    if mg is None or _split_dim("w_in", (cfg.d_model, cfg.d_ff)) is None:
+    if mg is None or _split_dim("w_in", (cfg.d_model, d_ff or cfg.d_ff)) is None:
+        return None
+    return mg
+
+
+def shared_group(cfg: ModelConfig) -> Optional[ModelGroup]:
+    """The 'model' group where the rules split the MoE's shared experts, an
+    MLP of width ``n_shared * d_expert`` (not ``cfg.d_ff``); else None."""
+    m = cfg.moe
+    return ff_group(cfg, m.n_shared * m.d_expert) if m.n_shared else None
+
+
+def expert_group(cfg: ModelConfig) -> Optional[ModelGroup]:
+    """The 'model' group where the rules split the experts over E (``e_in``,
+    ``e_gate``, ``e_out``); else None (every rank holds them all)."""
+    mg = model_group()
+    E = cfg.n_experts_padded
+    if mg is None or _split_dim("e_in", (E, cfg.d_model, cfg.moe.d_expert)) is None:
+        return None
+    return mg
+
+
+def mla_group(cfg: ModelConfig) -> Optional[ModelGroup]:
+    """The 'model' group where the rules split MLA's heads (``wq``, ``w_uk``,
+    ``w_uv``, ``wo`` on H); else None."""
+    mg = model_group()
+    H, Dq = cfg.n_heads_padded, cfg.head_dim_ + cfg.mla.rope_head_dim
+    if mg is None or _split_dim("wq", (cfg.d_model, H, Dq)) is None:
         return None
     return mg
 
@@ -199,10 +241,14 @@ def vocab_group(cfg: ModelConfig) -> Optional[ModelGroup]:
     return mg
 
 
+SPLIT_KINDS = ("attn+mlp", "attn+moe", "mla+mlp", "mla+moe")
+
+
 def check_split(cfg: ModelConfig, mesh: Optional[Mesh] = None) -> None:
-    """Refuse a split over 'model' of anything but the dense ``attn+mlp``
-    decoder, and of one whose ranks' q heads would straddle kv groups
-    (see the module's docstring). ``mesh`` defaults to the ambient mesh where it is a
+    """Refuse a split over 'model' of anything but a decoder of
+    ``SPLIT_KINDS`` blocks (Mamba, xLSTM, an encoder-decoder, a VLM prefix),
+    and of one whose ranks' q heads would straddle kv groups (see the
+    module's docstring). ``mesh`` defaults to the ambient mesh where it is a
     ``DeviceMesh`` (a ``MeshShape`` runs no split)."""
     if mesh is None:
         mg = model_group()
@@ -212,14 +258,16 @@ def check_split(cfg: ModelConfig, mesh: Optional[Mesh] = None) -> None:
     if size == 1:
         return
     from ..models.lm import layer_kinds        # lm reaches this module at run time
-    kinds = sorted(set(layer_kinds(cfg)) - {"attn+mlp"})
+    kinds = sorted(set(layer_kinds(cfg)) - set(SPLIT_KINDS))
     what = ("an encoder-decoder" if cfg.is_encdec else "a VLM prefix" if cfg.vlm
             else f"block kinds {kinds}" if kinds else None)
     if what:
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over 'model' ({size} ranks) covers the "
-            f"dense attn+mlp decoder only; a split of {what} is a later part of "
-            f"{ROADMAP_ITEM}")
+            f"{cfg.name}: tensor parallelism over 'model' ({size} ranks) covers "
+            f"decoders of {', '.join(SPLIT_KINDS)} blocks; a split of {what} is a "
+            f"later part of {ROADMAP_ITEM}")
+    if cfg.mla is not None:                     # MLA reads no wk/wv
+        return
     run = _kv_group_run(cfg, get_mesh() if mesh is None else mesh)
     if run is not None and run[1] % run[0]:
         raise NotImplementedError(
@@ -300,6 +348,37 @@ def gather_model(cfg: ModelConfig, model: torch.nn.Module,
         full.narrow(dim, mg.rank * p.shape[dim], p.shape[dim]).copy_(p)
         p.data = summed(full, mg)
     return model
+
+
+# ------------------------------------------------------------ the data axes
+def _data_groups() -> list:
+    mesh = get_mesh()
+    if not isinstance(mesh, DeviceMesh):
+        raise ValueError("a rank's own rows need a DeviceMesh to sum over 'pod' and 'data'")
+    names = mesh.mesh_dim_names
+    return [mesh.get_group(a) for a in ("pod", "data")
+            if a in names and mesh.size(names.index(a)) > 1]
+
+
+class _SumOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return _summed_over(t, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed_over(grad, ctx.groups), None
+
+
+def sum_over_data(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed in fp32 over the ambient ``DeviceMesh``'s 'pod' and
+    'data' ranks, forward and backward. Where each rank holds its own rows
+    and every rank's loss reads the sum, each rank's share takes the sum of
+    the ranks' gradients: once the step averages the ranks' gradients, the
+    share's gradient is the whole batch's, neither divided nor multiplied
+    by the data ranks."""
+    return _SumOverData.apply(t, _data_groups())
 
 
 # ------------------------------------------------------------ the vocabulary

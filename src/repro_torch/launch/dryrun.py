@@ -25,14 +25,16 @@ a process counts each (config, shape) once for both.
 
 Those bytes and FLOPs follow the reference's plan, which splits the
 parameters over 'model' (tensor parallelism). A train cell's line also
-carries ``port_step``, the port's own ZeRO-1 step on the mesh: for the
-dense ``attn+mlp`` model it is split over 'model' as the rules lay it out
-(``distributed/tp.py``), so its bytes are the plan's and its FLOPs are
-split over every device; any other block kind the port refuses to split
-(ROADMAP item 7d), and its figures are those of the data-parallel step it
+carries ``port_step``, the port's own ZeRO-1 step on the mesh: for a model
+of ``attn+mlp``, ``attn+moe``, ``mla+mlp`` and ``mla+moe`` blocks it is
+split over 'model' as the rules lay it out (``distributed/tp.py``), so its
+bytes are the plan's and its FLOPs are split over every device; Mamba,
+xLSTM, the encoder-decoder and the VLM prefix the port refuses to split
+(ROADMAP item 7d), and their figures are those of the data-parallel step it
 runs on the same devices with 'model' folded into 'data': parameters whole
 on each rank, the optimizer state and batch over every rank, FLOPs split
-over every device.
+over every device. An MoE cuts its tokens into the mesh's 'pod' x 'data'
+groups, as the reference's does, so its FLOPs are counted for each mesh.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
@@ -52,7 +54,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ARCHS, get_config
 from ..distributed import tp
-from ..distributed.context import use_mesh
+from ..distributed.context import axis_size, use_mesh
 from ..distributed.sharding import param_shardings
 from ..models.lm import decode_step, forward
 from ..train.optimizer import AdamWConfig, adamw_init, opt_state_shardings
@@ -70,19 +72,21 @@ NULLS = {
     "raw_cpu_hlo": _NO_HLO,
 }
 _NO_PORT_MESH = ("port_step reckons train cells only: the port's split prefill and "
-                 "decode (attn+mlp) hold the cache by kv heads where the reference "
-                 "splits it on the sequence, and are not laid out here")
+                 "decode hold the cache by kv heads (attention) or whole (MLA's latent) "
+                 "where the reference splits it on the sequence, and are not laid out here")
 LAYOUT = ("memory.bytes_per_device, flops_per_device and roofline follow the "
           "reference's plan: parameters split over 'model' by the rules (tensor "
           "parallelism) and the step's FLOPs split over every device. For a train "
           "cell, port_step gives the port's own ZeRO-1 step: the same plan for the "
-          "dense attn+mlp model, which the port splits over 'model'; for any other "
-          "block kind, which it does not split yet, the data-parallel step it runs "
-          "on the same devices with 'model' folded into 'data'")
+          "attn+mlp, attn+moe, mla+mlp and mla+moe models, which the port splits over "
+          "'model'; for Mamba, xLSTM, the encoder-decoder and the VLM prefix, which it "
+          "does not split yet, the data-parallel step it runs on the same devices with "
+          "'model' folded into 'data'")
 _SPLIT = ("split over 'model' as the rules lay it out (distributed/tp.py): the plan's "
           "bytes, FLOPs split evenly over every device (a leaf the rules leave whole, "
-          "such as heads 'model' does not divide, repeats its products on each "
-          "'model' rank, which this even split does not count)")
+          "such as heads 'model' does not divide, MLA's w_dkv or the MoE's router, "
+          "repeats its products on each 'model' rank, which this even split does not "
+          "count)")
 
 
 def model_flops(cfg, shape_name: str) -> float:
@@ -179,9 +183,12 @@ _COUNTS: Dict[tuple, Tuple[float, float]] = {}
 
 
 def count_flops(cfg, shape_name: str, accum: int) -> Tuple[float, float]:
-    """``(FLOPs, seconds)`` of the cell's step, counted once a process for
-    each (config, shape, accum): both meshes share the count."""
-    key = (cfg, shape_name, accum)
+    """``(FLOPs, seconds)`` of the cell's step under the ambient mesh,
+    counted once a process for each (config, shape, accum): both meshes
+    share the count, but for an MoE, whose token groups are the mesh's
+    'pod' x 'data' (``moe._groups``)."""
+    groups = axis_size("pod") * axis_size("data") if cfg.moe is not None else 1
+    key = (cfg, shape_name, accum, groups)
     if key not in _COUNTS:
         t0 = time.time()
         run = build_cell(cfg, shape_name, accum)
@@ -203,10 +210,11 @@ def folded(mesh: MeshShape) -> MeshShape:
 def port_step(cfg, shape_name: str, mesh: MeshShape, nbytes: Dict[str, float],
               flops: float):
     """The port's own layout of a train cell, beside the reference's plan.
-    ``make_zero1_train_step`` splits the dense ``attn+mlp`` model over
-    'model' as the rules do, so its bytes are ``nbytes`` and its FLOPs are
-    split over every device. Any other block kind it refuses to split
-    (``tp.check_split``, ROADMAP item 7d), so on ``mesh`` its step raises:
+    ``make_zero1_train_step`` splits a model of ``tp.SPLIT_KINDS`` blocks
+    over 'model' as the rules do, so its bytes are ``nbytes`` and its FLOPs
+    are split over every device. Mamba, xLSTM, the encoder-decoder and the
+    VLM prefix it refuses to split (``tp.check_split``, ROADMAP item 7d),
+    so on ``mesh`` their step raises:
     its figures are those of the step the port runs on the same devices
     with 'model' folded into 'data' (``folded``), the rules' layout on that
     mesh: parameters whole on each rank, the optimizer state ZeRO-1 over

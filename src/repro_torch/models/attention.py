@@ -16,7 +16,8 @@ the encoder's output, no mask, no RoPE; in decode, the fixed cross cache)
 and ``use_rope=False``. Under a split over 'model' (``distributed/tp.py``)
 ``attention_block`` runs the rank's heads: q, k and v projected on them,
 ``flash_attention`` over them, ``wo``'s partial sums reduced over 'model';
-its cache holds the rank's kv heads.
+its cache holds the rank's kv heads. ``mla_block`` splits the same way over
+its heads (``tp.mla_group``), its latent cache whole on every rank.
 """
 
 from __future__ import annotations
@@ -255,17 +256,32 @@ def mla_block(p: MLA, x: torch.Tensor, cfg: ModelConfig, *,
     dims) and comes back by ``w_uv``. Its scores are scaled by
     (r + rope)^-1/2, where the full-sequence path scales by (Dh + rope)^-1/2:
     the reference's ``decode_attention`` takes its scale from q's last dim,
-    and the port carries that over (ROADMAP.md Queue 3, quirk 13)."""
+    and the port carries that over (ROADMAP.md Queue 3, quirk 13).
+
+    Under a split over 'model' that cuts the heads (``tp.mla_group``) the
+    block runs this rank's H/m heads, where the reference pins q and k to
+    'model' (``src/repro/models/attention.py:290-291``): x, ``w_dkv`` and
+    ``kv_norm`` enter through ``copy_to_model`` (each rank's heads read the
+    whole latent, so their gradients are partial), and ``wo``'s partial
+    sums leave through ``reduce_from_model`` (``:296``). The decode scale is
+    unchanged. The latent cache is whole on every rank, where the reference
+    splits its positions over 'model' (``:144-147``): the bytes are in
+    ROADMAP.md Queue 3, quirk 18."""
     m = cfg.mla
     B, S, D = x.shape
-    Dh, H, r = cfg.head_dim_, cfg.n_heads_padded, m.kv_lora_rank
+    Dh, H, r = cfg.head_dim_, p.wq.shape[1], m.kv_lora_rank    # H: this rank's heads
     if positions is None:
         positions = torch.arange(S, device=x.device)
+    mg = tp.mla_group(cfg)
+    w_dkv, kv_norm = p.w_dkv, p.kv_norm
+    if mg is not None:
+        x = tp.copy_to_model(x, mg)
+        w_dkv, kv_norm = tp.copy_to_model(w_dkv, mg), tp.copy_to_model(kv_norm, mg)
     qfull = torch.einsum("bsd,dhq->bhsq", x, p.wq)              # (B,H,S,Dh+rope)
     q_nope, q_rope = qfull[..., :Dh], qfull[..., Dh:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    dkv = torch.einsum("bsd,dr->bsr", x, p.w_dkv)               # (B,S,r+rope)
-    c_kv = rms_norm(dkv[..., :r], p.kv_norm, cfg.norm_eps)
+    dkv = torch.einsum("bsd,dr->bsr", x, w_dkv)                 # (B,S,r+rope)
+    c_kv = rms_norm(dkv[..., :r], kv_norm, cfg.norm_eps)
     k_rope = apply_rope(dkv[:, None, :, r:], positions, cfg.rope_theta)  # (B,1,S,rope)
 
     if cache is not None:
@@ -291,7 +307,7 @@ def mla_block(p: MLA, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache = {"c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
                          "k_rope": torch.nn.functional.pad(k_rope[:, 0], (0, 0, 0, pad))}
     y = torch.einsum("bhsq,hqd->bsd", out, p.wo)
-    return y, new_cache
+    return tp.reduce_from_model(y, mg), new_cache
 
 
 def init_self_attn_cache(cfg: ModelConfig, batch: int, max_len: int,

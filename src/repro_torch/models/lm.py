@@ -46,11 +46,13 @@ scan (``ssm.py``), MoE by autograd through its dispatch and combine gathers
 Tensor parallelism (``distributed/tp.py``): under ``use_mesh`` of a
 ``DeviceMesh`` whose 'model' axis has more than one rank, ``forward``,
 ``loss_fn``, ``decode_step`` and ``init_caches`` run this rank's part of
-the dense ``attn+mlp`` model (``tp.split_model``): its heads, its d_ff
-slice and, where the rules split ``embed``/``head``, its vocabulary slice,
-so the logits are this rank's slice (the reference's ``lm.py:289``
+a model of ``attn+mlp``, ``attn+moe``, ``mla+mlp`` and ``mla+moe`` blocks
+(``tp.split_model``): its attention or MLA heads, its d_ff slice, its
+experts and, where the rules split ``embed``/``head``, its vocabulary
+slice, so the logits are this rank's slice (the reference's ``lm.py:289``
 layout; ``tp.gather_vocab`` makes them whole). ``check_split`` refuses
-every other block kind there (ROADMAP item 7d).
+Mamba, xLSTM, the encoder-decoder and the VLM prefix there (ROADMAP item
+7d).
 """
 
 from __future__ import annotations
@@ -88,9 +90,9 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def check_split(cfg: ModelConfig, model: Optional[nn.Module] = None) -> None:
     """Under a split over 'model' on the ambient mesh, raise
-    NotImplementedError for any model but the dense ``attn+mlp`` decoder
-    (MoE, MLA, Mamba, xLSTM, an encoder-decoder, a VLM prefix: ROADMAP item
-    7d), never computing them whole in silence; and ValueError for a
+    NotImplementedError for a model with blocks the port does not split
+    (Mamba, xLSTM, an encoder-decoder, a VLM prefix: ROADMAP item 7d),
+    never computing them whole in silence; and ValueError for a
     ``model`` that is not this rank's part (``tp.split_model``)."""
     tp.check_split(cfg)
     if model is not None:

@@ -8,14 +8,24 @@ are masked to -1e30 in the router, so no token reaches them; their weights
 take a zero gradient, as the reference's do.
 
 ``apply_moe`` is the reference's default "gather" dispatch: the tokens split
-into G groups (the first of 16, 8, 4, 2 dividing T; on one device the
-reference's data-axis candidate is 1 and is skipped), and within each group
+into G groups (``_groups``: the ambient mesh's 'pod' x 'data' where it
+divides T, else the first of 16, 8, 4, 2 that does), and within each group
 a stable sort by expert, a capacity of ``_capacity(T / G)`` slots an expert
 with the later assignments dropped, a dispatch gather into (G, E, C, D), the
 three expert products, and a combine gather whose K contributions are summed
 in order. The same groups, capacity and stable order as the reference, so
-the same assignments drop. ``cfg.moe_dispatch == "scatter"`` runs
+the same assignments drop. On a rank that holds only its own rows
+(``use_mesh(..., local_rows=True)``, the ZeRO-1 step) those rows are one of
+the reference's groups, and the router's aux loss is taken over the global
+batch (``tp.sum_over_data``). ``cfg.moe_dispatch == "scatter"`` runs
 ``_apply_moe_scatter``, the reference's ablation with one global capacity.
+
+Under a split over 'model' that cuts the experts (``tp.expert_group``) the
+router stays whole: every rank routes every token alike from the same
+inputs, then gathers only its own experts' slots (a (G, E/m, C, D) buffer),
+runs its experts, combines their contributions and sums the partial outputs
+over 'model' once. The shared experts split on their own width
+(``tp.shared_group``).
 
 Both gathers are permutations with drops, so each one's transpose is a
 gather too (``_PermutationGather``): the backward sums a fixed number of
@@ -32,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import tp
+from ..distributed.context import axis_size, local_rows
 from .config import ModelConfig
 from .layers import MLP, apply_mlp, dense_init, init_mlp, pdtype
 
@@ -71,8 +83,15 @@ def _capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
 
 
 def _groups(T: int) -> int:
-    for cand in (16, 8, 4, 2):
-        if T % cand == 0:
+    """The token groups of T tokens, as the reference picks them over the
+    global batch: the ambient mesh's 'pod' x 'data' where it divides T
+    (each data shard's rows one group), else the first of 16, 8, 4, 2 that
+    does. On a rank holding its own rows (``local_rows``) T is its share of
+    the global batch, which 'pod' x 'data' divides: its rows are one group."""
+    if local_rows():
+        return 1
+    for cand in (axis_size("pod") * axis_size("data"), 16, 8, 4, 2):
+        if cand > 1 and T % cand == 0:
             return cand
     return 1
 
@@ -157,36 +176,65 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, 
         slot_orig = torch.gather(slot_sorted, 1, inv)
         slot_assign = torch.where(valid.reshape(G, E * C),
                                   torch.gather(order, 1, sorted_at_slot), Tl * K)
-    ebuf = _PermutationGather.apply(xg, slot_tok, slot_orig, K).reshape(G, E, C, D)
+    mg = tp.expert_group(cfg)
+    El = p.e_in.shape[0]                                       # this rank's experts
+    if mg is not None:
+        # this rank's experts' slots; every other assignment reads the zero row
+        lo, n = mg.rank * El * C, El * C
+        slot_tok, slot_assign = slot_tok[:, lo:lo + n], slot_assign[:, lo:lo + n]
+        local = slot_orig - lo
+        slot_orig = torch.where((local >= 0) & (local < n), local, n)
+        # each rank's experts give only a part of these gradients
+        xg, gate = tp.copy_to_model(xg, mg), tp.copy_to_model(gate, mg)
+    ebuf = _PermutationGather.apply(xg, slot_tok, slot_orig, K).reshape(G, El, C, D)
 
     # ---- expert FFN ----------------------------------------------------------
     h = torch.einsum("gecd,edf->gecf", ebuf, p.e_in)
     g_ = torch.einsum("gecd,edf->gecf", ebuf, p.e_gate)
     h = h * F.silu(g_.float()).to(h.dtype)
-    y = torch.einsum("gecf,efd->gecd", h, p.e_out)            # (G,E,C,D)
+    y = torch.einsum("gecf,efd->gecd", h, p.e_out)            # (G,El,C,D)
 
     # ---- combine: group-local gathers + unsort ------------------------------
-    contrib = _PermutationGather.apply(y.reshape(G, E * C, D), slot_orig,
+    contrib = _PermutationGather.apply(y.reshape(G, El * C, D), slot_orig,
                                        slot_assign, 1)         # (G,TlK,D)
     contrib = contrib * gate.reshape(G, Tl * K, 1).to(y.dtype)
-    out = contrib.reshape(G, Tl, K, D).sum(dim=2).reshape(B, S, D)
+    out = tp.reduce_from_model(contrib.reshape(G, Tl, K, D).sum(dim=2).reshape(B, S, D), mg)
 
     aux = _aux_loss(probs.reshape(T, E), eidx.reshape(T, K), cfg)
     if m.n_shared:
-        out = out + apply_mlp(p.shared, x)
+        out = out + apply_mlp(p.shared, x, tp.shared_group(cfg))
     return out, aux
 
 
 def _aux_loss(probs: torch.Tensor, eidx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The router's load-balancing loss over the global batch: on a rank
+    holding its own rows, ``density`` and ``density_proxy`` are the sums
+    over the data ranks (``tp.sum_over_data``) over the global count."""
     E = cfg.n_experts_padded
-    density = F.one_hot(eidx[:, 0], E).float().mean(0)
-    density_proxy = probs.mean(0)
+    hits = F.one_hot(eidx[:, 0], E).float()
+    if local_rows():
+        n = probs.shape[0] * axis_size("pod") * axis_size("data")
+        density = tp.sum_over_data(hits.sum(0)) / n
+        density_proxy = tp.sum_over_data(probs.sum(0)) / n
+    else:
+        density, density_proxy = hits.mean(0), probs.mean(0)
     return (density * density_proxy).sum() * E * cfg.moe.router_aux_coef
 
 
 def _apply_moe_scatter(p: MoE, x: torch.Tensor, xt: torch.Tensor,
                        cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Global sort + scatter dispatch (the reference's ablation baseline)."""
+    """Global sort + scatter dispatch (the reference's ablation baseline).
+    Its one capacity over the global batch is refused on a rank that holds
+    only its own rows, and the dispatch under a split over 'model' (ROADMAP
+    item 7d)."""
+    if local_rows():
+        raise NotImplementedError(
+            f"{cfg.name}: the scatter dispatch's one capacity is the global batch's; "
+            "a rank holding its own rows cannot reckon it")
+    if tp.model_group() is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the scatter dispatch split over 'model' is a later part of "
+            f"{tp.ROADMAP_ITEM}")
     m = cfg.moe
     B, S, D = x.shape
     E, K = cfg.n_experts_padded, m.top_k

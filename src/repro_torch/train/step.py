@@ -104,10 +104,11 @@ def make_zero1_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMe
     (``opt_state_shardings``), both made from the whole model. Where 'model'
     has one rank the parameters are whole on every rank; with more, the
     model is this rank's part (``tp.split_model``): the step runs under
-    ``use_mesh(mesh)``, so the forward and backward are split over 'model'
-    and each gradient is that of the rank's slice of its parameter (dense
-    ``attn+mlp`` models only: ROADMAP item 7d). The gradients and the loss
-    are averaged in fp32 over the 'pod' and 'data' ranks;
+    ``use_mesh(mesh, local_rows=True)``, so the forward and backward are
+    split over 'model' and each gradient is that of the rank's slice of its
+    parameter (``tp.SPLIT_KINDS`` only: ROADMAP item 7d), and an MoE takes
+    its token groups and router loss over the global batch (``moe.py``).
+    The gradients and the loss are averaged in fp32 over the 'pod' and 'data' ranks;
     ``zero1_adamw_update`` updates the state's chunks and gathers each
     parameter's slice. With one rank on every axis nothing is averaged, and
     the step's numbers are ``make_train_step``'s."""
@@ -122,7 +123,7 @@ def make_zero1_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMe
         return t / math.prod(dist.get_world_size(g) for g in groups)
 
     def train_step(model: LM, opt_state: Dict, batch: Dict[str, torch.Tensor]):
-        with use_mesh(mesh):
+        with use_mesh(mesh, local_rows=True):
             names, grads, loss = _grads(cfg, model, batch, 1, gdt, None, None)
         if groups:
             grads = [average(g).to(gdt) for g in grads]

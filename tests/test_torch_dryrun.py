@@ -200,14 +200,36 @@ def test_port_step_of_a_train_cell(multi_pod):
     assert "port_step" not in r["nulls"]
 
 
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v2-lite-16b"])
+def test_port_step_of_a_split_moe_or_mla_train_cell(arch, multi_pod):
+    """An MoE (granite, attn+moe) or MLA + MoE (deepseek-v2-lite, with its
+    dense mla+mlp first layer) train cell's ``port_step``: the port splits
+    the experts and MLA's heads over 'model', so the cell is laid out as the
+    rules lay it, like the dense one's, and its FLOPs, counted with the
+    mesh's 'pod' x 'data' token groups, split over every device."""
+    r = dryrun.run_cell(arch, "train_4k", multi_pod)
+    port, nbytes = r["port_step"], r["memory"]["bytes_per_device"]
+    whole = sum(p.numel() * p.element_size()
+                for p in specs.abstract_params(get_config(arch)).parameters())
+    assert port["bytes_per_device"] == nbytes and nbytes["params"] < whole / 8
+    assert port["flops_per_device"] == r["flops_per_device"]
+    assert port["layout"].startswith("split over 'model'")
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    with use_mesh(mesh):
+        flops, _ = dryrun.count_flops(get_config(arch).with_(decode_seq_shards=16), "train_4k",
+                                      dryrun.default_accum(arch))
+    assert r["flops_per_device"] == flops / mesh.size
+
+
 def test_port_step_of_a_train_cell_the_port_does_not_split():
-    """An MoE train cell's ``port_step`` is the step the port can run: it
-    refuses to split the experts over 'model' (ROADMAP item 7d), so its
-    figures are its data-parallel step on the same 256 devices with 'model'
-    folded into 'data' (16x16 -> 256x1): parameters whole on each rank, the
-    optimizer state and batch as the rules lay them out on that mesh, and
-    its FLOPs split over every device."""
-    arch = "granite-moe-3b-a800m"
+    """An encoder-decoder train cell's ``port_step`` is the step the port can
+    run: it refuses to split whisper's encoder over 'model' (ROADMAP item
+    7d), so its figures are its data-parallel step on the same 256 devices
+    with 'model' folded into 'data' (16x16 -> 256x1): parameters whole on
+    each rank, the optimizer state and batch as the rules lay them out on
+    that mesh, and its FLOPs split over every device."""
+    arch = "whisper-small"
     r = dryrun.run_cell(arch, "train_4k", False)
     port, nbytes = r["port_step"], r["memory"]["bytes_per_device"]
     cfg = get_config(arch)
