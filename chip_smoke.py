@@ -206,35 +206,56 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      prefill's (whisper on forward + decode_step, llava also with its image
      prefix); (c) one train step, kernels against plain, fp32 and bf16. A
      main path of all four kernels ("smoke configs").
- 20. tp: tensor parallelism over 'model' on the one card, for each of
-     qwen3-8b and deepseek-v2-lite-16b at full width with 2 layers (bf16,
-     seed 5; deepseek's dense mla+mlp first layer and one mla+moe). (a) the
-     one-rank port: a forward of 2 x 1024 tokens through the kernels (its
-     MoE expert choices recorded), through the plain version and through
-     the plain version with one sum split (the floor), the kernels' logits
-     within 3x the floor or PREFILL_TOL of the plain version's, the greedy
-     stream of 4 prompts x 32 tokens and 16 new, and one bf16 train step,
-     written to build/tp and the card freed; (b) 2 ranks, this script with
-     --tp-rank, gloo over a FileStore, both on cuda:0 (NCCL refuses two
-     ranks on one device), joined within TP_TIMEOUT: each checks first that
-     gloo's all_reduce of a CUDA tensor sums right (the transport: a rank
-     fails where gloo refuses or garbles it), then for each model splits it
-     over the (1, 2) (data, model) mesh (repro_torch.distributed.tp.
-     split_model; its parameter bytes the rules' bytes_per_device) and as
-     a main path of its own runs the forward (logits made whole by
-     gather_vocab, within 3x the floor or PREFILL_TOL of the one-rank
-     port's; MoE expert choices that differ from the one-rank forward's
-     counted, and where any do, a forward pinned to the one-rank choices
-     held instead), the greedy stream (tp.greedy; equal to the one-rank
-     stream, or parting only at a near-tie) and one make_zero1_train_step
-     (within BF16_STEP_TOL of the one-rank step). The flash kernels run on
-     16 of qwen3's 32 q heads and 4 of its 8 kv heads, and on 8 of
-     deepseek's 16 MLA heads at (192, 128), beside 32 of its 64 experts a
-     rank (their shapes, (2, 16, 4, 1024) and (4, 16, 4, 32) at Dh 128, (2,
-     8, 8, 1024) and (4, 8, 8, 32) at (192, 128), are in KERNEL_CASES, held
-     against plain by phases 1 and 9a). Each model's launches are summed
-     over the ranks. Their times are printed, but two ranks share one card:
-     they are no measure of a split's speed.
+ 20. tp: tensor parallelism over 'model' on the one card, for each model of
+     TP_RUNS at full width (seed 5; bf16 but xlstm): qwen3-8b and
+     deepseek-v2-lite-16b at 2 layers (deepseek's dense mla+mlp first layer
+     and one mla+moe), xlstm-1.3b at 8 of 48 layers (7 mLSTM + 1 sLSTM) in
+     fp32,
+     jamba-1.5-large-398b at 2 of 72 (mamba+moe, mamba+mlp), whisper-small
+     whole over 1500 frames at its text context of 448, and llava-next-34b
+     at 2 of 60 layers after a 576-patch prefix. (a) the one-rank port: a
+     forward of the run's batch (2 x 1024 tokens; whisper's 2 x 448) through the kernels (its MoE expert choices
+     recorded), through the plain versions and through the plain versions
+     with one sum split (the floor: P V over the keys in two halves, the
+     mLSTM at chunk 32), the kernels' logits within 3x the floor or
+     PREFILL_TOL of the plain version's, the greedy stream of 4 prompts x
+     32 tokens (and the model's frames or prefix) and 16 new, and one
+     train step where the run steps (not jamba, not llava), written to
+     build/tp and the card freed; (b) 2 ranks, this script with --tp-rank,
+     gloo over a FileStore, both on cuda:0 (NCCL refuses two ranks on one
+     device), joined within TP_TIMEOUT: each checks first that gloo's
+     all_reduce of a CUDA tensor sums right (the transport: a rank fails
+     where gloo refuses or garbles it), then for each model, made and split
+     by one rank at a time (repro_torch.distributed.tp.split_model over the
+     (1, 2) (data, model) mesh; its parameter bytes the rules'
+     bytes_per_device), as a main path of its own (the four kernels'
+     counts) runs the forward (logits made whole by gather_vocab, within 3x
+     the floor or PREFILL_TOL of the one-rank port's; MoE expert choices
+     that differ from the one-rank forward's counted, and where any do, a
+     forward pinned to the one-rank choices held instead), the greedy
+     stream (tp.greedy; equal to the one-rank stream, or parting only at a
+     near-tie) and, where the run steps, one make_zero1_train_step (within
+     BF16_STEP_TOL of the one-rank step; xlstm's in fp32, AdamW's eps
+     STEP_EPS, its loss within STEP_TOL and its gradient held layer by
+     layer: each block's gradients on its input in the one-rank forward and
+     a seeded cotangent within TP_LAYER_GRAD_TOL of each tensor's largest,
+     the whole model's grad norm and parameters printed, not held, since
+     random-weight xlstm-1.3b's whole gradient parts by percents between two
+     orders of its sums; and the power check: with reduce_to_model made a
+     plain reduce_from_model, every mLSTM layer must exceed that limit). A
+     rank holds 16 of qwen3's 32 q
+     heads and 4 of its 8 kv heads, 8 of deepseek's 16 MLA heads and 32 of
+     its 64 experts, 2 of xlstm's 4 mLSTM heads (2048 of 4096 channels; the
+     mLSTM kernel forward and backward at Dh 1024), 8192 of jamba's 16384
+     Mamba channels and 8 of its 16 experts, 6 of whisper's 12 heads in the
+     encoder, the decoder and the cross attention, and 32 of llava's 64
+     padded q heads and 4 of its 8 kv heads; each flash and mLSTM shape the
+     ranks launch is in KERNEL_CASES or MLSTM_CASES, held against plain by
+     phases 1, 6, 9a and 10a. Each model's launches are summed over the
+     ranks, a main path of each kernel it launches (jamba's 2 layers
+     neither attend nor hold an mLSTM: it launches none). Their times are
+     printed, but two ranks share one card: they are no measure of a
+     split's speed.
 Checkpoints cross between the packages both ways only on the CPU
 (tests/test_torch_checkpoint.py): this machine has no JAX to read or write
 the reference's side; phases 9d-12d resume through the reference's record.
@@ -312,6 +333,14 @@ KERNEL_CASES = [
     (4, 16, 4, 32, 32, 128, True, 0),          # heads, MESH_STEP's batch and the prefill,
     (2, 8, 8, 1024, 1024, (192, 128), True, 0),   # and of deepseek-v2-lite-16b's MLA
     (4, 8, 8, 32, 32, (192, 128), True, 0),
+    (2, 6, 6, 1500, 1500, 64, False, 0),       # whisper-small's 6 heads a rank: the
+    (2, 6, 6, 448, 448, 64, True, 0),          # encoder, the decoder's self and cross
+    (2, 6, 6, 448, 1500, 64, False, 0),        # attention at TP_RUNS' 2 x 448 (its step)
+    (4, 6, 6, 1500, 1500, 64, False, 0),       # and at the stream's prefill of 4 x 32
+    (4, 6, 6, 32, 32, 64, True, 0),
+    (4, 6, 6, 32, 1500, 64, False, 0),
+    (2, 32, 4, 1600, 1600, 128, True, 0),      # llava-next-34b's 32 of 64 q heads a rank:
+    (4, 32, 4, 608, 608, 128, True, 0),        # 576 patches + 1024, and + 32 tokens
 ]
 # bf16 kernel against plain on the edges of its 128-row q and kv tiles and
 # of its TMA boxes: (B, H, KH, Sq, Sk, Dh, causal, q_offset)
@@ -352,6 +381,8 @@ MLSTM_CASES = [
     (1, 4, 256, 1024, 64, True, "cancel"),     # q nearly orthogonal to n
     (2, 2, 128, 64, 32, True, "cancel"),
     (1, 4, 4096, 1024, 64, True, None),        # the prefill shape, carried state
+    (2, 2, 1024, 1024, 64, False, None),       # phase 20: a rank's 2 of xlstm-1.3b's 4
+    (4, 2, 32, 1024, 64, False, None),         # heads, TP_RUNS' batch and the prefill
 ]
 MLSTM_SHAPE = (1, 4, 4096, 1024, 64)           # xlstm-1.3b prefill: B, H, S, Dh, chunk
 MLSTM_SERVED = (4, 4, 256, 1024, 64)           # the served xlstm-1.3b batch's calls
@@ -416,9 +447,10 @@ MLSTM_TRAIN_SHAPE = (2, 4, 2048, 1024, 64)     # xlstm-1.3b training: B, H, S, D
 # fit one card); 2 x 2048 tokens (xLSTM's published context for 1.3B), remat
 # full. 2 steps, not 4: a step took ~48 s on an H100 at 48 layers, nearly all
 # of it the eager sLSTM step loop (6 layers x 2048 steps, ~90 kernels a step
-# with its remat and backward). Cut to 24 of the 48 layers (three whole
-# patterns: 21 mLSTM + 3 sLSTM), which halves that loop, to keep the script
-# within its time limit once phase 20 runs; PERF.md section 4 lists the cut.
+# with its remat and backward). Cut to 16 of the 48 layers (two whole
+# patterns: 14 mLSTM + 2 sLSTM), a third of that loop, to keep the script
+# within its time limit beside phase 20's six models (at 24 layers the
+# phase took 274.7 s of a 997.4 s run); PERF.md section 4 lists the cut.
 # Its tied embeddings start it far above ln V (the residual stream still holds
 # the input token's embedding, whose logit is ~|e| sqrt(d); the JAX reference
 # starts there too, tests/test_torch_xlstm_train.py), so its first loss is
@@ -536,15 +568,44 @@ SMOKE_STEP = (2, 64)
 # greedy stream of TP_NEW tokens after TP_PROMPT's prompts; the ranks end
 # within TP_TIMEOUT seconds or fail the phase
 TP_WORLD = 2
-# the models split, in turn: qwen3-8b (attn+mlp), then deepseek-v2-lite-16b
-# at full width and 2 layers (its dense mla+mlp first layer and one
-# mla+moe), MLA's 16 heads and the 64 experts split over the ranks
+# the models split, in turn, each at full width: qwen3-8b (attn+mlp);
+# deepseek-v2-lite-16b at 2 layers (its dense mla+mlp first layer and one
+# mla+moe), MLA's 16 heads and the 64 experts split over the ranks;
+# xlstm-1.3b at 8 of 48 layers (one whole pattern, 7 mLSTM + 1 sLSTM), 2 of
+# its 4 heads a rank, in fp32 (its step held as tp_step_diffs and
+# tp_layer_hold say); jamba-1.5-large-398b at 2 of 72 layers (mamba+moe,
+# mamba+mlp: 12.2e9 parameters, 22.69 GiB whole, which the ranks make one
+# at a time, made_in_turn), Mamba's 16384 channels and the 16 experts
+# split, no step (jamba trains on the CPU only, PERF.md section 4);
+# whisper-small at full size over 1500 frames, 6 of its 12 heads a rank,
+# at its text context of 448 ("shape" in place of MESH_STEP's); and
+# llava-next-34b at 2 of 60 layers after a 576-patch prefix, 32 of its 64
+# padded q heads and 4 of 8 kv heads a rank, no step (its split step is the
+# attn+mlp step qwen3-8b's run holds, and two ranks' whole AdamW state,
+# ~34 GB each, leaves no room)
 TP_RUNS = ({"config": MESH_STEP["config"], "n_layers": MESH_STEP["n_layers"]},
-           {"config": "deepseek-v2-lite-16b", "n_layers": 2})
+           {"config": "deepseek-v2-lite-16b", "n_layers": 2},
+           {"config": "xlstm-1.3b", "n_layers": 8, "dtype": "float32"},
+           {"config": "jamba-1.5-large-398b", "n_layers": 2, "step": False},
+           {"config": "whisper-small", "shape": (2, 448)},
+           {"config": "llava-next-34b", "n_layers": 2, "step": False})
 TP_PROMPT = (4, 32)
 TP_NEW = 16
 TP_TIMEOUT = 600
 TP_FLOOR_FACTOR = 3.0
+TP_STEP_EPS = {"float32": STEP_EPS}    # AdamW's eps where the step is held at STEP_TOL
+# an fp32 split step's gradients, held layer by layer (tp_layer_hold): each
+# block's on its own input from the one-rank forward and one seeded
+# cotangent, the worst tensor's max |diff| against its largest one-rank
+# gradient. Random-weight xlstm-1.3b's whole-model gradient is no measure:
+# where q . n nears 0 in an mLSTM layer, a rounding difference grows through
+# the layers above (the logits, phase 7; the gradient norm parts by percents
+# between two orders of the one-rank port's own sums, phase 10c), while one
+# layer's stays near the rounding of its own sums. A rank left its own share
+# of a summed gradient (reduce_from_model where reduce_to_model belongs)
+# moves the gates' weights by a large fraction of their gradient, and each
+# run shows that the hold catches it (the power check)
+TP_LAYER_GRAD_TOL = 3e-3
 # phase 17: the train twin at its default 150 steps (4 layers, 4 x 128)
 EXAMPLE_TRAIN_ARGS = ("--steps", "150")
 DRYRUN_CELLS = ([(a, "decode_32k") for a in ("smollm-135m", "deepseek-67b",
@@ -3453,161 +3514,383 @@ def phase_smoke() -> tuple:
     return got
 
 
-def tp_batch(cfg) -> dict:
-    """MESH_STEP's batch (B, S), seeded: the same tokens in every process."""
-    B, S = MESH_STEP["shape"]
+def tp_batch(cfg, run: dict) -> dict:
+    """The run's batch (B, S) (MESH_STEP's unless it names a ``shape``),
+    seeded: the same tokens in every process, and whisper's frames or
+    llava's patch embeddings (``tp_extras``)."""
+    B, S = run.get("shape", MESH_STEP["shape"])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:], **tp_extras(cfg, B, 13)}
+
+
+def tp_extras(cfg, B: int, seed: int) -> dict:
+    """The inputs beside the tokens, seeded alike in every process."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return smoke_extra(cfg, gen, B)
+
+
+def tp_prompts(cfg) -> dict:
+    """The stream's prompts: TP_PROMPT's tokens and the model's extras."""
+    tokens = prefill_tokens(cfg, TP_PROMPT)
+    return {"tokens": tokens, **tp_extras(cfg, tokens.shape[0], 14)}
 
 
 def tp_config(run: dict):
     from repro_torch import get_config
-    return get_config(run["config"]).with_(n_layers=run["n_layers"])
+    cfg = get_config(run["config"])
+    return cfg.with_(n_layers=run.get("n_layers", cfg.n_layers),
+                     dtype=run.get("dtype", cfg.dtype))
 
 
-def tp_reference(cfg, out: Path) -> dict:
+def tp_opt(cfg):
+    """The step's AdamW settings: fp32 at STEP_EPS, so that Adam's first
+    update g / (|g| + eps) is held at STEP_TOL as phase 9c holds it."""
+    from repro_torch.train import AdamWConfig
+    kw = {"eps": TP_STEP_EPS[cfg.dtype]} if cfg.dtype in TP_STEP_EPS else {}
+    return AdamWConfig(lr=STEP_LR, weight_decay=0.01, **kw)
+
+
+def tp_plain_split(scan, q, k, v, li, lf, state, chunk, impl):
+    """The mLSTM's plain version at chunk 32: its sums in another order."""
+    return scan(q, k, v, li, lf, state, 32, "plain")
+
+
+@contextmanager
+def block_inputs(log):
+    """Record each block's input x (``lm._apply_block``) in ``log``; None
+    records nothing."""
+    from repro_torch.models import lm
+    apply = lm._apply_block
+    if log is not None:
+        lm._apply_block = lambda blk, x, *args, **kw: (log.append(x.detach()),
+                                                       apply(blk, x, *args, **kw))[1]
+    try:
+        yield
+    finally:
+        lm._apply_block = apply
+
+
+def tp_layer_grads(cfg, blocks, xs) -> list:
+    """Each block's gradients on its own input ``xs[l]`` and a cotangent
+    seeded by ``l``: ``[{"x": the input's, name: each parameter's}]``."""
+    from repro_torch.models import lm
+    grads = []
+    for l, (blk, x) in enumerate(zip(blocks, xs)):
+        x = x.cuda().clone().requires_grad_(True)
+        names, params = zip(*blk.named_parameters())
+        for p in params:
+            p.requires_grad_(True)
+        y = lm._apply_block(blk, x, cfg)[0]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(100 + l)
+        dy = torch.randn(y.shape, generator=gen, device="cuda", dtype=y.dtype)
+        g = torch.autograd.grad(y, (x,) + params, dy)
+        grads.append({"x": g[0], **dict(zip(names, g[1:]))})
+        del y, dy, g
+    return grads
+
+
+def tp_layer_hold(cfg, model, out: Path, rank: int) -> dict:
+    """An fp32 split step's gradients, layer by layer: each block of the
+    rank's ``model`` on the one-rank forward's input to it and its cotangent
+    (``tp_layer_grads``), against the one-rank gradients' slices; per layer
+    the worst tensor's max |diff| / max |one-rank gradient|, the worst over
+    the ranks. Then the power check: the same with ``tp.reduce_to_model``
+    made a plain ``reduce_from_model`` (a rank left its own share of the
+    gates' or dt/B/C's gradient), which must exceed TP_LAYER_GRAD_TOL in
+    every layer that reads it. Returns {"split": [...], "share": [...],
+    "reads": [layers that read reduce_to_model]}."""
+    import torch.distributed as dist
+    from repro_torch.distributed import tp
+    from repro_torch.models.lm import layer_kinds
+    xs, ref = torch.load(out / "layer_inputs.pt"), torch.load(out / f"layers{rank}.pt")
+
+    def worst() -> list:
+        got = []
+        for l, gl in enumerate(tp_layer_grads(cfg, model.blocks, xs)):
+            got.append(max(((g - ref[l][n].cuda()).abs().max()
+                            / ref[l][n].cuda().abs().max()).item() for n, g in gl.items()))
+        w = torch.tensor(got, device="cuda")
+        dist.all_reduce(w, op=dist.ReduceOp.MAX)
+        return w.tolist()
+
+    split = worst()
+    reduce_to_model = tp.reduce_to_model
+    tp.reduce_to_model = tp.reduce_from_model
+    try:
+        share = worst()
+    finally:
+        tp.reduce_to_model = reduce_to_model
+    reads = [l for l, k in enumerate(layer_kinds(cfg)) if k == "mlstm" or k.startswith("mamba")]
+    return {"split": split, "share": share, "reads": reads}
+
+
+def tp_reference(cfg, run: dict, out: Path) -> dict:
     """(a) of phase 20 for one model: the one-rank port on the weights the
-    ranks make (seed 5). MESH_STEP's batch forward through the kernels (its
-    MoE layers' expert choices recorded), through the plain version and
-    through the plain version with one sum split (the floor), the kernels'
+    ranks make (seed 5). The run's batch forward through the kernels (its
+    MoE layers' expert choices recorded), through the plain versions and
+    through the plain versions with one sum split (the floor: attention's
+    P V over the keys in two halves, the mLSTM at chunk 32), the kernels'
     logits within TP_FLOOR_FACTOR times the floor or PREFILL_TOL of the
     plain version's (the ranks' rule; else it raises); the greedy stream of
-    TP_PROMPT (``greedy_stream``); one bf16 ``make_train_step`` (the (1, 1)
-    ZeRO-1 step's numbers bit for bit, by phase 16). Written to ``out`` for
-    the ranks, the updated parameters cut into each rank's slices; the card
-    is freed after. Returns the one-rank times."""
+    ``tp_prompts`` (``greedy_stream``); where the run steps, one
+    ``make_train_step`` in the run's dtype (the (1, 1) ZeRO-1 step's numbers
+    bit for bit, by phase 16), and in fp32 each block's gradients on its
+    input in the kernels' forward (``tp_layer_grads``). Written to ``out``
+    for the ranks, the updated parameters and the gradients cut into each
+    rank's slices; the card is freed after. Returns the one-rank times."""
     from repro_torch import forward, init_params
     from repro_torch.distributed import tp
     from repro_torch.launch.mesh import MeshShape
-    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train import adamw_init, make_train_step
     out.mkdir(parents=True)
-    batch = tp_batch(cfg)
-    tokens = {"tokens": batch["tokens"]}
+    batch = tp_batch(cfg, run)
+    inputs = {k: x for k, x in batch.items() if k != "labels"}
     model = init_params(cfg, seed=5)
-    routes = []
+    dims = tp.split_dims(cfg, MeshShape(("data", "model"), (1, TP_WORLD)))
+    stepping = run.get("step", True)
+    routes, xs = [], []
     with torch.no_grad():
-        with moe_routes(routes):
-            kern = forward(cfg, model, tokens)[0]
-        plain = forward(cfg, model, tokens, attn_impl="plain")[0]
-        with flash_calls(lambda flash, *args, **kw: attention_split_sum(*args, **kw)):
-            split = forward(cfg, model, tokens)[0]
+        with moe_routes(routes), block_inputs(xs if stepping and cfg.dtype == "float32" else None):
+            kern = forward(cfg, model, inputs)[0]
+        plain = forward(cfg, model, inputs, attn_impl="plain", mlstm_impl="plain")[0]
+        with flash_calls(lambda flash, *args, **kw: attention_split_sum(*args, **kw)), \
+                mlstm_calls(tp_plain_split):
+            split = forward(cfg, model, inputs)[0]
         floor, kvp = logit_diff(split, plain), logit_diff(kern, plain)
         del plain, split
-        tol = PREFILL_TOL[torch.bfloat16]
+        tol = PREFILL_TOL[getattr(torch, cfg.dtype)]
         if any(kvp[key] > max(TP_FLOOR_FACTOR * floor[key], tol[key]) for key in tol):
             raise AssertionError(f"the one-rank port's kernels against plain {kvp}, beyond "
                                  f"{TP_FLOOR_FACTOR}x the floor {floor} and {tol}")
-        fwd_ms = cuda_ms(lambda: forward(cfg, model, tokens), iters=3, warmup=1)
+        fwd_ms = cuda_ms(lambda: forward(cfg, model, inputs), iters=3, warmup=1)
     torch.save({"logits": kern.cpu(), "floor": floor, "routes": [r.cpu() for r in routes]},
                out / "forward.pt")
     del kern
-    toks, margins, first = greedy_stream(cfg, model, {"tokens": prefill_tokens(cfg, TP_PROMPT)},
-                                         TP_NEW)
+    if xs:
+        grads = tp_layer_grads(cfg, model.blocks, xs)
+        torch.save([x.cpu() for x in xs], out / "layer_inputs.pt")
+        for r in range(TP_WORLD):
+            torch.save([{n: (g.chunk(TP_WORLD, dims[f"blocks.{l}.{n}"][0])[r]
+                             if f"blocks.{l}.{n}" in dims else g).cpu() for n, g in gl.items()}
+                        for l, gl in enumerate(grads)], out / f"layers{r}.pt")
+        del grads, xs
+    toks, margins, first = greedy_stream(cfg, model, tp_prompts(cfg), TP_NEW)
     torch.save({"tokens": toks.cpu(), "margins": margins.cpu(), "first": first.cpu()},
                out / "stream.pt")
     del model, first
     torch.cuda.empty_cache()
-    model = init_params(cfg, seed=5, trainable=True)
-    opt = AdamWConfig(lr=STEP_LR, weight_decay=0.01)
-    state = adamw_init(model, opt)
-    t0 = time.perf_counter()
-    _, state, m = make_train_step(cfg, opt)(model, state, batch)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    del state
-    dims = tp.split_dims(cfg, MeshShape(("data", "model"), (1, TP_WORLD)))
-    for r in range(TP_WORLD):
-        torch.save({n: (p.detach().chunk(TP_WORLD, dims[n][0])[r] if n in dims
-                        else p.detach()).cpu() for n, p in model.named_parameters()},
-                   out / f"step{r}.pt")
-    (out / "step.json").write_text(json.dumps({"loss": float(m["loss"]),
-                                               "grad_norm": float(m["grad_norm"])}))
-    del model, m
-    torch.cuda.empty_cache()
-    say(f"[tp] one-rank port, {cfg.name} {cfg.n_layers} layers bf16: forward B={batch['tokens'].shape[0]} "
-        f"S={batch['tokens'].shape[1]} {fwd_ms:.3f} ms, kernels vs plain max_abs "
-        f"{kvp['max_abs']:.3e} rel_rms {kvp['rel_rms']:.3e}, floor (plain split sum vs plain) "
-        f"max_abs {floor['max_abs']:.3e} rel_rms {floor['rel_rms']:.3e}; greedy stream "
-        f"{tuple(toks.shape)}; one step {step_s:.3f} s")
+    step_s = None
+    if stepping:
+        opt = tp_opt(cfg)
+        model = init_params(cfg, seed=5, trainable=True)
+        state = adamw_init(model, opt)
+        t0 = time.perf_counter()
+        _, state, m = make_train_step(cfg, opt, grad_dtype=cfg.dtype)(model, state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        del state
+        for r in range(TP_WORLD):
+            torch.save({n: (p.detach().chunk(TP_WORLD, dims[n][0])[r] if n in dims
+                            else p.detach()).cpu() for n, p in model.named_parameters()},
+                       out / f"step{r}.pt")
+        (out / "step.json").write_text(json.dumps({"loss": loss, "grad_norm": gnorm}))
+        del model
+        torch.cuda.empty_cache()
+    B, S = batch["tokens"].shape
+    say(f"[tp] one-rank port, {cfg.name} {cfg.n_layers} layers {cfg.dtype}: forward B={B} "
+        f"S={S}"
+        f"{' and ' + ', '.join(inputs.keys() - {'tokens'}) if len(inputs) > 1 else ''} "
+        f"{fwd_ms:.3f} ms, kernels vs plain max_abs {kvp['max_abs']:.3e} rel_rms "
+        f"{kvp['rel_rms']:.3e}, floor (plain with a sum split vs plain) max_abs "
+        f"{floor['max_abs']:.3e} rel_rms {floor['rel_rms']:.3e}; greedy stream "
+        f"{tuple(toks.shape)}; "
+        + (f"one step {step_s:.3f} s" if step_s is not None else "no step"))
     return {"forward_ms": fwd_ms, "step_s": step_s}
 
 
-def tp_stream(cfg, model, prompts, mg) -> tuple:
-    """``greedy_stream`` on the split model: the prefill and TP_NEW - 1
-    ``decode_step``s, each token ``tp.greedy`` over the ranks' vocabulary
-    slices. Returns (tokens (B, TP_NEW), the prefill's logits made whole)."""
+def tp_stream(cfg, model, prompts: dict, mg) -> tuple:
+    """``greedy_stream`` on the split model: the prefill of ``prompts``
+    (tokens, and a VLM's prefix or an encoder-decoder's frames) and TP_NEW
+    - 1 ``decode_step``s after the prefix and the text, each token
+    ``tp.greedy`` over the ranks' vocabulary slices. Returns (tokens (B,
+    TP_NEW), the prefill's logits made whole)."""
     from repro_torch import decode_step, forward
     from repro_torch.distributed import tp
-    S = prompts.shape[1]
-    logits, _, caches, _ = forward(cfg, model, {"tokens": prompts}, want_caches=True,
-                                   max_len=S + TP_NEW)
+    S = prompts["tokens"].shape[1]
+    P = prompts["vision_embeds"].shape[1] if "vision_embeds" in prompts else 0
+    logits, _, caches, n_prefix = forward(cfg, model, prompts, want_caches=True,
+                                          max_len=P + S + TP_NEW)
     first = tp.gather_vocab(logits, mg)
     outs = []
     for t in range(TP_NEW):
         outs.append(tp.greedy(logits[:, -1], cfg.vocab_size, mg))
         if t + 1 < TP_NEW:
-            logits, caches = decode_step(cfg, model, caches, outs[-1][:, None], S + t)
+            logits, caches = decode_step(cfg, model, caches, outs[-1][:, None],
+                                         n_prefix + S + t)
     return torch.stack(outs, 1), first
 
 
-def tp_flash_heads(cfg, world: int) -> tuple:
-    """(q heads, kv heads, Dhk, Dhv) of a rank's flash calls: MLA's k is
-    made per head, so its kv heads are its q heads."""
-    H, Dh = cfg.n_heads_padded // world, cfg.head_dim_
+def tp_flash_heads(cfg, world: int) -> list:
+    """[(q heads, kv heads, Dhk, Dhv)] of a rank's flash calls (none
+    without attention): the rank's H/world q heads and their kv heads, its
+    KH/world or, where ``wk`` stays whole, the one its q heads share; MLA's
+    k is made per head, so its kv heads are its q heads."""
+    if not flash_per_forward(cfg):
+        return []
+    H, KH, Dh = cfg.n_heads_padded // world, cfg.n_kv_heads, cfg.head_dim_
     if cfg.mla is not None:
-        return (H, H, Dh + cfg.mla.rope_head_dim, Dh)
-    return (H, cfg.n_kv_heads // world, Dh, Dh)
+        return [(H, H, Dh + cfg.mla.rope_head_dim, Dh)]
+    return [(H, KH // world if KH % world == 0 else 1, Dh, Dh)]
 
 
-def tp_model(rank: int, world: int, mesh, cfg, out: Path) -> tuple:
-    """One model of a rank of phase 20, as a main path (the flash counts set
-    to 0 before and read after): ``cfg`` split by ``tp.split_model`` (its
-    bytes the rules' ``bytes_per_device``), its forward of MESH_STEP's batch
-    made whole by ``tp.gather_vocab``, the greedy stream and one
-    ``make_zero1_train_step``. Then held against the one-rank port in
-    ``out``: the logits within TP_FLOOR_FACTOR times the floor or
-    PREFILL_TOL (MoE expert choices that differ from the one-rank forward's
-    counted, as phase 11 counts them; where any do, a forward pinned to the
-    one-rank choices is held instead, outside the main path), the stream
-    equal or parting only at a near-tie, the step at BF16_STEP_TOL, every
-    flash call on the rank's heads. Returns (report, what failed)."""
+def tp_want(cfg, step: bool) -> dict:
+    """Each kernel's launches (forward, backward) a rank makes on one model:
+    the forward, the stream's prefill, and with a step its forward twice
+    (remat full) and its backward, once a flash or mLSTM layer each."""
+    from repro_torch.models.lm import layer_kinds
+    per = {"flash": flash_per_forward(cfg), "mlstm": layer_kinds(cfg).count("mlstm")}
+    return {k: ((4 if step else 2) * n, n if step else 0) for k, n in per.items()}
+
+
+def tp_counts(zero: bool = False) -> dict:
+    """The four kernels' launch counts as ``{"flash": (forward, backward),
+    "mlstm": (...)}``; ``zero`` sets them to 0 first (a main path's start)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+    if zero:
+        flash_attention.launches = flash_attention.backward_launches = 0
+        mlstm_chunk.launches = mlstm_chunk.backward_launches = 0
+    return {"flash": (flash_attention.launches, flash_attention.backward_launches),
+            "mlstm": (mlstm_chunk.launches, mlstm_chunk.backward_launches)}
+
+
+def made_in_turn(rank: int, world: int, make):
+    """``make()`` on each rank in turn, the others waiting at an all-reduce
+    of one number, the card's cache emptied after: one whole model is made
+    at a time (jamba's 2 layers are 22.69 GiB whole, and drawing an expert
+    tensor takes a 12 GiB fp32 temporary: two ranks at once would near the
+    card's 79 GiB)."""
     import torch.distributed as dist
+    made = None
+    for r in range(world):
+        if r == rank:
+            made = make()
+            torch.cuda.empty_cache()
+        dist.all_reduce(torch.zeros(1, device="cuda"))
+    return made
+
+
+def tp_step_diffs(cfg, mesh, rank: int, model, m: dict, ref_step: dict, want_p: dict) -> tuple:
+    """A rank's split step against the one-rank step's slices ``want_p``:
+    (the differences, the limits of those held, what else to report). bf16
+    in BF16_STEP_TOL's terms (loss; relative grad norm; the share of each
+    tensor's updates within lr / 2, at the worst tensor; the parameters'
+    relative RMS, the replicated leaves' sums counted on rank 0 alone), all
+    held at BF16_STEP_TOL; fp32 in ``step_diffs``' terms (relative loss and
+    grad norm; the worst parameter's |diff| / (1 + |p|), over the ranks),
+    the loss held at STEP_TOL and the gradient layer by layer
+    (``tp_layer_hold``, TP_LAYER_GRAD_TOL's note): the whole model's grad
+    norm and parameters are printed, not held."""
+    import torch.distributed as dist
+    from repro_torch import init_params
+    from repro_torch.distributed import tp
+    from repro_torch.launch.mesh import describe
+    from repro_torch.train.step import BF16_STEP_TOL, STEP_TOL
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    d = {"grad_norm": abs(gnorm - ref_step["grad_norm"]) / ref_step["grad_norm"]}
+    if cfg.dtype == "float32":
+        worst = torch.zeros(1, device="cuda")
+        for name, p in model.named_parameters():
+            w = want_p[name].cuda()
+            worst = torch.maximum(worst, ((p.detach() - w).abs() / (1 + w.abs())).max())
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        d.update(loss=abs(loss - ref_step["loss"]) / abs(ref_step["loss"]),
+                 params=worst.item())
+        return d, {"loss": STEP_TOL}, {}
+    old = tp.split_model(cfg, init_params(cfg, seed=5), mesh)
+    split = tp.split_dims(cfg, describe(mesh))
+    sums = torch.zeros(2, dtype=torch.float64, device="cuda")
+    worst_agree = 1.0
+    for (name, p), (_, o) in zip(model.named_parameters(), old.named_parameters()):
+        w, p, o = want_p[name].cuda().float(), p.detach().float(), o.float()
+        agree = ((p - o) - (w - o)).abs().le(STEP_LR / 2).float().mean().item()
+        worst_agree = min(worst_agree, agree)
+        if name in split or rank == 0:
+            sums += torch.stack([(p - w).square().sum(), w.square().sum()]).double()
+        del w, p, o
+    del old
+    dist.all_reduce(sums)
+    st = BF16_STEP_TOL
+    d.update(loss=abs(loss - ref_step["loss"]), update_disagree=1 - worst_agree,
+             params_rel_rms=(sums[0] / sums[1]).sqrt().item())
+    limit = {"grad_norm": st["grad_norm"], "loss": st["loss"],
+             "update_disagree": 1 - st["update_agree"], "params_rel_rms": st["params_rel_rms"]}
+    return d, limit, {"update_agree": worst_agree}
+
+
+def tp_model(rank: int, world: int, mesh, cfg, run: dict, out: Path) -> tuple:
+    """One model of a rank of phase 20, as a main path (the four kernels'
+    counts set to 0 before and read after): ``cfg`` split by
+    ``tp.split_model`` (its bytes the rules' ``bytes_per_device``), its
+    forward of the run's batch made whole by ``tp.gather_vocab``, the greedy
+    stream and, where the run steps, one ``make_zero1_train_step``. Then
+    held against the one-rank port in ``out``: the logits within
+    TP_FLOOR_FACTOR times the floor or PREFILL_TOL (MoE expert choices that
+    differ from the one-rank forward's counted, as phase 11 counts them;
+    where any do, a forward pinned to the one-rank choices is held instead,
+    outside the main path), the stream equal or parting only at a near-tie,
+    the step as ``tp_step_diffs`` says (and in fp32 ``tp_layer_hold``, run
+    outside the main path on the model as made), every flash call on the
+    rank's heads and every mLSTM call on its heads. Returns (report, what
+    failed)."""
     from repro_torch import forward, init_params
     from repro_torch.distributed import tp, use_mesh
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.dryrun import param_bytes
-    from repro_torch.launch.mesh import describe
-    from repro_torch.train import (AdamWConfig, adamw_init, distribute_opt_state,
-                                   local_batch, make_zero1_train_step, opt_state_shardings)
-    from repro_torch.train.step import BF16_STEP_TOL
+    from repro_torch.train import (adamw_init, distribute_opt_state, local_batch,
+                                   make_zero1_train_step, opt_state_shardings)
     rep = {}
-    batch = tp_batch(cfg)
-    prompts = prefill_tokens(cfg, TP_PROMPT)
+    stepping = run.get("step", True)
+    batch = tp_batch(cfg, run)
+    inputs = {k: x for k, x in batch.items() if k != "labels"}
+    prompts = tp_prompts(cfg)
     mg = tp.vocab_group
     torch.cuda.reset_peak_memory_stats()
-    model = tp.split_model(cfg, init_params(cfg, seed=5), mesh)
+    model = made_in_turn(rank, world,
+                         lambda: tp.split_model(cfg, init_params(cfg, seed=5), mesh))
     rep["bytes"] = [sum(p.numel() * p.element_size() for p in model.parameters()),
                     param_bytes(cfg, mesh)]
     moe = next((blk.moe for blk in model.blocks if hasattr(blk, "moe")), None)
     if moe is not None:
         rep["experts"] = [moe.e_in.shape[0], cfg.n_experts_padded]
-    heads, routes = set(), []
+    inner = next((p for n, p in model.named_parameters() if n.endswith((".m_in", ".x_up"))),
+                 None)                                   # Mamba's or the mLSTM's Di
+    if inner is not None:
+        rep["channels"] = [inner.shape[-1], 2 * cfg.d_model]
+    heads, mheads, routes = set(), set(), []
 
     def seen(flash, q, k, v, **kw):
         heads.add((q.shape[1], k.shape[1], q.shape[-1], v.shape[-1]))
         return flash(q, k, v, **kw)
 
+    def seen_mlstm(scan, q, *args):
+        mheads.add((q.shape[1], q.shape[-1]))
+        return scan(q, *args)
+
     ref = torch.load(out / "forward.pt")
     one = torch.load(out / "stream.pt")
-    with flash_calls(seen), use_mesh(mesh):
+    step_s = None
+    with flash_calls(seen), mlstm_calls(seen_mlstm), use_mesh(mesh):
         torch.cuda.synchronize()
-        flash_attention.launches = flash_attention.backward_launches = 0   # main path
+        tp_counts(zero=True)                                     # main path
         with torch.no_grad():
             t0 = time.perf_counter()
             with moe_routes(routes):
-                logits = forward(cfg, model, {"tokens": batch["tokens"]})[0]
+                logits = forward(cfg, model, inputs)[0]
             torch.cuda.synchronize()
             fwd_s = time.perf_counter() - t0
             local_vocab = logits.shape[-1]
@@ -3617,40 +3900,42 @@ def tp_model(rank: int, world: int, mesh, cfg, out: Path) -> tuple:
             toks, first = tp_stream(cfg, model, prompts, mg(cfg))
             torch.cuda.synchronize()
             stream_s = time.perf_counter() - t0
-        whole_model = init_params(cfg, seed=5, trainable=True)
-        opt = AdamWConfig(lr=STEP_LR, weight_decay=0.01)
-        osh = opt_state_shardings(cfg, whole_model, mesh, opt)
-        state = distribute_opt_state(adamw_init(whole_model, opt), osh, mesh)
-        step_model = tp.split_model(cfg, whole_model, mesh)
-        del whole_model
-        step = make_zero1_train_step(cfg, opt, mesh, osh)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, state, m = step(step_model, state, local_batch(batch, mesh))
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
-        got = (flash_attention.launches, flash_attention.backward_launches)  # ... ends
+        if stepping:
+            whole_model = init_params(cfg, seed=5, trainable=True)
+            opt = tp_opt(cfg)
+            osh = opt_state_shardings(cfg, whole_model, mesh, opt)
+            state = distribute_opt_state(adamw_init(whole_model, opt), osh, mesh)
+            step_model = tp.split_model(cfg, whole_model, mesh)
+            del whole_model
+            step = make_zero1_train_step(cfg, opt, mesh, osh, grad_dtype=cfg.dtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, m = step(step_model, state, local_batch(batch, mesh))
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            del state, step
+        got = tp_counts()                                        # ... ends
         peak = torch.cuda.max_memory_allocated()
-        del state, step
         torch.cuda.empty_cache()
         n_flips = flips(routes, [r.cuda() for r in ref["routes"]])
         n_routed = sum(r.numel() // r.shape[-1] for r in routes)
         d = logit_diff(whole, ref["logits"].cuda())
         held = "the main path's forward"
         if n_flips:                 # outside the main path: routed as the one rank was
-            with use_mesh(mesh), torch.no_grad(), \
-                    moe_routes([r.cuda() for r in ref["routes"]], pin=True):
-                pinned = tp.gather_vocab(forward(cfg, model, {"tokens": batch["tokens"]})[0],
-                                         mg(cfg))
+            with torch.no_grad(), moe_routes([r.cuda() for r in ref["routes"]], pin=True):
+                pinned = tp.gather_vocab(forward(cfg, model, inputs)[0], mg(cfg))
             rep["logits_unpinned"] = d
             d = logit_diff(pinned, ref["logits"].cuda())
             held = "a forward pinned to the one-rank expert choices"
             del pinned
+    layers = None
+    if stepping and cfg.dtype == "float32":                     # outside the main path
+        with use_mesh(mesh):
+            layers = tp_layer_hold(cfg, model, out, rank)
     del model
-    n = cfg.n_layers
-    want = (4 * n, n)       # the two prefills, the step's forward twice (remat full)
+    want = tp_want(cfg, stepping)
     floor = ref["floor"]
-    tol = PREFILL_TOL[torch.bfloat16]
+    tol = PREFILL_TOL[getattr(torch, cfg.dtype)]
     logits_ok = all(d[key] <= max(TP_FLOOR_FACTOR * floor[key], tol[key]) for key in tol)
     del whole, ref
     parted = (toks.cpu() != one["tokens"]).any(0).nonzero()
@@ -3666,47 +3951,44 @@ def tp_model(rank: int, world: int, mesh, cfg, out: Path) -> tuple:
                   f"difference {diff:.4f}: {worst <= 2 * diff})")
         if worst > 2 * diff:
             raise AssertionError(f"rank {rank}: {cfg.name}'s stream {stream}")
-    # the step against the one-rank step's slices, in BF16_STEP_TOL's terms;
-    # the replicated leaves' sums counted on rank 0 alone
-    ref_step = json.loads((out / "step.json").read_text())
-    want_p = torch.load(out / f"step{rank}.pt")
-    old = tp.split_model(cfg, init_params(cfg, seed=5), mesh)
-    split = tp.split_dims(cfg, describe(mesh))
-    sums = torch.zeros(2, dtype=torch.float64, device="cuda")
-    worst_agree = 1.0
-    for (name, p), (_, o) in zip(step_model.named_parameters(), old.named_parameters()):
-        w, p, o = want_p[name].cuda().float(), p.detach().float(), o.float()
-        agree = ((p - o) - (w - o)).abs().le(STEP_LR / 2).float().mean().item()
-        worst_agree = min(worst_agree, agree)
-        if name in split or rank == 0:
-            sums += torch.stack([(p - w).square().sum(), w.square().sum()]).double()
-        del w, p, o
-    del old, want_p, step_model
-    torch.cuda.empty_cache()
-    dist.all_reduce(sums)
-    rel = (sums[0] / sums[1]).sqrt().item()
-    st = BF16_STEP_TOL
-    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-    step_ok = (abs(loss - ref_step["loss"]) <= st["loss"]
-               and abs(gnorm - ref_step["grad_norm"]) <= st["grad_norm"] * ref_step["grad_norm"]
-               and worst_agree >= st["update_agree"] and rel <= st["params_rel_rms"])
+    step_rep, step_ok = None, True
+    if stepping:
+        ref_step = json.loads((out / "step.json").read_text())
+        d_step, limit, extra = tp_step_diffs(cfg, mesh, rank, step_model, m, ref_step,
+                                             torch.load(out / f"step{rank}.pt"))
+        del step_model
+        torch.cuda.empty_cache()
+        if layers is not None:
+            d_step["layer_grads"], limit["layer_grads"] = max(layers["split"]), TP_LAYER_GRAD_TOL
+            extra["layers"] = layers
+            step_ok = all(layers["share"][l] > TP_LAYER_GRAD_TOL for l in layers["reads"])
+        step_ok = step_ok and all(d_step[k] <= limit[k] for k in limit)
+        step_rep = {"loss": [float(m["loss"]), ref_step["loss"]],
+                    "grad_norm": [float(m["grad_norm"]), ref_step["grad_norm"]],
+                    "diffs": d_step, "limit": limit, **extra}
+    want_mheads = ([(cfg.n_heads // world if cfg.n_heads % world == 0 else cfg.n_heads,
+                     2 * cfg.d_model // cfg.n_heads)] if want["mlstm"][0] else [])
     rep.update({
-        "launches": list(got), "want": list(want), "heads": sorted(heads), "peak": peak,
+        "launches": {k: list(v) for k, v in got.items()},
+        "want": {k: list(v) for k, v in want.items()},
+        "heads": sorted(heads), "mlstm_heads": sorted(mheads), "peak": peak,
         "local_vocab": local_vocab, "logits": d, "held": held, "floor": floor,
-        "flips": [n_flips, n_routed], "stream": stream,
-        "step": {"loss": [loss, ref_step["loss"]], "grad_norm": [gnorm, ref_step["grad_norm"]],
-                 "update_agree": worst_agree, "params_rel_rms": rel},
+        "flips": [n_flips, n_routed], "stream": stream, "step": step_rep,
         "seconds": {"forward": fwd_s, "stream": stream_s, "step": step_s}})
     bad = []
     if rep["bytes"][0] != rep["bytes"][1]:
         bad.append(f"parameter bytes {rep['bytes']}")
     if moe is not None and rep["experts"][0] * world != rep["experts"][1]:
         bad.append(f"experts a rank {rep['experts']}")
+    if "channels" in rep and rep["channels"][0] * world != rep["channels"][1]:
+        bad.append(f"channels a rank {rep['channels']}")
     if got != want:
-        bad.append(f"flash launches {got}, want {want}")
-    if sorted(heads) != [tp_flash_heads(cfg, world)]:
+        bad.append(f"launches {got}, want {want}")
+    if sorted(heads) != tp_flash_heads(cfg, world):
         bad.append(f"flash calls on (q, kv, Dhk, Dhv) {sorted(heads)}, want "
                    f"{tp_flash_heads(cfg, world)}")
+    if sorted(mheads) != want_mheads:
+        bad.append(f"mLSTM calls on (heads, Dh) {sorted(mheads)}, want {want_mheads}")
     if not logits_ok:
         bad.append(f"logits {d} against the floor {floor}")
     if not step_ok:
@@ -3741,7 +4023,7 @@ def tp_rank(rank: int, world: int, out: Path) -> int:
     bad = []
     for run in TP_RUNS:
         cfg = tp_config(run)
-        rep[cfg.name], failed = tp_model(rank, world, mesh, cfg, out / cfg.name)
+        rep[cfg.name], failed = tp_model(rank, world, mesh, cfg, run, out / cfg.name)
         bad += failed
         torch.cuda.empty_cache()
     (out / f"rank{rank}.json").write_text(json.dumps(rep))
@@ -3793,58 +4075,87 @@ def phase_tp() -> dict:
     (``tp_rank``) and are joined. NCCL refuses two ranks on one device;
     gloo's all_reduce and broadcast, all the split needs, take CUDA tensors.
     Two ranks share one card, so their times are no measure of a split's
-    speed. Returns ``{path: (forward launches, backward launches)}``, each
-    model a main path, its launches summed over the ranks."""
+    speed. Returns ``{path: {"flash": (forward, backward), "mlstm": (...)}}``,
+    each model a main path, its launches summed over the ranks."""
     import shutil
     t_phase = time.perf_counter()
     out = ROOT / "build" / "tp"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    cfgs = [tp_config(run) for run in TP_RUNS]
     one, ref_s = {}, {}
-    for cfg in cfgs:
+    for run in TP_RUNS:
+        cfg = tp_config(run)
         t0 = time.perf_counter()
-        one[cfg.name] = tp_reference(cfg, out / cfg.name)
+        one[cfg.name] = tp_reference(cfg, run, out / cfg.name)
         ref_s[cfg.name] = time.perf_counter() - t0
     t0 = time.perf_counter()
     reports = run_tp_ranks(out)
     ranks_s = time.perf_counter() - t0
     paths = {}
-    for cfg in cfgs:
+    for run in TP_RUNS:
+        cfg = tp_config(run)
         for r, rank_rep in enumerate(reports):
             rep, sec = rank_rep[cfg.name], rank_rep[cfg.name]["seconds"]
             experts = (f"{rep['experts'][0]} of {rep['experts'][1]} experts a layer, "
                        if "experts" in rep else "")
+            channels = (f"{rep['channels'][0]} of {rep['channels'][1]} inner channels, "
+                        if "channels" in rep else "")
             unpinned = (f" (unpinned: max_abs {rep['logits_unpinned']['max_abs']:.3e} rel_rms "
                         f"{rep['logits_unpinned']['rel_rms']:.3e})"
                         if "logits_unpinned" in rep else "")
+            st = rep["step"]
+            lay = st and st.get("layers")
+            step = ("no step" if st is None else
+                    f"ZeRO-1 step ({cfg.dtype}) loss {st['loss'][0]:.6f} / "
+                    f"{st['loss'][1]:.6f}, grad norm {st['grad_norm'][0]:.6f} / "
+                    f"{st['grad_norm'][1]:.6f}; against the one-rank step "
+                    + ", ".join(f"{k} {v:.3e} "
+                                + (f"(limit {st['limit'][k]:.3e})" if k in st["limit"]
+                                   else "(not held)") for k, v in st["diffs"].items())
+                    + (f", updates within lr/2 on >= {st['update_agree']:.4f} of each tensor"
+                       if "update_agree" in st else "")
+                    + (" (BF16_STEP_TOL)" if cfg.dtype == "bfloat16" else
+                       f" (the loss at STEP_TOL; AdamW eps {TP_STEP_EPS[cfg.dtype]:g})")
+                    + ("" if not lay else
+                       "; each block's gradients on its own input, worst tensor's max |diff| / "
+                       "max |g| by layer (over the ranks) "
+                       + ", ".join(f"{x:.2e}" for x in lay["split"])
+                       + f" (limit TP_LAYER_GRAD_TOL {TP_LAYER_GRAD_TOL:g}); with a rank left "
+                       "its own share of reduce_to_model's gradient "
+                       + ", ".join(f"{x:.2e}" for x in lay["share"])
+                       + f" (must exceed the limit in layers {lay['reads']})"))
             say(f"[tp] {cfg.name} {cfg.n_layers} layers, rank {r} of {TP_WORLD} on the one "
                 f"card ({rank_rep['transport']}): {rep['bytes'][0] / 2 ** 30:.3f} GiB of "
                 f"parameters (the rules' bytes_per_device on (1, {TP_WORLD}): "
-                f"{rep['bytes'][1] / 2 ** 30:.3f}), {experts}vocabulary slice "
-                f"{rep['local_vocab']} of {cfg.padded_vocab}, flash calls on (q, kv, Dhk, Dhv) "
-                f"{rep['heads']} of {cfg.n_heads_padded} heads; launches forward "
-                f"{rep['launches'][0]}, backward {rep['launches'][1]} (want {rep['want']}); "
-                f"MoE expert choices differing from the one-rank forward's "
-                f"{rep['flips'][0]} of {rep['flips'][1]} (token, layer); logits of "
-                f"{rep['held']} vs the one-rank port max_abs {rep['logits']['max_abs']:.3e} "
-                f"rel_rms {rep['logits']['rel_rms']:.3e}{unpinned} (floor "
-                f"{rep['floor']['max_abs']:.3e} / {rep['floor']['rel_rms']:.3e}, tol "
-                f"{TP_FLOOR_FACTOR}x floor or {PREFILL_TOL[torch.bfloat16]}); stream "
-                f"{rep['stream']}; ZeRO-1 step loss {rep['step']['loss'][0]:.6f} / "
-                f"{rep['step']['loss'][1]:.6f}, grad norm {rep['step']['grad_norm'][0]:.6f} / "
-                f"{rep['step']['grad_norm'][1]:.6f}, updates within lr/2 on >= "
-                f"{rep['step']['update_agree']:.4f}, params rel_rms "
-                f"{rep['step']['params_rel_rms']:.3e}; peak {rep['peak'] / 2 ** 30:.2f} GiB; "
-                f"forward {sec['forward']:.3f} s, stream {sec['stream']:.3f} s, step "
-                f"{sec['step']:.3f} s (two ranks share one card: no measure of a split's "
-                f"speed)")
-        got = tuple(sum(rep[cfg.name]["launches"][i] for rep in reports) for i in (0, 1))
+                f"{rep['bytes'][1] / 2 ** 30:.3f}), {experts}{channels}vocabulary slice "
+                f"{rep['local_vocab']} of {cfg.padded_vocab}, "
+                + (f"flash calls on (q, kv, Dhk, Dhv) {rep['heads']} of "
+                   f"{cfg.n_heads_padded} heads, " if rep["heads"] else "")
+                + (f"mLSTM calls on (heads, Dh) {rep['mlstm_heads']} of {cfg.n_heads} "
+                   "heads, " if rep["mlstm_heads"] else "")
+                + f"launches (forward, backward) "
+                f"{rep['launches']} (want {rep['want']}); MoE expert choices differing from "
+                f"the one-rank forward's {rep['flips'][0]} of {rep['flips'][1]} (token, "
+                f"layer); logits of {rep['held']} vs the one-rank port max_abs "
+                f"{rep['logits']['max_abs']:.3e} rel_rms {rep['logits']['rel_rms']:.3e}"
+                f"{unpinned} (floor {rep['floor']['max_abs']:.3e} / "
+                f"{rep['floor']['rel_rms']:.3e}, tol {TP_FLOOR_FACTOR}x floor or "
+                f"{PREFILL_TOL[getattr(torch, cfg.dtype)]}); stream {rep['stream']}; {step}; peak "
+                f"{rep['peak'] / 2 ** 30:.2f} GiB; forward {sec['forward']:.3f} s, stream "
+                f"{sec['stream']:.3f} s"
+                + (f", step {sec['step']:.3f} s" if sec["step"] is not None else "")
+                + " (two ranks share one card: no measure of a split's speed)")
+        got = {k: tuple(sum(rep[cfg.name]["launches"][k][i] for rep in reports)
+                        for i in (0, 1)) for k in ("flash", "mlstm")}
         paths[f"{cfg.name} split over 'model' by {TP_WORLD} gloo ranks on one card"] = got
+        step = one[cfg.name]["step_s"]
         say(f"[tp] {cfg.name}: the one-rank reference {ref_s[cfg.name]:.1f} s, its forward "
-            f"{one[cfg.name]['forward_ms']:.3f} ms and step {one[cfg.name]['step_s']:.3f} s "
-            f"alone on the card; flash launches over the ranks forward {got[0]}, backward "
-            f"{got[1]}")
+            f"{one[cfg.name]['forward_ms']:.3f} ms"
+            + (f" and step {step:.3f} s" if step is not None else "")
+            + f" alone on the card; launches over the ranks (forward, backward): flash "
+            f"{got['flash']}, mLSTM {got['mlstm']}"
+            + ("" if any(map(any, got.values())) else
+               " (no layer of its runs attends or is an mLSTM: it launches no kernel)"))
     shutil.rmtree(out, ignore_errors=True)
     say(f"[tp] phase 20 {time.perf_counter() - t_phase:.1f} s: the ranks {ranks_s:.1f} s")
     return paths
@@ -3974,15 +4285,19 @@ def main() -> int:
     mesh_path = "train qwen3-8b ZeRO-1 on the host mesh"
     kernel["launches_by_path"] = {"serve qwen3-8b": served, **trained_fwd, **moe_fwd, **mla_fwd,
                                   "serve jamba-1.5-large-398b": jamba, **whisper_fwd, **llava,
-                                  mesh_path: mesh_fwd, **example_fwd, "smoke configs": smoke[0],
-                                  **{path: n[0] for path, n in tp_paths.items()}}
+                                  mesh_path: mesh_fwd, **example_fwd, "smoke configs": smoke[0]}
     backward["launches_by_path"] = {**trained_bwd, **moe_bwd, **mla_bwd, **whisper_bwd,
                                     mesh_path: mesh_bwd, **example_bwd,
-                                    "smoke configs": smoke[1],
-                                    **{path: n[1] for path, n in tp_paths.items()}}
+                                    "smoke configs": smoke[1]}
     mlstm["launches_by_path"].update(xlstm_fwd)
     mlstm["launches_by_path"]["smoke configs"] = smoke[2]
     mlstm_bwd["launches_by_path"] = {**xlstm_bwd, "smoke configs": smoke[3]}
+    # phase 20's models: each a main path of the kernels it launches
+    for path, got in tp_paths.items():
+        for entry, n in ((kernel, got["flash"][0]), (backward, got["flash"][1]),
+                         (mlstm, got["mlstm"][0]), (mlstm_bwd, got["mlstm"][1])):
+            if n:
+                entry["launches_by_path"][path] = n
     kernels = [kernel, backward, mlstm, mlstm_bwd]
     for entry in kernels:                            # every path that launched it
         entry["launches"] = sum(entry["launches_by_path"].values())

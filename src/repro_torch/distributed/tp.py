@@ -4,21 +4,33 @@ The reference splits the weights over 'model' by the rules of
 ``distributed/sharding.py`` and pins its activations to that axis with
 ``shard()``; XLA's partitioner then writes the collectives. torch runs no
 partitioner, so the port writes them at the reference's ``shard()`` sites,
-on plain local tensors and two autograd functions:
+on plain local tensors and four autograd functions:
 
 * ``copy_to_model`` (identity forward, all-reduce backward) where a
   replicated activation enters a column-parallel product: q, k and v on the
-  rank's heads (``src/repro/models/attention.py:202``, ``:239-240``), MLA's
-  q, k and v on the rank's heads (``:290-291``), the MLP's
-  ``w_in``/``w_gate`` on its ``d_ff`` slice (``layers.py:67``), the tokens
-  and gates of the MoE's dispatch and combine on the rank's experts
-  (``moe.py:108``), the head on its vocabulary slice (``lm.py:289``);
+  rank's heads (``src/repro/models/attention.py:202``, ``:239-240``; a
+  cross attention's k and v of the encoder's output too), MLA's q, k and v
+  on the rank's heads (``:290-291``), the MLP's ``w_in``/``w_gate`` on its
+  ``d_ff`` slice (``layers.py:67``), the tokens and gates of the MoE's
+  dispatch and combine on the rank's experts (``moe.py:108``), Mamba's
+  ``m_in`` and xLSTM's ``x_up`` on the rank's inner channels
+  (``ssm.py:70``, ``xlstm.py:112``), the head on its vocabulary slice
+  (``lm.py:289``);
 * ``reduce_from_model`` (all-reduce forward, identity backward) where a
   row-parallel product's partial sums come back replicated: after ``wo``
-  (``attention.py:245``, ``:296``), ``w_out`` (``lm.py:153``) and the MoE's
-  combine (the reference gathers the expert outputs over 'model' instead,
-  ``moe.py:115``: G·E·C·D numbers where this moves T·D), and after the
-  vocab-parallel embedding lookup (``lm.py:242``, ``:264``).
+  (``attention.py:245``, ``:296``), ``w_out`` (``lm.py:153``), Mamba's
+  ``m_out`` and xLSTM's ``x_out`` (``ssm.py:107``, ``xlstm.py:137``), the
+  MoE's combine (the reference gathers the expert outputs over 'model'
+  instead, ``moe.py:115``: G·E·C·D numbers where this moves T·D), and after
+  the vocab-parallel embedding lookup (``lm.py:242``, ``:264``);
+* ``reduce_to_model``, both at once (all-reduce forward and backward),
+  where a row-parallel product's sum is then read only in part by each
+  rank: Mamba's ``dt_in``/B/C from ``m_xproj`` feed the rank's channels
+  alone, and the mLSTM's gates from ``x_if`` the rank's heads or channels.
+  Without the backward's sum, the gradient of the weights before it would
+  be one rank's share. ``gather_channels`` makes a channel-split tensor
+  whole the same way (its backward an all-reduce, then the rank's
+  channels), for the mLSTM whose heads 'model' does not divide.
 
 The only collectives on the 'model' group are ``all_reduce`` and
 ``broadcast``, so one program runs on NCCL across cards and on gloo ranks
@@ -34,17 +46,33 @@ not divide G), ``check_split`` refuses the split (ROADMAP item 7d); no
 registered configuration meets that on the meshes the repo names. The replicated
 weights those heads read (``wk``, ``wv``, the qk-norm scales; MLA's
 ``w_dkv`` and ``kv_norm``) pass through ``copy_to_model`` too, so their
-partial gradients are summed over 'model'. The MoE splits its experts
-(``e_in``, ``e_gate``, ``e_out`` on E) and keeps the router whole: every
-rank routes every token alike, and runs only its own experts' slots. Its
-shared experts split on their own width (``shared_group``).
+partial gradients are summed over 'model'. Where ``wq`` stays whole (whisper's
+12 heads on 16 ranks), every rank computes every head. The MoE splits its
+experts (``e_in``, ``e_gate``, ``e_out`` on E) and keeps the router whole:
+every rank routes every token alike, and runs only its own experts' slots.
+Its shared experts split on their own width (``shared_group``).
+
+Mamba (``channel_group`` of ``m_in``) splits ``m_in``, ``m_conv``, ``m_dt``, ``m_dtb``,
+``m_alog`` and ``m_d`` on its inner channels Di, and ``m_xproj`` and
+``m_out`` row-parallel: the conv, the scan and the decode state run on the
+rank's channels. xLSTM (``channel_group`` of ``x_up``) splits ``x_up`` on Di, the
+block-diagonal ``x_q``/``x_k``/``x_v`` on their blocks, and ``x_if`` and
+``x_out`` row-parallel. Where 'model' divides the heads, a rank's channels
+are its heads and the mLSTM runs them alone; where it does not (xlstm-1.3b's
+4 heads on 16 ranks), q, k and v are gathered whole and every rank runs
+every head, keeping its own channels of h, as the reference keeps its heads
+replicated. Where 'model' divides Di but not its Di/4 qkv blocks, a rank's
+channels would straddle a block, and ``check_split`` refuses the split
+(ROADMAP item 7d; no registered configuration meets it). The sLSTM stays
+whole, every rank computing it alike. The encoder-decoder's encoder and
+cross attention split as attention does, its ``pos_embed`` whole; a VLM's
+``vision_proj`` stays whole and its prefix enters before the
+vocab-parallel embedding's rows with no collective.
 
 A split runs where the ambient mesh (``use_mesh``) is a ``DeviceMesh`` whose
-'model' axis has more than one rank, for the decoders of ``attn+mlp``,
-``attn+moe``, ``mla+mlp`` and ``mla+moe`` blocks (a dense first layer
-included): ``check_split`` refuses Mamba, xLSTM, the encoder-decoder and the
-VLM prefix (ROADMAP item 7d). A ``MeshShape``, such as the dry run's
-production meshes, has no process group and runs no split.
+'model' axis has more than one rank, for every block kind and wrapper the
+port has. A ``MeshShape``, such as the dry run's production meshes, has no
+process group and runs no split.
 """
 
 from __future__ import annotations
@@ -121,6 +149,22 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
+class _GatherChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        n = x.shape[-1]
+        full = x.new_zeros(x.shape[:-1] + (n * mg.size,))
+        full[..., mg.rank * n:(mg.rank + 1) * n] = x
+        return summed(full, mg)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mg = ctx.mg
+        n = grad.shape[-1] // mg.size
+        return summed(grad, mg).narrow(-1, mg.rank * n, n), None
+
+
 def copy_to_model(x: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
     """Identity forward, gradient summed over 'model': a replicated tensor
     entering this rank's part of a product. ``mg`` None: ``x``."""
@@ -131,6 +175,22 @@ def reduce_from_model(x: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor
     """Partial sums summed over 'model', gradient passed through: a
     row-parallel product made replicated. ``mg`` None: ``x``."""
     return x if mg is None else _ReduceFromModel.apply(x, mg)
+
+
+def reduce_to_model(x: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
+    """Partial sums summed over 'model', and the gradient summed too: a
+    row-parallel product made replicated that each rank then reads only in
+    part (its channels or heads), so each rank's gradient of the sum is a
+    share. ``mg`` None: ``x``."""
+    return copy_to_model(reduce_from_model(x, mg), mg)
+
+
+def gather_channels(x: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
+    """The whole last dim (..., m n) from this rank's contiguous slice
+    (..., n), by an all-reduce of a zero-filled whole buffer; its gradient
+    summed over 'model', then narrowed to the rank's slice (every rank's
+    loss reads the whole tensor in its own part). ``mg`` None: ``x``."""
+    return x if mg is None else _GatherChannels.apply(x, mg)
 
 
 # ------------------------------------------------------------ the split plan
@@ -241,15 +301,24 @@ def vocab_group(cfg: ModelConfig) -> Optional[ModelGroup]:
     return mg
 
 
-SPLIT_KINDS = ("attn+mlp", "attn+moe", "mla+mlp", "mla+moe")
+def channel_group(leaf: str, shape: Tuple[int, ...]) -> Optional[ModelGroup]:
+    """The 'model' group where the rules split a recurrent block's inner
+    channels Di, read off its input projection ``leaf`` of whole ``shape``:
+    Mamba's ``m_in`` (every ``m_*`` leaf with a Di dim splits with it) or the
+    mLSTM's ``x_up`` (with ``x_if``, ``x_out``, and ``x_q``/``x_k``/``x_v`` on
+    their blocks of four); else None."""
+    mg = model_group()
+    if mg is None or _split_dim(leaf, shape) is None:
+        return None
+    return mg
 
 
 def check_split(cfg: ModelConfig, mesh: Optional[Mesh] = None) -> None:
-    """Refuse a split over 'model' of anything but a decoder of
-    ``SPLIT_KINDS`` blocks (Mamba, xLSTM, an encoder-decoder, a VLM prefix),
-    and of one whose ranks' q heads would straddle kv groups (see the
-    module's docstring). ``mesh`` defaults to the ambient mesh where it is a
-    ``DeviceMesh`` (a ``MeshShape`` runs no split)."""
+    """Refuse a split over 'model' whose ranks' q heads would straddle kv
+    groups, or whose ranks' mLSTM channels would straddle its qkv blocks of
+    four (see the module's docstring); every block kind and wrapper splits.
+    ``mesh`` defaults to the ambient mesh where it is a ``DeviceMesh`` (a
+    ``MeshShape`` runs no split)."""
     if mesh is None:
         mg = model_group()
         size = 1 if mg is None else mg.size
@@ -257,18 +326,17 @@ def check_split(cfg: ModelConfig, mesh: Optional[Mesh] = None) -> None:
         size = describe(mesh).shape.get("model", 1)
     if size == 1:
         return
-    from ..models.lm import layer_kinds        # lm reaches this module at run time
-    kinds = sorted(set(layer_kinds(cfg)) - set(SPLIT_KINDS))
-    what = ("an encoder-decoder" if cfg.is_encdec else "a VLM prefix" if cfg.vlm
-            else f"block kinds {kinds}" if kinds else None)
-    if what:
+    mesh = get_mesh() if mesh is None else mesh
+    D = cfg.d_model
+    if ("mlstm" in cfg.block_pattern and _split_dim("x_up", (D, 2, 2 * D), mesh) is not None
+            and _split_dim("x_q", (D // 2, 4, 4), mesh) is None):
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over 'model' ({size} ranks) covers "
-            f"decoders of {', '.join(SPLIT_KINDS)} blocks; a split of {what} is a "
+            f"{cfg.name}: the mLSTM's {2 * D} channels over 'model' ({size} ranks) "
+            f"straddle its qkv blocks of 4 while x_q stays whole; that split is a "
             f"later part of {ROADMAP_ITEM}")
     if cfg.mla is not None:                     # MLA reads no wk/wv
         return
-    run = _kv_group_run(cfg, get_mesh() if mesh is None else mesh)
+    run = _kv_group_run(cfg, mesh)
     if run is not None and run[1] % run[0]:
         raise NotImplementedError(
             f"{cfg.name}: {run[0]} q heads a rank over 'model' ({size} ranks) straddle "

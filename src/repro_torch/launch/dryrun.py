@@ -25,16 +25,16 @@ a process counts each (config, shape) once for both.
 
 Those bytes and FLOPs follow the reference's plan, which splits the
 parameters over 'model' (tensor parallelism). A train cell's line also
-carries ``port_step``, the port's own ZeRO-1 step on the mesh: for a model
-of ``attn+mlp``, ``attn+moe``, ``mla+mlp`` and ``mla+moe`` blocks it is
-split over 'model' as the rules lay it out (``distributed/tp.py``), so its
-bytes are the plan's and its FLOPs are split over every device; Mamba,
-xLSTM, the encoder-decoder and the VLM prefix the port refuses to split
-(ROADMAP item 7d), and their figures are those of the data-parallel step it
-runs on the same devices with 'model' folded into 'data': parameters whole
-on each rank, the optimizer state and batch over every rank, FLOPs split
-over every device. An MoE cuts its tokens into the mesh's 'pod' x 'data'
-groups, as the reference's does, so its FLOPs are counted for each mesh.
+carries ``port_step``, the port's own ZeRO-1 step on the mesh: split over
+'model' as the rules lay it out (``distributed/tp.py``), every block kind
+and wrapper, so its bytes are the plan's and its FLOPs are split over every
+device. Only a split that ``tp.check_split`` refuses (ranks straddling kv
+groups or the mLSTM's qkv blocks, ROADMAP item 7d; no registered config on
+these meshes) would be reported as the data-parallel step the port runs on
+the same devices with 'model' folded into 'data': parameters whole on each
+rank, the optimizer state and batch over every rank, FLOPs split over every
+device. An MoE cuts its tokens into the mesh's 'pod' x 'data' groups, as
+the reference's does, so its FLOPs are counted for each mesh.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
@@ -77,11 +77,11 @@ _NO_PORT_MESH = ("port_step reckons train cells only: the port's split prefill a
 LAYOUT = ("memory.bytes_per_device, flops_per_device and roofline follow the "
           "reference's plan: parameters split over 'model' by the rules (tensor "
           "parallelism) and the step's FLOPs split over every device. For a train "
-          "cell, port_step gives the port's own ZeRO-1 step: the same plan for the "
-          "attn+mlp, attn+moe, mla+mlp and mla+moe models, which the port splits over "
-          "'model'; for Mamba, xLSTM, the encoder-decoder and the VLM prefix, which it "
-          "does not split yet, the data-parallel step it runs on the same devices with "
-          "'model' folded into 'data'")
+          "cell, port_step gives the port's own ZeRO-1 step: the same plan, which the "
+          "port splits over 'model' for every block kind and wrapper; for a split it "
+          "refuses (ranks straddling kv groups or the mLSTM's qkv blocks), the "
+          "data-parallel step it runs on the same devices with 'model' folded into "
+          "'data'")
 _SPLIT = ("split over 'model' as the rules lay it out (distributed/tp.py): the plan's "
           "bytes, FLOPs split evenly over every device (a leaf the rules leave whole, "
           "such as heads 'model' does not divide, MLA's w_dkv or the MoE's router, "
@@ -210,12 +210,11 @@ def folded(mesh: MeshShape) -> MeshShape:
 def port_step(cfg, shape_name: str, mesh: MeshShape, nbytes: Dict[str, float],
               flops: float):
     """The port's own layout of a train cell, beside the reference's plan.
-    ``make_zero1_train_step`` splits a model of ``tp.SPLIT_KINDS`` blocks
-    over 'model' as the rules do, so its bytes are ``nbytes`` and its FLOPs
-    are split over every device. Mamba, xLSTM, the encoder-decoder and the
-    VLM prefix it refuses to split (``tp.check_split``, ROADMAP item 7d),
-    so on ``mesh`` their step raises:
-    its figures are those of the step the port runs on the same devices
+    ``make_zero1_train_step`` splits the model over 'model' as the rules
+    do, so its bytes are ``nbytes`` and its FLOPs are split over every
+    device. A split ``tp.check_split`` refuses (ranks straddling kv groups
+    or the mLSTM's qkv blocks, ROADMAP item 7d) raises on ``mesh``: its
+    figures are then those of the step the port runs on the same devices
     with 'model' folded into 'data' (``folded``), the rules' layout on that
     mesh: parameters whole on each rank, the optimizer state ZeRO-1 over
     every rank, the batch split over every rank, FLOPs split over every

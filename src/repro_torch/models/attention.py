@@ -170,9 +170,10 @@ def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     Under a split over 'model' that cuts ``wq`` (``tp.head_split``) the block
     runs this rank's heads, where the reference's ``shard()`` pins q, k and v
     to 'model' (``src/repro/models/attention.py:202``, ``:239-240``): x
-    enters through ``copy_to_model``, the rank's q heads and the kv heads they
-    read are projected and attended, and ``wo``'s partial sums leave through
-    ``reduce_from_model`` (``:245``). The cache holds the rank's kv heads:
+    (and a cross attention's ``kv_x``) enters through ``copy_to_model``, the
+    rank's q heads and the kv heads they read are projected and attended,
+    and ``wo``'s partial sums leave through ``reduce_from_model`` (``:245``;
+    a cross attention's decode too). The cache holds the rank's kv heads:
     the reference splits it on the sequence over 'model' instead (``:144``),
     which would need q gathered and the prefill's cache laid out anew; the
     results are equal (ROADMAP.md Queue 3, quirk 17)."""
@@ -196,8 +197,11 @@ def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         # cross-attention decode: k and v were projected at prefill
         out = decode_attention(q, cache["k"], cache["v"], cache_pos,
                                cfg.decode_seq_shards)
-        return torch.einsum("bhsq,hqd->bsd", out, p.wo), None
+        y = torch.einsum("bhsq,hqd->bsd", out, p.wo)
+        return tp.reduce_from_model(y, None if sp is None else sp.mg), None
     src = x if kv_x is None else kv_x
+    if sp is not None and kv_x is not None:    # the encoder's output, replicated
+        src = tp.copy_to_model(kv_x, sp.mg)
     k = torch.einsum("bsd,dhq->bhsq", src, wk)                 # (B,KH,Sk,Dh)
     v = torch.einsum("bsd,dhq->bhsq", src, wv)
     if cfg.qk_norm:

@@ -46,13 +46,16 @@ scan (``ssm.py``), MoE by autograd through its dispatch and combine gathers
 Tensor parallelism (``distributed/tp.py``): under ``use_mesh`` of a
 ``DeviceMesh`` whose 'model' axis has more than one rank, ``forward``,
 ``loss_fn``, ``decode_step`` and ``init_caches`` run this rank's part of
-a model of ``attn+mlp``, ``attn+moe``, ``mla+mlp`` and ``mla+moe`` blocks
-(``tp.split_model``): its attention or MLA heads, its d_ff slice, its
-experts and, where the rules split ``embed``/``head``, its vocabulary
-slice, so the logits are this rank's slice (the reference's ``lm.py:289``
-layout; ``tp.gather_vocab`` makes them whole). ``check_split`` refuses
-Mamba, xLSTM, the encoder-decoder and the VLM prefix there (ROADMAP item
-7d).
+the model (``tp.split_model``), of any block kind and wrapper: its
+attention or MLA heads, its d_ff slice, its experts, its Mamba and mLSTM
+channels (the sLSTM whole), the encoder's and the cross attention's heads
+as the decoder's, and, where the rules split ``embed``/``head``, its
+vocabulary slice, so the logits are this rank's slice (the reference's
+``lm.py:289`` layout; ``tp.gather_vocab`` makes them whole). ``pos_embed``
+and a VLM's ``vision_proj`` stay whole, so the prefix needs no collective.
+The caches hold the rank's share: its kv heads (the cross cache's too), its
+Mamba channels, its mLSTM heads. ``check_split`` refuses only a split whose
+ranks would straddle kv groups or the mLSTM's qkv blocks (ROADMAP item 7d).
 """
 
 from __future__ import annotations
@@ -90,10 +93,10 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def check_split(cfg: ModelConfig, model: Optional[nn.Module] = None) -> None:
     """Under a split over 'model' on the ambient mesh, raise
-    NotImplementedError for a model with blocks the port does not split
-    (Mamba, xLSTM, an encoder-decoder, a VLM prefix: ROADMAP item 7d),
-    never computing them whole in silence; and ValueError for a
-    ``model`` that is not this rank's part (``tp.split_model``)."""
+    NotImplementedError for a split the port does not make (ranks that
+    would straddle kv groups or the mLSTM's qkv blocks: ROADMAP item 7d),
+    never computing it whole in silence; and ValueError for a ``model``
+    that is not this rank's part (``tp.split_model``)."""
     tp.check_split(cfg)
     if model is not None:
         tp.check_model(cfg, model)
@@ -289,7 +292,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     ``{"C", "n", "m"}`` or ``{"sc", "sn", "sh", "sm"}`` for Mamba, mLSTM and
     sLSTM (which ignore ``max_len``). An encoder-decoder's layers also hold
     zero ``cross_k``/``cross_v`` (B, KH, enc_len, Dh), as the reference's:
-    decode attends over them as they are until a prefill's are put there."""
+    decode attends over them as they are until a prefill's are put there.
+    Under a split over 'model' each holds this rank's share: its kv heads,
+    its Mamba channels, the mLSTM heads it runs."""
     check_ported(cfg)
     check_split(cfg)
     device = resolve_device(device)
@@ -297,7 +302,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     def attn():
         c = init_self_attn_cache(cfg, batch, max_len, device)
         if cfg.is_encdec:
-            shp = (batch, cfg.n_kv_heads, cfg.encdec.enc_len, cfg.head_dim_)
+            shp = (batch, tp.cache_kv_heads(cfg), cfg.encdec.enc_len, cfg.head_dim_)
             c["cross_k"] = torch.zeros(shp, dtype=pdtype(cfg), device=device)
             c["cross_v"] = torch.zeros(shp, dtype=pdtype(cfg), device=device)
         return c
@@ -404,7 +409,10 @@ def embed_inputs(cfg: ModelConfig, model: LM,
                  batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, int]:
     """The token embeddings, after a VLM's projected ``vision_embeds`` (B, P,
     D) where the batch holds them: ``(x, n_prefix)``, ``n_prefix = P`` or 0.
-    The prefix is cast to the embedding's dtype and not scaled by sqrt(D)."""
+    The prefix is cast to the embedding's dtype and not scaled by sqrt(D).
+    Under a split over 'model' ``vision_proj`` is whole (the rules'), so
+    every rank projects the prefix alike and puts it before the
+    vocab-parallel embedding's rows, which come back whole: no collective."""
     x = _embed(cfg, model, batch["tokens"])
     if cfg.vlm is None or "vision_embeds" not in batch:
         return x, 0
@@ -439,7 +447,9 @@ def _encode(cfg: ModelConfig, model: LM, frames: torch.Tensor,
             attn_impl: Optional[str] = None) -> torch.Tensor:
     """Whisper's encoder over ``frames`` (B, T, D), the precomputed embeddings
     of the conv front end (the reference's stub): plus ``pos_embed[:T]`` in
-    the frames' dtype, the blocks non-causal and without RoPE, RMSNorm."""
+    the frames' dtype, the blocks non-causal and without RoPE, RMSNorm.
+    Under a split over 'model' the blocks split as the decoder's
+    ``attn+mlp`` blocks do; ``pos_embed`` is whole, and so is the output."""
     enc = model.encoder
     x = frames + enc.pos_embed[None, :frames.shape[1]].to(frames.dtype)
     x, _, _ = _blocks(cfg, enc.blocks, x, want_caches=False, causal=False,

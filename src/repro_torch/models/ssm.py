@@ -16,6 +16,15 @@ step by step as the reference does (``ssm_recurrence``) and updates the
 state in place, so a state given where a graph is built raises. The
 rounding points are the reference's: the conv and u in the parameter dtype,
 the scan, y and its gate in fp32, y rounded before ``m_out``.
+
+Under a split over 'model' (``tp.channel_group`` of ``m_in``) a rank holds its Di/m
+channels of every ``m_*`` leaf, ``m_xproj`` and ``m_out`` by rows, as the
+reference's rules lay them out (``src/repro/models/ssm.py:70``, ``:107``):
+x enters through ``copy_to_model``, the conv, the scan and its decode state
+run on the rank's channels, ``dt_in``, B and C come whole from ``m_xproj``'s
+partial sums (``tp.reduce_to_model``: each rank reads them for its own
+channels only, so their gradient is summed too), and ``m_out``'s partial
+sums leave through ``reduce_from_model``.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import tp
 from .config import ModelConfig
 from .layers import check_no_graph, copy_into, dense_init, pdtype
 
@@ -74,8 +84,10 @@ def init_mamba(gen: Optional[torch.Generator], cfg: ModelConfig, device) -> Mamb
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device) -> State:
     """``ssm`` (B, Di, N) fp32 and ``conv`` (B, W-1, Di) in the parameter
-    dtype, zero."""
+    dtype, zero; under a split over 'model', of the rank's Di/m channels."""
     Di, _, N = _dims(cfg)
+    mg = tp.channel_group("m_in", (cfg.d_model, 2, Di))
+    Di = Di if mg is None else Di // mg.size
     W = cfg.mamba.conv_width
     return {"ssm": torch.zeros(batch, Di, N, dtype=torch.float32, device=device),
             "conv": torch.zeros(batch, W - 1, Di, dtype=pdtype(cfg), device=device)}
@@ -131,12 +143,14 @@ def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig,
     graph is built)."""
     check_no_graph(state, x, p)
     Di, dtr, N = _dims(cfg)
-    xz = torch.einsum("bsd,dti->bsti", x, p.m_in)         # (B,S,2,Di)
+    mg = tp.channel_group("m_in", (cfg.d_model, 2, Di))
+    x = tp.copy_to_model(x, mg)
+    xz = torch.einsum("bsd,dti->bsti", x, p.m_in)         # (B,S,2,Di): the rank's Di/m
     x_in, z = xz[:, :, 0], xz[:, :, 1]
     x_c, new_conv = _causal_conv(x_in, p.m_conv, None if state is None else state["conv"])
     u = F.silu(x_c.float()).to(x.dtype)
 
-    dbc = torch.einsum("bsi,ir->bsr", u, p.m_xproj)       # (B,S,dtr+2N)
+    dbc = tp.reduce_to_model(torch.einsum("bsi,ir->bsr", u, p.m_xproj), mg)  # (B,S,dtr+2N)
     dt_in, Bc, Cc = torch.split(dbc, [dtr, N, N], dim=-1)
     dt = F.softplus(torch.einsum("bsr,ri->bsi", dt_in, p.m_dt).float()
                     + p.m_dtb.float())                    # (B,S,Di)
@@ -155,4 +169,4 @@ def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig,
     y = torch.einsum("bsin,bsn->bsi", h, Cc.float())
     y = y + p.m_d.float() * u.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return torch.einsum("bsi,id->bsd", y, p.m_out), new_state
+    return tp.reduce_from_model(torch.einsum("bsi,id->bsd", y, p.m_out), mg), new_state

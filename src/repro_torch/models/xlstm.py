@@ -16,6 +16,22 @@ has no kernel for it. A block given a state updates it in place and returns
 the same dict; so a block given a state while building a graph raises
 (the in-place update would overwrite what autograd saved): train with no
 state and ``want_state``.
+
+Under a split over 'model' (``tp.channel_group`` of ``x_up``) a rank holds its Di/m
+channels of ``x_up``, its blocks of ``x_q``/``x_k``/``x_v`` and its rows of
+``x_if`` and ``x_out``, as the reference's rules lay them out: x enters
+through ``copy_to_model``, u, z, q, k and v are the rank's channels, the
+gates come whole from ``x_if``'s partial sums (``tp.reduce_to_model``: each
+rank reads them in part), and ``x_out``'s partial sums leave through
+``reduce_from_model``. Heads are contiguous Dh slices of Di, so where
+'model' divides H a rank's channels are its H/m heads: the mLSTM (the
+kernel on the card, forward and backward) runs those, and its state holds
+them. Where it does not, q, k and v are made whole (``tp.gather_channels``),
+every rank runs all H heads and keeps its own channels of h, and its state
+holds all H heads: the reference's replicated heads
+(``src/repro/models/xlstm.py:120-127``). The sLSTM stays whole on every
+rank (its ``s_*`` leaves replicated by the rules), computed alike, with no
+collective.
 """
 
 from __future__ import annotations
@@ -26,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import tp
 from ..kernels.mlstm_chunk import init_state, mlstm_chunk
 from .config import ModelConfig
 from .layers import check_no_graph, copy_into, dense_init, pdtype
@@ -103,6 +120,12 @@ def mlstm_step(q, k, v, li, lf, state: State) -> torch.Tensor:
     return h[:, :, None]
 
 
+def _heads_split(cfg: ModelConfig, mg: Optional[tp.ModelGroup]) -> bool:
+    """Whether a rank's channels are whole heads it runs alone: 'model'
+    splits the channels and divides H."""
+    return mg is not None and cfg.n_heads % mg.size == 0
+
+
 def apply_mlstm(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[State] = None, want_state: bool = False,
                 chunk: int = 64, impl: Optional[str] = None,
@@ -110,40 +133,57 @@ def apply_mlstm(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     """x (B,S,D). With a state and S = 1 it runs one decode step; otherwise
     the chunkwise scan (``impl`` is passed to the kernel's wrapper). A given
     state is updated in place, and refused where a graph is built;
-    ``want_state`` returns the final state."""
+    ``want_state`` returns the final state. Under a split over 'model', the
+    rank's channels and heads as the module's docstring says."""
     check_no_graph(state, x, p)
     Di, Dh = _dims(cfg)
     B, S, D = x.shape
     H = cfg.n_heads
+    mg = tp.channel_group("x_up", (D, 2, Di))
+    x = tp.copy_to_model(x, mg)
     uz = torch.einsum("bsd,dti->bsti", x, p.x_up)
-    u, z = uz[:, :, 0], uz[:, :, 1]
+    u, z = uz[:, :, 0], uz[:, :, 1]                          # the rank's Di/m
+    Di = u.shape[-1]
     ub = u.reshape(B, S, Di // QKV_BLOCK, QKV_BLOCK)
 
     def blockproj(w):
         # heads are contiguous Dh slices of Di, as in the reference
-        return torch.einsum("bsnc,ncd->bsnd", ub, w).reshape(B, S, H, Dh)
+        return torch.einsum("bsnc,ncd->bsnd", ub, w).reshape(B, S, Di)
 
-    q, k, v = (blockproj(w).transpose(1, 2).float() for w in (p.x_q, p.x_k, p.x_v))
+    q, k, v = (blockproj(w).float() for w in (p.x_q, p.x_k, p.x_v))
+    gates = tp.reduce_to_model(torch.einsum("bsi,ig->bsg", u.float(), p.x_if), mg)
+    li, lf = gates[..., :H], gates[..., H:]                  # (B,S,H)
+    if _heads_split(cfg, mg):                                # the rank's heads
+        Hl = H // mg.size
+        li, lf = li.narrow(-1, mg.rank * Hl, Hl), lf.narrow(-1, mg.rank * Hl, Hl)
+    elif mg is not None:                                     # every head, made whole
+        q, k, v = (tp.gather_channels(t, mg) for t in (q, k, v))
+    Hr = q.shape[-1] // Dh
+    q, k, v = (t.reshape(B, S, Hr, Dh).transpose(1, 2) for t in (q, k, v))
     k = k * Dh ** -0.5
-    gates = torch.einsum("bsi,ig->bsg", u.float(), p.x_if)
-    li = gates[..., :H].transpose(1, 2)                      # (B,H,S)
-    lf = F.logsigmoid(gates[..., H:]).transpose(1, 2)
+    li, lf = li.transpose(1, 2), F.logsigmoid(lf).transpose(1, 2)   # (B,Hr,S)
     if state is not None and S == 1:
         h, new_state = mlstm_step(q, k, v, li, lf, state), state
     else:
         h, new_state = mlstm_sequence(q, k, v, li, lf, state, chunk, impl)
         if state is not None:
             new_state = copy_into(state, new_state)
-    h = h.transpose(1, 2).reshape(B, S, Di).to(x.dtype)
-    out = h * F.silu(z.float()).to(x.dtype)
-    out = torch.einsum("bsi,id->bsd", out, p.x_out)
+    h = h.transpose(1, 2).reshape(B, S, Hr * Dh)
+    if h.shape[-1] != Di:                                    # the rank's channels of h
+        h = h.narrow(-1, mg.rank * Di, Di)
+    out = h.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    out = tp.reduce_from_model(torch.einsum("bsi,id->bsd", out, p.x_out), mg)
     keep = state is not None or want_state
     return out, (new_state if keep else None)
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> State:
-    _, Dh = _dims(cfg)
-    return init_state(batch, cfg.n_heads, Dh, device)
+    """The zero state of the heads this rank runs: all H, or under a split
+    over 'model' that divides them, its H/m."""
+    Di, Dh = _dims(cfg)
+    mg = tp.channel_group("x_up", (cfg.d_model, 2, Di))
+    H = cfg.n_heads // mg.size if _heads_split(cfg, mg) else cfg.n_heads
+    return init_state(batch, H, Dh, device)
 
 
 # ===================================================================== sLSTM

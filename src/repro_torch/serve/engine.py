@@ -29,8 +29,9 @@ greedy ``decode_step``.
 A model split over 'model' (``distributed/tp.py``) is refused too: its
 logits are a rank's vocabulary slice and its caches a rank's kv heads, so
 the engine's and the adapters' argmax would give a rank's local ids. The
-split model serves through ``forward``, ``decode_step`` and ``tp.greedy``;
-the engine over it is a later part of ROADMAP item 7d.
+split model, of any block kind (an encoder-decoder's with frames, a VLM's
+with its prefix), serves through ``forward``, ``decode_step`` and
+``tp.greedy``; the engine over it is a later part of ROADMAP item 7d.
 """
 
 from __future__ import annotations

@@ -62,6 +62,7 @@ from torch import nn
 from ..convert import opt_state_from_jax, opt_state_to_jax, params_from_jax, params_to_jax
 from ..core.api import AgileLog, BoltSystem
 from ..core.errors import AgileLogError
+from ..distributed import tp
 from ..models.config import ModelConfig
 from ..models.layers import resolve_device
 from ..streams.records import decode_record, encode_record
@@ -197,7 +198,17 @@ class CheckpointManager:
 
         Leaf bytes go to a fresh cFork of the data root first; the catalog
         append is the linearization point (a crash before it leaves only an
-        unreferenced fork for :meth:`recover`)."""
+        unreferenced fork for :meth:`recover`).
+
+        Under a split over 'model' on the ambient mesh it raises before it
+        writes anything: a rank holds its slices, whose shapes are not the
+        record's (saving a split model is a later part of ROADMAP item 7d)."""
+        mg = tp.model_group()
+        if mg is not None:
+            raise NotImplementedError(
+                f"save under a split over 'model' ({mg.size} ranks): a rank holds its "
+                "slices, not the whole leaves the record holds; saving a split model "
+                f"is a later part of {tp.ROADMAP_ITEM}")
         if isinstance(params, nn.Module):
             if cfg is None:
                 raise ValueError("saving a model writes its state in the reference's "

@@ -106,7 +106,8 @@ def make_zero1_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMe
     model is this rank's part (``tp.split_model``): the step runs under
     ``use_mesh(mesh, local_rows=True)``, so the forward and backward are
     split over 'model' and each gradient is that of the rank's slice of its
-    parameter (``tp.SPLIT_KINDS`` only: ROADMAP item 7d), and an MoE takes
+    parameter (every block kind; ``tp.check_split`` refuses only the splits
+    that straddle, ROADMAP item 7d), and an MoE takes
     its token groups and router loss over the global batch (``moe.py``).
     The gradients and the loss are averaged in fp32 over the 'pod' and 'data' ranks;
     ``zero1_adamw_update`` updates the state's chunks and gathers each

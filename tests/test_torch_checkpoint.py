@@ -354,6 +354,31 @@ def _json_record(ckpt, step, state):
         "treedef": json.dumps(list(paths)), "extra": {"cursor": [1, 2]}})).wait()
 
 
+def test_save_under_a_split_is_refused(monkeypatch):
+    """Under a 'model' group of 2, ``save`` raises naming ROADMAP item 7d
+    before it writes anything (a rank's slices are not the record's
+    shapes): no catalog record and no data fork. With no group it saves as
+    before."""
+    from repro_torch.distributed import tp
+    from repro_torch.train import AdamWConfig, adamw_init
+    cfg = rt.get_smoke_config("qwen3-8b")
+    model = rt.init_params(cfg, 3, device="cpu", trainable=True)
+    state = adamw_init(model, AdamWConfig())
+    system = BoltSystem(n_brokers=2)
+    ckpt = CheckpointManager(system)
+    logs = set(system.metadata.state.logs)
+    monkeypatch.setattr(tp, "model_group", lambda mesh=None: tp.ModelGroup(None, 2, 0))
+    for save in (lambda: ckpt.save(4, model, state, cfg=cfg),
+                 lambda: ckpt.save(5, _params(0), _opt(0))):
+        with pytest.raises(NotImplementedError, match=tp.ROADMAP_ITEM):
+            save()
+    assert ckpt.catalog.tail == 0 and ckpt.steps() == []
+    assert set(system.metadata.state.logs) == logs
+    monkeypatch.undo()
+    ckpt.save(4, model, state, cfg=cfg)
+    assert ckpt.steps() == [4] and ckpt.catalog.tail == 1
+
+
 def test_json_treedef_records_still_restore():
     """Records the port wrote before it wrote the reference's record (a
     JSON treedef of leaf paths) restore as the nested dicts they were, a

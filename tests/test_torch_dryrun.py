@@ -223,27 +223,44 @@ def test_port_step_of_a_split_moe_or_mla_train_cell(arch, multi_pod):
 
 
 def test_port_step_of_a_train_cell_the_port_does_not_split():
-    """An encoder-decoder train cell's ``port_step`` is the step the port can
-    run: it refuses to split whisper's encoder over 'model' (ROADMAP item
-    7d), so its figures are its data-parallel step on the same 256 devices
-    with 'model' folded into 'data' (16x16 -> 256x1): parameters whole on
-    each rank, the optimizer state and batch as the rules lay them out on
-    that mesh, and its FLOPs split over every device."""
-    arch = "whisper-small"
-    r = dryrun.run_cell(arch, "train_4k", False)
-    port, nbytes = r["port_step"], r["memory"]["bytes_per_device"]
-    cfg = get_config(arch)
+    """A train cell whose split ``tp.check_split`` refuses (qwen3-8b with 48
+    q heads over 12 kv heads: 3 q heads a rank on 16 'model' ranks straddle
+    the kv groups of 4, ROADMAP item 7d) gets the step the port can run:
+    its data-parallel step on the same 256 devices with 'model' folded into
+    'data' (16x16 -> 256x1): parameters whole on each rank, the optimizer
+    state and batch as the rules lay them out on that mesh, and its FLOPs
+    split over every device."""
+    cfg = get_config("qwen3-8b").with_(n_heads=48, n_kv_heads=12)
+    mesh = make_production_mesh(multi_pod=False)
+    with use_mesh(mesh):
+        nbytes = dryrun.cell_bytes(cfg, "train_4k", mesh)
+    port = dryrun.port_step(cfg, "train_4k", mesh, nbytes, 1e18)
     whole = sum(p.numel() * p.element_size() for p in specs.abstract_params(cfg).parameters())
-    fold = dryrun.folded(make_production_mesh(multi_pod=False))
+    fold = dryrun.folded(mesh)
     assert fold.shape == {"data": 256, "model": 1}
     with use_mesh(fold):
         assert port["bytes_per_device"] == dryrun.cell_bytes(cfg, "train_4k", fold)
     assert port["bytes_per_device"]["params"] == whole > nbytes["params"]
     # the state goes ZeRO-1 over all 256 ranks, not 16 'data' ranks of a split
     assert port["bytes_per_device"]["opt_state"] < nbytes["opt_state"]
-    assert port["flops_per_device"] == r["flops_per_device"]
+    assert port["flops_per_device"] == 1e18 / 256
     assert port["compute_s"] == port["flops_per_device"] / 989e12
-    assert "ROADMAP item 7d" in port["layout"] and "256x1" in port["layout"]
+    assert "ROADMAP item 7d" in port["layout"] and "straddle" in port["layout"]
+    assert "256x1" in port["layout"]
+
+
+def test_port_step_of_an_encoder_decoder_train_cell():
+    """whisper-small's train cell: the port splits the encoder-decoder over
+    'model' now, so its ``port_step`` is the rules' plan, the dense cell's
+    layout. Its 12 heads stay whole on 16 'model' ranks (every rank computes
+    them all), its MLP and vocabulary split."""
+    r = dryrun.run_cell("whisper-small", "train_4k", False)
+    port, nbytes = r["port_step"], r["memory"]["bytes_per_device"]
+    whole = sum(p.numel() * p.element_size()
+                for p in specs.abstract_params(get_config("whisper-small")).parameters())
+    assert port["bytes_per_device"] == nbytes and nbytes["params"] < whole
+    assert port["flops_per_device"] == r["flops_per_device"]
+    assert port["layout"].startswith("split over 'model'")
 
 
 def test_cli_runs_without_jax(tmp_path):

@@ -40,18 +40,31 @@ raised router aux coefficient: the token groups and the aux loss are the
 global batch's. On the (1, m) meshes the ranks replace every
 ``all_gather*``, ``reduce_scatter*`` and ``all_to_all*`` with a function
 that raises, so only ``all_reduce`` and ``broadcast`` run: what gloo does
-with a CUDA tensor is enough. Mamba, xLSTM, the encoder-decoder and the VLM
-prefix are refused under 'model' > 1 with an error that names ROADMAP item
-7d, and so is a split whose ranks' q heads would straddle kv groups.
+with a CUDA tensor is enough.
+
+The recurrent blocks and the wrappers run under their own keys of
+``MESHES``, on the same three meshes and to the same checks, gradients
+included: jamba-smoke (Mamba's channels, its MoE's experts, one attention
+layer), xlstm-smoke (the mLSTM's channels; its 2 heads a rank each on
+(1, 2) and (2, 2), gathered whole on (1, 4), where every rank runs both;
+the sLSTM whole), whisper-small-smoke (the encoder, the decoder's self and
+cross attention on heads; the greedy stream from ``forward`` with frames,
+then ``decode_step`` over the rank's cross cache) and llava-next-34b-smoke
+(its 16-patch prefix before the vocab-parallel embedding, ``vision_proj``
+whole), and xlstm-smoke in bf16 on (1, 2). The only split still refused
+is one whose ranks would straddle kv groups or the mLSTM's qkv blocks,
+with an error that names ROADMAP item 7d.
 """
 
 import contextlib
 import dataclasses
 import json
 import os
+import pickle
 import signal
 import subprocess
 import sys
+import time
 from pathlib import Path
 from unittest import mock
 
@@ -65,6 +78,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_smoke_config as jget_smoke_config  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
+from repro.models.layers import apply_rope as jax_apply_rope  # noqa: E402
 from repro.train.optimizer import AdamWConfig as JaxAdamWConfig  # noqa: E402
 from repro.train.optimizer import adamw_init as jax_adamw_init  # noqa: E402
 from repro.train.step import make_train_step as jax_make_train_step  # noqa: E402
@@ -104,17 +118,28 @@ CASES = {
     # so about half the experts overflow; and the router's aux loss raised
     "granite-drops": ("granite-moe-3b-a800m", {"moe": {"capacity_factor": 0.25}}, "float32"),
     "granite-aux": ("granite-moe-3b-a800m", {"moe": {"router_aux_coef": 1.0}}, "float32"),
+    "jamba": ("jamba-1.5-large-398b", {}, "float32"),
+    "xlstm": ("xlstm-1.3b", {}, "float32"),
+    "xlstm-bf16": ("xlstm-1.3b", {}, "bfloat16"),
+    "whisper": ("whisper-small", {}, "float32"),
+    "llava": ("llava-next-34b", {}, "float32"),
 }
 SHAPES = {"granite-drops": (4, 256), "granite-aux": (4, 32)}    # (B, S); else (B, S) above
 MESHES = {"1x2": ((1, 2), ["qwen3", "smollm", "starcoder2-ungated", "qwen3-bf16", "granite",
                            "deepseek", "deepseek-bf16"]),
           "2x2": ((2, 2), ["qwen3", "smollm", "starcoder2-ungated", "granite", "deepseek"]),
           "1x4": ((1, 4), ["qwen3", "smollm", "starcoder2-ungated", "granite", "deepseek",
-                           "deepseek-odd-shared"])}
+                           "deepseek-odd-shared"]),
+          "1x2-recurrent": ((1, 2), ["jamba", "xlstm"]),
+          "1x2-recurrent-bf16": ((1, 2), ["xlstm-bf16"]),
+          "2x2-recurrent": ((2, 2), ["jamba", "xlstm"]),
+          "1x4-recurrent": ((1, 4), ["jamba", "xlstm"]),
+          "1x2-wrappers": ((1, 2), ["whisper", "llava"]),
+          "2x2-wrappers": ((2, 2), ["whisper", "llava"]),
+          "1x4-wrappers": ((1, 4), ["whisper", "llava"])}
 DATA_MESH = (2, 1)
-REFUSED = [a for a in rt.ARCHS if a not in ("qwen3-8b", "smollm-135m", "starcoder2-15b",
-                                            "deepseek-67b", "granite-moe-3b-a800m",
-                                            "deepseek-v2-lite-16b")]
+# on (1, 2): 3 q heads a rank, kv groups of 2, wk/wv whole (3 kv heads)
+STRADDLED = [("qwen3-8b", {"n_heads": 6, "n_kv_heads": 3, "d_model": 96, "head_dim": 16})]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,6 +148,18 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _shared_refs(tmp_path_factory):
+    """Where ``_reference`` leaves each case's references for the other
+    test processes of the run (pytest-xdist's workers share the parent of
+    their base temp directories)."""
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    _SHARED[0] = root / "torch_tp_refs"
+    _SHARED[0].mkdir(exist_ok=True)
+    yield
 
 
 def _cfg(tag, get=rt.get_smoke_config):
@@ -140,8 +177,43 @@ def _names(cfg, tree):
 
 
 def _held_grads(cfg):
-    """Whether the ranks' gradients are held against the one-rank port's."""
-    return cfg.dtype == "float32" and (cfg.moe is not None or cfg.mla is not None)
+    """Whether the ranks' gradients are held against the one-rank port's:
+    every fp32 model but the plain ``attn+mlp`` decoders."""
+    plain = set(layer_kinds(cfg)) == {"attn+mlp"} and not (cfg.is_encdec or cfg.vlm)
+    return cfg.dtype == "float32" and not plain
+
+
+def _extras(cfg, b):
+    """The batch's inputs besides the tokens, seeded: an encoder-decoder's
+    frames (B, enc_len, D), a VLM's patch embeddings (B, n_patches, D)."""
+    rng = np.random.default_rng(6)
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = rng.standard_normal((b, cfg.encdec.enc_len, cfg.d_model), np.float32)
+    if cfg.vlm is not None:
+        out["vision_embeds"] = rng.standard_normal((b, cfg.vlm.n_patches, cfg.d_model),
+                                                   np.float32)
+    return out
+
+
+def _jax_prefill(cfg, jcfg, jp, jb, max_len):
+    """JAX's forward over the prompt (and a VLM's prefix, an
+    encoder-decoder's frames) with its caches, made what its decode reads:
+    the self-attention keys roped at their positions where its forward
+    leaves them unroped (llava; whisper's forward and cache have no RoPE),
+    and padded to ``max_len``. Returns (logits, caches, n_prefix)."""
+    logits, _, jc, n_prefix = jax.jit(
+        lambda p, b: jlm.forward(jcfg, p, b, want_caches=True))(jp, jb)
+    groups = []
+    for g in jc["groups"]:
+        g = dict(g)
+        L = g["k"].shape[3]
+        if not cfg.is_encdec:
+            g["k"] = jax_apply_rope(g["k"], jnp.arange(L), cfg.rope_theta)
+        pad = ((0, 0), (0, 0), (0, 0), (0, max_len - L), (0, 0))
+        g["k"], g["v"] = jnp.pad(g["k"], pad), jnp.pad(g["v"], pad)
+        groups.append(g)
+    return logits, {"groups": tuple(groups), "first": jc["first"]}, n_prefix
 
 
 @contextlib.contextmanager
@@ -160,7 +232,7 @@ def _jax_logits(tag, dp):
     cfg, jcfg = _cfg(tag), _cfg(tag, jget_smoke_config)
     toks = _tokens(cfg, tag)
     with _jax_sees(dp):
-        return np.asarray(jlm.forward(jcfg, jlm.init_params(jcfg, jax.random.key(3)),
+        return np.asarray(jlm.forward(jcfg, _jax_params(jcfg),
                                       {"tokens": jnp.asarray(toks[:, :-1])})[0], np.float32)
 
 
@@ -170,45 +242,97 @@ def _tokens(cfg, tag):
 
 
 _REFS = {}
+_SHARED = [None]
+REF_WAIT = 600                        # seconds to wait for another process's reference
+
+
+def _shared(key, make):
+    """``make()`` once a run: the first process to ask for ``key`` makes it
+    and leaves it in ``_SHARED``; the others wait for it there (or make it
+    themselves where the maker failed, or REF_WAIT passes)."""
+    if key in _REFS:
+        return _REFS[key]
+    if _SHARED[0] is None:
+        _REFS[key] = make()
+        return _REFS[key]
+    name = "-".join(map(str, key))
+    done, lock, failed = (_SHARED[0] / f"{name}.{ext}" for ext in ("pkl", "lock", "failed"))
+    try:
+        os.close(os.open(lock, os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+    except FileExistsError:
+        deadline = time.monotonic() + REF_WAIT
+        while not (done.exists() or failed.exists()) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        out = pickle.loads(done.read_bytes()) if done.exists() else make()
+    else:
+        try:
+            out = make()
+        except BaseException:
+            failed.touch()
+            raise
+        part = done.with_suffix(".part")
+        part.write_bytes(pickle.dumps(out))
+        part.replace(done)
+    _REFS[key] = out
+    return out
+
+
+def _jax_params(jcfg):
+    """The JAX model's weights (seed 3), made by one compiled call."""
+    return jax.jit(lambda key: jlm.init_params(jcfg, key))(jax.random.key(3))
 
 
 def _reference(tag, dp=1):
     """The JAX side and the port's one-rank step for case ``tag`` on a mesh
     of ``dp`` 'data' ranks: JAX's MoE sees ``dp`` and the port's one-rank
     side runs under a ``MeshShape`` of (dp, 1), whole rows on one rank."""
-    cfg, jcfg = _cfg(tag), _cfg(tag, jget_smoke_config)
+    cfg = _cfg(tag)
     dp = dp if cfg.moe is not None else 1        # only the MoE reads the mesh
-    if (tag, dp) in _REFS:
-        return _REFS[tag, dp]
-    jp = jlm.init_params(jcfg, jax.random.key(3))
+    return _shared((tag, dp), lambda: _make_reference(tag, dp))
+
+
+def _make_reference(tag, dp):
+    cfg, jcfg = _cfg(tag), _cfg(tag, jget_smoke_config)
+    jp = _jax_params(jcfg)
     toks = _tokens(cfg, tag)
-    jb = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
-    out = {"params": _names(cfg, jp), "tokens": toks}
+    extras = _extras(cfg, toks.shape[0])
+    jx = {k: jnp.asarray(a) for k, a in extras.items()}
+    jb = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:]), **jx}
+    out = {"params": _names(cfg, jp), "tokens": toks, "extras": extras}
     with _jax_sees(dp):
+        # each traced anew under this mesh's sizes (a fresh function, no shared cache)
+        jdecode = jax.jit(lambda *a: jlm.decode_step(jcfg, *a))
         if cfg.dtype == "float32":
-            out["logits"] = np.asarray(jlm.forward(jcfg, jp, jb)[0], np.float32)
-            loss, metrics = jlm.loss_fn(jcfg, jp, jb)
+            out["logits"] = np.asarray(jax.jit(lambda *a: jlm.forward(jcfg, *a))(jp, jb)[0],
+                                       np.float32)
+            loss, metrics = jax.jit(lambda *a: jlm.loss_fn(jcfg, *a))(jp, jb)
             out["loss"], out["aux"] = float(loss), float(metrics["aux"])
             b = toks.shape[0]
-            caches = jlm.init_caches(jcfg, b, P + N_NEW)
-            for t in range(P):                # the prompt, teacher-forced
-                logits, caches = jlm.decode_step(jcfg, jp, caches,
-                                                 jnp.asarray(toks[:, t:t + 1]),
-                                                 jnp.asarray(t, jnp.int32))
+            n_prefix = 0
+            if extras:                        # the wrappers: the prompt's prefill
+                n = cfg.vlm.n_patches if cfg.vlm is not None else 0
+                logits, caches, n_prefix = _jax_prefill(
+                    cfg, jcfg, jp, {"tokens": jnp.asarray(toks[:, :P]), **jx}, n + P + N_NEW)
+            else:
+                caches = jlm.init_caches(jcfg, b, P + N_NEW)
+                for t in range(P):            # the prompt, teacher-forced
+                    logits, caches = jdecode(jp, caches, jnp.asarray(toks[:, t:t + 1]),
+                                             jnp.asarray(t, jnp.int32))
             stream = []
             for t in range(N_NEW):
                 stream.append(np.asarray(logits[:, -1, :cfg.vocab_size].argmax(-1)))
                 if t + 1 < N_NEW:
-                    logits, caches = jlm.decode_step(
-                        jcfg, jp, caches, jnp.asarray(stream[-1][:, None], jnp.int32),
-                        jnp.asarray(P + t, jnp.int32))
+                    logits, caches = jdecode(jp, caches,
+                                             jnp.asarray(stream[-1][:, None], jnp.int32),
+                                             jnp.asarray(n_prefix + P + t, jnp.int32))
             out["stream"] = np.stack(stream, 1)
         jopt = JaxAdamWConfig(lr=LR, weight_decay=0.01, eps=EPS)
         jstep = jax.jit(jax_make_train_step(jcfg, jopt, grad_dtype=cfg.dtype))
         jparams, _, jm = jstep(jp, jax_adamw_init(jp, jopt), jb)
     out["jax_step"] = (float(jm["loss"]), float(jm["grad_norm"]), _names(cfg, jparams))
     tb = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
-          "labels": torch.from_numpy(toks[:, 1:]).long()}
+          "labels": torch.from_numpy(toks[:, 1:]).long(),
+          **{k: torch.from_numpy(a) for k, a in extras.items()}}
     with use_mesh(MeshShape(("data", "model"), (dp, 1))):
         if _held_grads(cfg):
             model = rt.params_from_jax(cfg, jax.device_get(jp), device="cpu", trainable=True)
@@ -221,7 +345,6 @@ def _reference(tag, dp=1):
                                                                  tb)
     out["one_rank_step"] = (float(m["loss"]), float(m["grad_norm"]),
                             {n: p.detach().float().numpy() for n, p in model.named_parameters()})
-    _REFS[tag, dp] = out
     return out
 
 
@@ -292,7 +415,8 @@ for tag, case in spec["cases"].items():
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, **moe))
     arrays = np.load(f"{out}/{tag}.npz")
     toks = torch.from_numpy(arrays["tokens"]).long()
-    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    extras = {k[6:]: torch.from_numpy(arrays[k]) for k in arrays.files if k.startswith("extra ")}
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous(), **extras}
     res, rep = {}, {}
     mg = tp.vocab_group
     model = tp.split_model(cfg, load(cfg, arrays), mesh)
@@ -301,7 +425,7 @@ for tag, case in spec["cases"].items():
     with use_mesh(mesh), torch.no_grad():
         routes.clear()
         tmoe._route = recorded
-        logits, _, _, _ = forward(cfg, model, {"tokens": batch["tokens"]})
+        logits, _, _, _ = forward(cfg, model, {"tokens": batch["tokens"], **extras})
         tmoe._route = route
         if routes:                           # the expert choices of every MoE layer
             res["eidx"] = torch.cat(routes).numpy()
@@ -309,14 +433,17 @@ for tag, case in spec["cases"].items():
         rep["local_vocab"] = logits.shape[-1]
         rep["loss"] = float(loss_fn(cfg, model, batch)[0])
         P, n_new = spec["prompt"], spec["new"]
-        logits, _, caches, _ = forward(cfg, model, {"tokens": batch["tokens"][:, :P]},
-                                       want_caches=True, max_len=P + n_new)
+        n = cfg.vlm.n_patches if cfg.vlm is not None else 0
+        logits, _, caches, n_prefix = forward(cfg, model,
+                                              {"tokens": batch["tokens"][:, :P], **extras},
+                                              want_caches=True, max_len=n + P + n_new)
         rep["cache"] = {k: list(v.shape) for k, v in caches["layers"][0].items()}
         stream = []
         for t in range(n_new):
             stream.append(tp.greedy(logits[:, -1], cfg.vocab_size, mg(cfg)))
             if t + 1 < n_new:
-                logits, caches = decode_step(cfg, model, caches, stream[-1][:, None], P + t)
+                logits, caches = decode_step(cfg, model, caches, stream[-1][:, None],
+                                             n_prefix + P + t)
         res["stream"] = torch.stack(stream, 1).numpy()
     if tag in spec["grads"]:                 # the split loss_fn's gradients
         model = tp.split_model(cfg, load(cfg, arrays, trainable=True), mesh)
@@ -339,8 +466,8 @@ for tag, case in spec["cases"].items():
     report[tag] = rep
 if spec["refused"]:
     refused = {}
-    for arch in spec["refused"]:
-        cfg = get_smoke_config(arch).with_(dtype="float32")
+    for arch, overrides in spec["refused"]:
+        cfg = get_smoke_config(arch).with_(dtype="float32", **overrides)
         model = init_params(cfg, 0, device="cpu")
         said = []
         try:
@@ -401,7 +528,8 @@ def _run_ranks(tmp_path, shape, tags, refused=()):
     for tag in tags:
         ref = _reference(tag, shape[0])
         np.savez(tmp_path / f"{tag}.npz", tokens=ref["tokens"],
-                 **{"param " + n: a for n, a in ref["params"].items()})
+                 **{"param " + n: a for n, a in ref["params"].items()},
+                 **{"extra " + k: a for k, a in ref["extras"].items()})
     spec = {"shape": list(shape), "cases": {t: CASES[t] for t in tags}, "lr": LR, "eps": EPS,
             "prompt": P, "new": N_NEW, "refused": list(refused),
             "grads": [t for t in tags if _held_grads(_cfg(t))]}
@@ -468,10 +596,19 @@ def _held(mesh, shape, tags, reports, arrays):
             assert got["bytes"][0] == got["bytes"][1] == param_bytes(cfg, mshape), tag
             split = tp.split_dims(cfg, mshape)
             assert got["local_vocab"] == cfg.padded_vocab // (m if "embed" in split else 1)
+            cache, kind = got["cache"], layer_kinds(cfg)[0]
             if cfg.mla is not None:          # the latent cache, whole on every rank
-                assert got["cache"]["c_kv"][1:] == [P + N_NEW, cfg.mla.kv_lora_rank], (tag, r)
+                assert cache["c_kv"][1:] == [P + N_NEW, cfg.mla.kv_lora_rank], (tag, r)
+            elif kind.startswith("mamba"):   # the rank's channels
+                cut = m if "blocks.0.mamba.m_in" in split else 1
+                assert cache["ssm"][1] == cache["conv"][2] == 2 * cfg.d_model // cut, (tag, r)
+            elif kind == "mlstm":            # the rank's heads, or all where m does not divide H
+                cut = m if "blocks.0.mlstm.x_up" in split and cfg.n_heads % m == 0 else 1
+                assert cache["C"][1] == cfg.n_heads // cut, (tag, r)
             else:
-                assert got["cache"]["k"][1] == _local_heads(cfg, shape, r), (tag, r)
+                assert cache["k"][1] == _local_heads(cfg, shape, r), (tag, r)
+                if cfg.is_encdec:            # the cross cache: the same kv heads
+                    assert cache["cross_k"][1] == cache["k"][1], (tag, r)
             if cfg.moe is not None:          # every rank routes every token alike
                 np.testing.assert_array_equal(out["eidx"], arrays[0][tag]["eidx"])
             if _held_grads(cfg):
@@ -504,13 +641,14 @@ def _held(mesh, shape, tags, reports, arrays):
 def test_split_matches_jax(mesh, tmp_path):
     shape, tags = MESHES[mesh]
     reports, arrays = _run_ranks(tmp_path, shape, tags,
-                                 refused=REFUSED if mesh == "1x2" else ())
+                                 refused=STRADDLED if mesh == "1x2" else ())
     _held(mesh, shape, tags, reports, arrays)
     if mesh == "1x2":
         for rep in reports:
-            assert set(rep["refused"]) == set(REFUSED)
+            assert set(rep["refused"]) == {arch for arch, _ in STRADDLED}
             for arch, said in rep["refused"].items():
-                assert len(said) == 2 and all(tp.ROADMAP_ITEM in s for s in said), arch
+                assert len(said) == 2 and all(tp.ROADMAP_ITEM in s and "straddle" in s
+                                              for s in said), arch
             said = rep["serve_refused"]
             assert len(said) == 3 and all(tp.ROADMAP_ITEM in s for s in said), said
 
@@ -669,15 +807,73 @@ def test_serving_a_split_model_is_refused(monkeypatch):
     assert engine.poll_and_serve(gen_tokens=2) == 1
 
 
-def test_every_other_block_kind_is_refused():
-    """Under 'model' > 1 the check refuses every smoke config with Mamba,
-    xLSTM, an encoder-decoder or a VLM prefix, naming ROADMAP item 7d, and
-    splits the attn/MLA + MLP/MoE decoders; a 'model' of 1 refuses none."""
-    for arch in rt.ARCHS:
-        cfg = rt.get_smoke_config(arch)
-        tp.check_split(cfg, MeshShape(("data", "model"), (2, 1)))
-        if arch in REFUSED:
-            with pytest.raises(NotImplementedError, match=tp.ROADMAP_ITEM):
-                tp.check_split(cfg, MeshShape(("data", "model"), (1, 2)))
-        else:
-            tp.check_split(cfg, MeshShape(("pod", "data", "model"), (2, 2, 4)))
+@pytest.mark.parametrize("arch", rt.ARCHS)
+def test_every_registered_config_splits(arch):
+    """Every registered config's smoke config passes the check on (1, 2),
+    (1, 4) and (2, 2, 4): no block kind or wrapper is refused, and neither
+    is the full config on the reference's production 'model' axis of 16."""
+    cfg = rt.get_smoke_config(arch)
+    tp.check_split(cfg, MeshShape(("data", "model"), (2, 1)))
+    for shape in ((1, 2), (1, 4)):
+        tp.check_split(cfg, MeshShape(("data", "model"), shape))
+    tp.check_split(cfg, MeshShape(("pod", "data", "model"), (2, 2, 4)))
+    tp.check_split(rt.get_config(arch), MeshShape(("data", "model"), (16, 16)))
+
+
+@pytest.mark.parametrize("arch,overrides,m,what", [
+    (*STRADDLED[0], 2, "kv groups"),
+    # 12 mLSTM channels split over 2 ranks, its 3 qkv blocks of 4 do not
+    ("xlstm-1.3b", {"d_model": 6}, 2, "qkv blocks"),
+])
+def test_straddling_splits_are_still_refused(arch, overrides, m, what):
+    """The splits still refused, naming ROADMAP item 7d: ranks whose q heads
+    straddle kv groups, and ranks whose mLSTM channels straddle its qkv
+    blocks of four."""
+    cfg = rt.get_smoke_config(arch).with_(**overrides)
+    with pytest.raises(NotImplementedError, match=f"{tp.ROADMAP_ITEM}") as e:
+        tp.check_split(cfg, MeshShape(("data", "model"), (1, m)))
+    assert "straddle" in str(e.value) and what in str(e.value)
+
+
+@pytest.mark.parametrize("tag,m,channels,heads", [
+    ("jamba", 2, True, None), ("jamba", 4, True, None), ("jamba", 3, False, None),
+    ("xlstm", 2, True, 1), ("xlstm", 4, True, 2), ("xlstm", 3, False, 2),
+])
+def test_mamba_and_xlstm_split_leaf_by_leaf(tag, m, channels, heads, monkeypatch):
+    """Under a 'model' group of m, Mamba's every ``m_*`` leaf splits on its
+    inner channels (``m_xproj`` and ``m_out`` by rows) where m divides Di,
+    and ``tp.channel_group`` of ``m_in`` says so; the mLSTM's ``x_up``,
+    ``x_q``/``x_k``/``x_v``, ``x_if`` and ``x_out`` where m divides Di (its
+    ``channel_group`` of ``x_up``),
+    the sLSTM whole. A rank's decode state holds its channels (Mamba) or
+    the heads it runs (the mLSTM: H/m where m divides H, else all H)."""
+    from repro_torch.models.ssm import init_mamba_state
+    from repro_torch.models.xlstm import init_mlstm_state
+    cfg = _cfg(tag)
+    mshape = MeshShape(("data", "model"), (1, m))
+    monkeypatch.setattr(tp, "get_mesh", lambda: mshape)
+    monkeypatch.setattr(tp, "model_group", lambda: tp.ModelGroup(None, m, 0))
+    dims = tp.split_dims(cfg, mshape)
+    kinds = layer_kinds(cfg)
+    Di = 2 * cfg.d_model
+    if tag == "jamba":
+        layer = kinds.index("mamba+mlp")
+        names = ("m_in", "m_conv", "m_xproj", "m_dt", "m_dtb", "m_alog", "m_d", "m_out")
+        assert (tp.channel_group("m_in", (cfg.d_model, 2, Di)) is not None) == channels
+        state = init_mamba_state(cfg, 2, "cpu")
+        assert state["ssm"].shape[1] == state["conv"].shape[2] == Di // (m if channels else 1)
+        prefix = f"blocks.{layer}.mamba."
+    else:
+        layer = kinds.index("mlstm")
+        names = ("x_up", "x_q", "x_k", "x_v", "x_if", "x_out")
+        assert (tp.channel_group("x_up", (cfg.d_model, 2, Di)) is not None) == channels
+        assert init_mlstm_state(cfg, 2, "cpu")["C"].shape[1] == heads
+        prefix = f"blocks.{layer}.mlstm."
+        slstm = kinds.index("slstm")
+        assert not any(n.startswith(f"blocks.{slstm}.") for n in dims)
+    for name in names:
+        assert (prefix + name in dims) == channels, name
+        if channels:
+            dim, whole = dims[prefix + name]
+            assert whole in (Di, Di // 4) and dim == (2 if name in ("m_in", "x_up") else
+                                                      1 if name in ("m_conv", "m_dt") else 0)
