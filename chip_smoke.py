@@ -234,8 +234,13 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      that differ from the one-rank forward's counted, and where any do, a
      forward pinned to the one-rank choices held instead), the greedy
      stream (tp.greedy; equal to the one-rank stream, or parting only at a
-     near-tie) and, where the run steps, one make_zero1_train_step (within
-     BF16_STEP_TOL of the one-rank step; xlstm's in fp32, AdamW's eps
+     near-tie) and, where the run steps, one make_zero1_train_step from a
+     state made in the rank's chunks (zero1_adamw_init; within
+     BF16_STEP_TOL of the one-rank step; qwen3's of TP_ACCUM microbatches,
+     after which it trains through a whole run: saved by both ranks to rank
+     0's log, stepped again, restored onto fresh split weights and stepped
+     again, bit for bit the straight step, its peak a rank below the whole
+     AdamW state's bytes; xlstm's in fp32, AdamW's eps
      STEP_EPS, its loss within STEP_TOL and its gradient held layer by
      layer: each block's gradients on its input in the one-rank forward and
      a seeded cotangent within TP_LAYER_GRAD_TOL of each tensor's largest,
@@ -330,7 +335,8 @@ KERNEL_CASES = [
     (1, 4, 2, 4097, 4097, 16, True, 0),        # Dh 16, long S
     (2, 4, 4, 65, 300, (24, 16), False, 0),    # padded MLA, non-causal Sq != Sk
     (2, 16, 4, 1024, 1024, 128, True, 0),      # phase 20: a rank's half of qwen3-8b's
-    (4, 16, 4, 32, 32, 128, True, 0),          # heads, MESH_STEP's batch and the prefill,
+    (1, 16, 4, 1024, 1024, 128, True, 0),      # heads, MESH_STEP's batch, a microbatch
+    (4, 16, 4, 32, 32, 128, True, 0),          # of its step and the prefill,
     (2, 8, 8, 1024, 1024, (192, 128), True, 0),   # and of deepseek-v2-lite-16b's MLA
     (4, 8, 8, 32, 32, (192, 128), True, 0),
     (2, 6, 6, 1500, 1500, 64, False, 0),       # whisper-small's 6 heads a rank: the
@@ -568,6 +574,15 @@ SMOKE_STEP = (2, 64)
 # greedy stream of TP_NEW tokens after TP_PROMPT's prompts; the ranks end
 # within TP_TIMEOUT seconds or fail the phase
 TP_WORLD = 2
+# qwen3-8b's split step takes TP_ACCUM microbatches (the one-rank reference
+# too), then trains through a whole run: saved to rank 0's log after the
+# step, a second step, and a restore onto fresh split objects whose second
+# step must be the straight one's bit for bit; its state is made in the
+# rank's chunks (zero1_adamw_init), so a rank's peak stays below the whole
+# AdamW state's bytes (TP_STATE_BYTES: m, v and master, 12 bytes a parameter)
+TP_ACCUM = 2
+TP_STATE_BYTES = 12
+TP_DIFF_BLOCK = 1 << 24    # elements a split step's check reads at a time
 # the models split, in turn, each at full width: qwen3-8b (attn+mlp);
 # deepseek-v2-lite-16b at 2 layers (its dense mla+mlp first layer and one
 # mla+moe), MLA's 16 heads and the 64 experts split over the ranks;
@@ -583,7 +598,8 @@ TP_WORLD = 2
 # padded q heads and 4 of 8 kv heads a rank, no step (its split step is the
 # attn+mlp step qwen3-8b's run holds, and two ranks' whole AdamW state,
 # ~34 GB each, leaves no room)
-TP_RUNS = ({"config": MESH_STEP["config"], "n_layers": MESH_STEP["n_layers"]},
+TP_RUNS = ({"config": MESH_STEP["config"], "n_layers": MESH_STEP["n_layers"], "accum": TP_ACCUM,
+            "resume": True},
            {"config": "deepseek-v2-lite-16b", "n_layers": 2},
            {"config": "xlstm-1.3b", "n_layers": 8, "dtype": "float32"},
            {"config": "jamba-1.5-large-398b", "n_layers": 2, "step": False},
@@ -3172,9 +3188,9 @@ def mesh_step() -> tuple:
     from repro_torch.distributed import distribute, param_shardings, use_mesh
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.train import (AdamWConfig, adamw_init, distribute_opt_state,
-                                   local_batch, make_train_step, make_zero1_train_step,
-                                   opt_state_shardings)
+    from repro_torch.train import (AdamWConfig, adamw_init, local_batch, make_train_step,
+                                   make_zero1_train_step, opt_state_shardings,
+                                   zero1_adamw_init)
     cfg = get_config(MESH_STEP["config"]).with_(n_layers=MESH_STEP["n_layers"])
     B, S = MESH_STEP["shape"]
     opt_cfg = AdamWConfig(lr=STEP_LR, weight_decay=0.01)
@@ -3205,7 +3221,7 @@ def mesh_step() -> tuple:
                 shared += d.to_local().data_ptr() == p.data_ptr()
             n = len(psh)
             osh = opt_state_shardings(cfg, model, mesh, opt_cfg)
-            state = distribute_opt_state(adamw_init(model, opt_cfg), osh, mesh)
+            state = zero1_adamw_init(cfg, model, opt_cfg, osh, mesh)
             step = make_zero1_train_step(cfg, opt_cfg, mesh, osh)
             flash_attention.launches = flash_attention.backward_launches = 0  # main path
             t0 = time.perf_counter()
@@ -3514,13 +3530,13 @@ def phase_smoke() -> tuple:
     return got
 
 
-def tp_batch(cfg, run: dict) -> dict:
+def tp_batch(cfg, run: dict, seed: int = 12) -> dict:
     """The run's batch (B, S) (MESH_STEP's unless it names a ``shape``),
     seeded: the same tokens in every process, and whisper's frames or
     llava's patch embeddings (``tp_extras``)."""
     B, S = run.get("shape", MESH_STEP["shape"])
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(12)
+    gen.manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:], **tp_extras(cfg, B, 13)}
 
@@ -3637,8 +3653,8 @@ def tp_reference(cfg, run: dict, out: Path) -> dict:
     logits within TP_FLOOR_FACTOR times the floor or PREFILL_TOL of the
     plain version's (the ranks' rule; else it raises); the greedy stream of
     ``tp_prompts`` (``greedy_stream``); where the run steps, one
-    ``make_train_step`` in the run's dtype (the (1, 1) ZeRO-1 step's numbers
-    bit for bit, by phase 16), and in fp32 each block's gradients on its
+    ``make_train_step`` in the run's dtype and microbatches (the (1, 1)
+    ZeRO-1 step's numbers bit for bit, by phase 16), and in fp32 each block's gradients on its
     input in the kernels' forward (``tp_layer_grads``). Written to ``out``
     for the ranks, the updated parameters and the gradients cut into each
     rank's slices; the card is freed after. Returns the one-rank times."""
@@ -3689,7 +3705,8 @@ def tp_reference(cfg, run: dict, out: Path) -> dict:
         model = init_params(cfg, seed=5, trainable=True)
         state = adamw_init(model, opt)
         t0 = time.perf_counter()
-        _, state, m = make_train_step(cfg, opt, grad_dtype=cfg.dtype)(model, state, batch)
+        _, state, m = make_train_step(cfg, opt, accum=run.get("accum", 1),
+                                      grad_dtype=cfg.dtype)(model, state, batch)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
@@ -3709,7 +3726,8 @@ def tp_reference(cfg, run: dict, out: Path) -> dict:
         f"{kvp['rel_rms']:.3e}, floor (plain with a sum split vs plain) max_abs "
         f"{floor['max_abs']:.3e} rel_rms {floor['rel_rms']:.3e}; greedy stream "
         f"{tuple(toks.shape)}; "
-        + (f"one step {step_s:.3f} s" if step_s is not None else "no step"))
+        + (f"one step of {run.get('accum', 1)} microbatches {step_s:.3f} s"
+           if step_s is not None else "no step"))
     return {"forward_ms": fwd_ms, "step_s": step_s}
 
 
@@ -3748,13 +3766,15 @@ def tp_flash_heads(cfg, world: int) -> list:
     return [(H, KH // world if KH % world == 0 else 1, Dh, Dh)]
 
 
-def tp_want(cfg, step: bool) -> dict:
+def tp_want(cfg, step: bool, accum: int = 1) -> dict:
     """Each kernel's launches (forward, backward) a rank makes on one model:
-    the forward, the stream's prefill, and with a step its forward twice
-    (remat full) and its backward, once a flash or mLSTM layer each."""
+    the forward, the stream's prefill, and with a step of ``accum``
+    microbatches each one's forward twice (remat full) and its backward,
+    once a flash or mLSTM layer each."""
     from repro_torch.models.lm import layer_kinds
     per = {"flash": flash_per_forward(cfg), "mlstm": layer_kinds(cfg).count("mlstm")}
-    return {k: ((4 if step else 2) * n, n if step else 0) for k, n in per.items()}
+    return {k: ((2 + 2 * accum if step else 2) * n, accum * n if step else 0)
+            for k, n in per.items()}
 
 
 def tp_counts(zero: bool = False) -> dict:
@@ -3785,8 +3805,10 @@ def made_in_turn(rank: int, world: int, make):
     return made
 
 
-def tp_step_diffs(cfg, mesh, rank: int, model, m: dict, ref_step: dict, want_p: dict) -> tuple:
-    """A rank's split step against the one-rank step's slices ``want_p``:
+def tp_step_diffs(cfg, mesh, rank: int, model, m: dict, ref_step: dict, want_p: dict,
+                  before: dict) -> tuple:
+    """A rank's split step against the one-rank step's slices ``want_p``
+    (``before``: the rank's parameters before the step, on the host):
     (the differences, the limits of those held, what else to report). bf16
     in BF16_STEP_TOL's terms (loss; relative grad norm; the share of each
     tensor's updates within lr / 2, at the worst tensor; the parameters'
@@ -3797,7 +3819,6 @@ def tp_step_diffs(cfg, mesh, rank: int, model, m: dict, ref_step: dict, want_p: 
     (``tp_layer_hold``, TP_LAYER_GRAD_TOL's note): the whole model's grad
     norm and parameters are printed, not held."""
     import torch.distributed as dist
-    from repro_torch import init_params
     from repro_torch.distributed import tp
     from repro_torch.launch.mesh import describe
     from repro_torch.train.step import BF16_STEP_TOL, STEP_TOL
@@ -3812,18 +3833,20 @@ def tp_step_diffs(cfg, mesh, rank: int, model, m: dict, ref_step: dict, want_p: 
         d.update(loss=abs(loss - ref_step["loss"]) / abs(ref_step["loss"]),
                  params=worst.item())
         return d, {"loss": STEP_TOL}, {}
-    old = tp.split_model(cfg, init_params(cfg, seed=5), mesh)
     split = tp.split_dims(cfg, describe(mesh))
     sums = torch.zeros(2, dtype=torch.float64, device="cuda")
     worst_agree = 1.0
-    for (name, p), (_, o) in zip(model.named_parameters(), old.named_parameters()):
-        w, p, o = want_p[name].cuda().float(), p.detach().float(), o.float()
-        agree = ((p - o) - (w - o)).abs().le(STEP_LR / 2).float().mean().item()
-        worst_agree = min(worst_agree, agree)
-        if name in split or rank == 0:
-            sums += torch.stack([(p - w).square().sum(), w.square().sum()]).double()
-        del w, p, o
-    del old
+    for name, p in model.named_parameters():     # a block of elements at a time
+        pf, wf, of = p.detach().reshape(-1), want_p[name].reshape(-1), before[name].reshape(-1)
+        agree = 0
+        for i in range(0, pf.numel(), TP_DIFF_BLOCK):
+            sl = slice(i, i + TP_DIFF_BLOCK)
+            w, q, o = wf[sl].cuda().float(), pf[sl].float(), of[sl].cuda().float()
+            agree += int(((q - o) - (w - o)).abs().le(STEP_LR / 2).sum())
+            if name in split or rank == 0:
+                sums += torch.stack([(q - w).square().sum(), w.square().sum()]).double()
+            del w, q, o
+        worst_agree = min(worst_agree, agree / pf.numel())
     dist.all_reduce(sums)
     st = BF16_STEP_TOL
     d.update(loss=abs(loss - ref_step["loss"]), update_disagree=1 - worst_agree,
@@ -3851,10 +3874,11 @@ def tp_model(rank: int, world: int, mesh, cfg, run: dict, out: Path) -> tuple:
     from repro_torch import forward, init_params
     from repro_torch.distributed import tp, use_mesh
     from repro_torch.launch.dryrun import param_bytes
-    from repro_torch.train import (adamw_init, distribute_opt_state, local_batch,
-                                   make_zero1_train_step, opt_state_shardings)
-    rep = {}
+    from repro_torch.train import (local_batch, make_zero1_train_step, opt_state_shardings,
+                                   zero1_adamw_init)
+    rep, stages = {}, {}
     stepping = run.get("step", True)
+    accum = run.get("accum", 1)
     batch = tp_batch(cfg, run)
     inputs = {k: x for k, x in batch.items() if k != "labels"}
     prompts = tp_prompts(cfg)
@@ -3900,22 +3924,29 @@ def tp_model(rank: int, world: int, mesh, cfg, run: dict, out: Path) -> tuple:
             toks, first = tp_stream(cfg, model, prompts, mg(cfg))
             torch.cuda.synchronize()
             stream_s = time.perf_counter() - t0
-        if stepping:
-            whole_model = init_params(cfg, seed=5, trainable=True)
+        if stepping:            # the state made in the rank's chunks, never whole
+            if run.get("resume"):   # the forward's model is read no more (no MoE, bf16)
+                model = None
+                torch.cuda.empty_cache()
+                stage_peak(stages, "forward and stream")
             opt = tp_opt(cfg)
-            osh = opt_state_shardings(cfg, whole_model, mesh, opt)
-            state = distribute_opt_state(adamw_init(whole_model, opt), osh, mesh)
-            step_model = tp.split_model(cfg, whole_model, mesh)
-            del whole_model
-            step = make_zero1_train_step(cfg, opt, mesh, osh, grad_dtype=cfg.dtype)
+            osh = opt_state_shardings(cfg, init_params(cfg, None, device="meta"), mesh, opt)
+            step_model = tp.split_model(cfg, init_params(cfg, seed=5, trainable=True), mesh)
+            state = zero1_adamw_init(cfg, step_model, opt, osh, mesh)
+            before = {n: p.detach().cpu() for n, p in step_model.named_parameters()}
+            step = make_zero1_train_step(cfg, opt, mesh, osh, grad_dtype=cfg.dtype,
+                                         accum=accum)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, state, m = step(step_model, state, local_batch(batch, mesh))
+            step_model, state, m = step(step_model, state, local_batch(batch, mesh, accum))
             torch.cuda.synchronize()
             step_s = time.perf_counter() - t0
-            del state, step
+            if not run.get("resume"):
+                del state, step
+            else:
+                stage_peak(stages, "state and step")
         got = tp_counts()                                        # ... ends
-        peak = torch.cuda.max_memory_allocated()
+        peak = max([torch.cuda.max_memory_allocated(), *stages.values()])
         torch.cuda.empty_cache()
         n_flips = flips(routes, [r.cuda() for r in ref["routes"]])
         n_routed = sum(r.numel() // r.shape[-1] for r in routes)
@@ -3933,7 +3964,7 @@ def tp_model(rank: int, world: int, mesh, cfg, run: dict, out: Path) -> tuple:
         with use_mesh(mesh):
             layers = tp_layer_hold(cfg, model, out, rank)
     del model
-    want = tp_want(cfg, stepping)
+    want = tp_want(cfg, stepping, accum)
     floor = ref["floor"]
     tol = PREFILL_TOL[getattr(torch, cfg.dtype)]
     logits_ok = all(d[key] <= max(TP_FLOOR_FACTOR * floor[key], tol[key]) for key in tol)
@@ -3955,9 +3986,18 @@ def tp_model(rank: int, world: int, mesh, cfg, run: dict, out: Path) -> tuple:
     if stepping:
         ref_step = json.loads((out / "step.json").read_text())
         d_step, limit, extra = tp_step_diffs(cfg, mesh, rank, step_model, m, ref_step,
-                                             torch.load(out / f"step{rank}.pt"))
-        del step_model
+                                             torch.load(out / f"step{rank}.pt"), before)
+        del before
+        if run.get("resume"):                        # outside the main path
+            stage_peak(stages, "the step's check")
+            held = {"model": step_model, "state": state}
+            del step_model, state
+            rep["resume"] = tp_resume(cfg, mesh, run, held, step, stages)
+            rep["resume"]["peaks"] = stages
+        else:
+            del step_model
         torch.cuda.empty_cache()
+        peak = max([peak, torch.cuda.max_memory_allocated(), *stages.values()])
         if layers is not None:
             d_step["layer_grads"], limit["layer_grads"] = max(layers["split"]), TP_LAYER_GRAD_TOL
             extra["layers"] = layers
@@ -3993,7 +4033,110 @@ def tp_model(rank: int, world: int, mesh, cfg, run: dict, out: Path) -> tuple:
         bad.append(f"logits {d} against the floor {floor}")
     if not step_ok:
         bad.append(f"step {rep['step']}")
+    if "resume" in rep:
+        if not rep["resume"]["exact"]:
+            bad.append(f"the resumed step is not the straight one: {rep['resume']}")
+        if peak >= rep["resume"]["state_bytes"]:
+            bad.append(f"peak {peak} B reaches the whole AdamW state's "
+                       f"{rep['resume']['state_bytes']} B: the state was made whole")
     return rep, [f"{cfg.name}: {b}" for b in bad]
+
+
+def stage_peak(stages: dict, name: str) -> None:
+    """Book the card's peak since the last mark to ``stages[name]`` and
+    start counting anew."""
+    torch.cuda.synchronize()
+    stages[name] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def tp_resume(cfg, mesh, run: dict, held: dict, step, stages: dict) -> dict:
+    """A split model's whole run past its first step (outside the main
+    path): ``held``'s model and its ZeRO-1 state (taken out of ``held``, so
+    that they can be freed) saved by every rank to rank
+    0's log (each leaf gathered whole, rank 0 writing the reference's
+    record), a second step on another seeded batch, that step's parameters
+    and state chunks copied to the host and freed from the card; then fresh
+    split weights, a restore of the record onto the mesh (rank 0 reading and
+    broadcasting a tensor at a time, each rank keeping its part) and the
+    same second step, which must equal the straight one bit for bit (loss,
+    grad norm, every parameter slice and state chunk). Both second steps
+    run under ``torch.use_deterministic_algorithms``, as phase 9d's resume.
+    Returns the record's bytes and leaves, the save's and the restore's
+    seconds, whether the resumed step is exact, and the whole AdamW state's
+    bytes (a rank's peak must stay below them). Each part's peak is booked
+    to ``stages``."""
+    from repro_torch import init_params
+    from repro_torch.core import BoltSystem
+    from repro_torch.distributed import tp
+    from repro_torch.train import CheckpointManager, local_batch
+    accum = run.get("accum", 1)
+    rows = local_batch(tp_batch(cfg, run, seed=15), mesh, accum)
+    n_params = sum(p.numel() for p in init_params(cfg, None, device="meta").parameters())
+    ckpt = CheckpointManager(BoltSystem(n_brokers=2), keep=0)   # the other ranks' go unused
+    model, state = held.pop("model"), held.pop("state")
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(1, model, state, extra={"mesh": list(mesh.mesh.shape)}, cfg=cfg, mesh=mesh)
+        save_s = time.perf_counter() - t0
+        stage_peak(stages, "save")
+        record = None
+        if ckpt.steps():                                          # rank 0's log
+            rec = ckpt._replay()[1]
+            record = {"leaves": len(rec["spans"]), "chunks": rec["spans"][-1][1],
+                      "chunk_bytes": ckpt.chunk_bytes}
+        model, state, m = step(model, state, rows)
+        straight = ({n: p.detach().cpu() for n, p in model.named_parameters()},
+                    {k: {n: d.to_local().cpu() for n, d in state[k].items()}
+                     for k in ("m", "v", "master")})
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        del model, state, m
+        torch.cuda.empty_cache()
+        stage_peak(stages, "second step")
+        fresh = tp.split_model(cfg, init_params(cfg, seed=6, trainable=True), mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        at, params, restored, extra = ckpt.restore(cfg=cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        with torch.no_grad():
+            for n, p in fresh.named_parameters():
+                p.copy_(params.pop(n))
+        stage_peak(stages, "restore")
+        fresh, restored, rm = step(fresh, restored, rows)
+        stage_peak(stages, "resumed step")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    differ = [n for n, p in fresh.named_parameters() if not torch.equal(p.cpu(), straight[0][n])]
+    for k, chunks in straight[1].items():
+        differ += [f"{k} {n}" for n, t in chunks.items()
+                   if not torch.equal(restored[k][n].to_local().cpu(), t)]
+    exact = (at == 1 and extra == {"mesh": list(mesh.mesh.shape)} and not differ
+             and float(rm["loss"]) == loss and float(rm["grad_norm"]) == gnorm)
+    del fresh, restored, straight
+    torch.cuda.empty_cache()
+    return {"exact": exact, "differ": differ[:8], "loss": [loss, float(rm["loss"])],
+            "grad_norm": [gnorm, float(rm["grad_norm"])], "record": record,
+            "seconds": {"save": save_s, "restore": restore_s}, "params": n_params,
+            "state_bytes": TP_STATE_BYTES * n_params}
+
+
+def tp_storage_probe(mesh) -> dict:
+    """What a chunk of ``distribute_opt_state`` holds on this torch: a whole
+    fp32 (4096, 1024) tensor laid out over 'model' on dim 0 and on dim 1
+    (``distribute``), each chunk's bytes against its storage's bytes."""
+    from repro_torch.distributed import distribute
+    from repro_torch.distributed.context import P
+    from repro_torch.distributed.sharding import Sharding
+    out = {}
+    for dim, spec in ((0, P("model", None)), (1, P(None, "model"))):
+        local = distribute(torch.zeros(4096, 1024, device="cuda"), Sharding(spec),
+                           mesh).to_local()
+        out[f"dim {dim}"] = [local.numel() * local.element_size(),
+                             local.untyped_storage().nbytes()]
+    return out
 
 
 def tp_rank(rank: int, world: int, out: Path) -> int:
@@ -4020,6 +4163,7 @@ def tp_rank(rank: int, world: int, out: Path) -> int:
                         f"floats summed right over {world} ranks (torch {torch.__version__})"}
     del probe
     mesh = make_mesh((1, world), ("data", "model"))
+    rep["storage"] = tp_storage_probe(mesh)
     bad = []
     for run in TP_RUNS:
         cfg = tp_config(run)
@@ -4091,6 +4235,9 @@ def phase_tp() -> dict:
     t0 = time.perf_counter()
     reports = run_tp_ranks(out)
     ranks_s = time.perf_counter() - t0
+    say(f"[tp] distribute_opt_state's chunks on torch {torch.__version__} (rank 0, bytes, "
+        f"storage bytes): {reports[0]['storage']} of a whole fp32 (4096, 1024) split over "
+        f"'model' by {TP_WORLD}")
     paths = {}
     for run in TP_RUNS:
         cfg = tp_config(run)
@@ -4144,7 +4291,8 @@ def phase_tp() -> dict:
                 f"{rep['peak'] / 2 ** 30:.2f} GiB; forward {sec['forward']:.3f} s, stream "
                 f"{sec['stream']:.3f} s"
                 + (f", step {sec['step']:.3f} s" if sec["step"] is not None else "")
-                + " (two ranks share one card: no measure of a split's speed)")
+                + " (two ranks share one card: no measure of a split's speed)"
+                + ("" if "resume" not in rep else tp_resume_line(rep)))
         got = {k: tuple(sum(rep[cfg.name]["launches"][k][i] for rep in reports)
                         for i in (0, 1)) for k in ("flash", "mlstm")}
         paths[f"{cfg.name} split over 'model' by {TP_WORLD} gloo ranks on one card"] = got
@@ -4159,6 +4307,25 @@ def phase_tp() -> dict:
     shutil.rmtree(out, ignore_errors=True)
     say(f"[tp] phase 20 {time.perf_counter() - t_phase:.1f} s: the ranks {ranks_s:.1f} s")
     return paths
+
+
+def tp_resume_line(rep: dict) -> str:
+    """The resume's part of a rank's line in phase 20."""
+    res = rep["resume"]
+    rec = res["record"]
+    return (f"; resumed ({TP_ACCUM} microbatches a step): saved in {res['seconds']['save']:.1f} s"
+            + ("" if rec is None else
+               f" (rank 0's record: {rec['leaves']} leaves in {rec['chunks']} chunks of at most "
+               f"{rec['chunk_bytes']} B; reckoned {res['params'] * 14 / 1e9:.2f} GB, bf16 "
+               "parameters and fp32 m, v and master)")
+            + f", restored onto fresh split weights in {res['seconds']['restore']:.1f} s, the "
+            f"second step loss {res['loss'][1]:.6f} / {res['loss'][0]:.6f} straight, grad norm "
+            f"{res['grad_norm'][1]:.6f} / {res['grad_norm'][0]:.6f}: "
+            + ("bit for bit the straight step" if res["exact"] else
+               f"NOT the straight step ({res['differ']})")
+            + f"; peak {rep['peak'] / 2 ** 30:.2f} GiB against the whole AdamW state's "
+            f"{res['state_bytes'] / 2 ** 30:.2f} GiB (by part: "
+            + ", ".join(f"{k} {v / 2 ** 30:.2f}" for k, v in res["peaks"].items()) + " GiB)")
 
 
 def serve_timing(repeats: int) -> None:

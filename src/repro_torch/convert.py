@@ -37,7 +37,10 @@ int leaf's ``numpy()``, or a bf16 leaf's ``uint16`` view, is the reference's
 array bit for bit, and ``params_from_jax``, ``opt_state_from_jax`` and the
 checkpoint writer take them as they are. With ``lazy=True`` each leaf is
 instead a zero-argument callable that makes it when called, so the
-checkpoint writer holds one stacked leaf on the host at a time.
+checkpoint writer holds one stacked leaf on the host at a time. A ZeRO-1
+state's DTensor leaves, and a model split over 'model' (``params_to_jax(mesh=)``),
+are gathered whole leaf by leaf (``tp.gather_to_host``), a collective every
+rank makes alike. ``jax_tree`` builds the reference's layout of any leaf.
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from .distributed import tp
 from .models.config import ModelConfig
 from .models.lm import LM, init_params
 
@@ -139,17 +144,10 @@ def opt_state_from_jax(cfg: ModelConfig, model: LM, state: Mapping[str, Any]) ->
     return out
 
 
-def _to_tree(cfg: ModelConfig, model: LM, get, lazy: bool) -> Dict[str, Any]:
-    """The reference's params layout of ``model``, each leaf ``get(name)``
-    of the port's parameter name on the host, a pattern entry's layers
-    stacked; with ``lazy``, each leaf a callable that makes it."""
-    def leaf(names):
-        def make() -> torch.Tensor:
-            if isinstance(names, str):
-                return get(names).detach().cpu()
-            return torch.stack([get(name).detach().cpu() for name in names])
-        return make if lazy else make()
-
+def jax_tree(cfg: ModelConfig, model: LM, leaf) -> Dict[str, Any]:
+    """The reference's params layout of ``model``: each leaf ``leaf(names)``
+    of the port's parameter name, or of the list of names whose layers the
+    reference stacks in it (a pattern entry's layers, in order)."""
     def block(prefixes, blk) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
         for name, _ in blk.named_parameters():
@@ -187,12 +185,28 @@ def _to_tree(cfg: ModelConfig, model: LM, get, lazy: bool) -> Dict[str, Any]:
     return tree
 
 
-def params_to_jax(cfg: ModelConfig, model: LM, lazy: bool = False) -> Dict[str, Any]:
+def _host_leaf(get, lazy: bool):
+    """``leaf(names)`` for ``jax_tree``: ``get(name)`` on the host (a DTensor
+    gathered from its chunks, ``tp.host_leaf``), a pattern entry's layers
+    stacked; with ``lazy``, a callable that makes it."""
+    def leaf(names):
+        def make() -> torch.Tensor:
+            if isinstance(names, str):
+                return tp.host_leaf(get(names))
+            return torch.stack([tp.host_leaf(get(name)) for name in names])
+        return make if lazy else make()
+    return leaf
+
+
+def params_to_jax(cfg: ModelConfig, model: LM, lazy: bool = False,
+                  mesh=None) -> Dict[str, Any]:
     """``model``'s parameters in the layout of ``repro.models.lm.init_params``
     (CPU tensors, or with ``lazy`` callables that make them): the inverse
-    of ``params_from_jax``."""
-    names = dict(model.named_parameters())
-    return _to_tree(cfg, model, names.__getitem__, lazy)
+    of ``params_from_jax``. A model split over 'model' on ``mesh`` (default
+    the ambient mesh) is this rank's part: each split leaf is gathered
+    whole from the ranks' slices (``tp.host_params``), a collective that
+    every rank makes alike, leaf by leaf."""
+    return jax_tree(cfg, model, _host_leaf(tp.host_params(cfg, model, mesh), lazy))
 
 
 def opt_state_to_jax(cfg: ModelConfig, model: LM, state: Mapping[str, Any],
@@ -200,8 +214,12 @@ def opt_state_to_jax(cfg: ModelConfig, model: LM, state: Mapping[str, Any],
     """The port's AdamW state in the layout of the reference's
     ``adamw_init``: ``m``, ``v`` and (where the state has it) ``master``
     shaped like ``params_to_jax`` (``lazy`` as there), ``step`` an int32
-    scalar. The inverse of ``opt_state_from_jax``."""
-    out: Dict[str, Any] = {key: _to_tree(cfg, model, state[key].__getitem__, lazy)
+    scalar. The inverse of ``opt_state_from_jax``. A ZeRO-1 state's
+    DTensor leaves are gathered whole from their chunks (``tp.host_leaf``),
+    as the reference writes a sharded array gathered."""
+    out: Dict[str, Any] = {key: jax_tree(cfg, model, _host_leaf(state[key].__getitem__, lazy))
                            for key in ("m", "v", "master") if key in state}
-    out["step"] = torch.tensor(int(state["step"]), dtype=torch.int32)
+    step = state["step"]
+    step = step.to_local() if isinstance(step, DTensor) else step
+    out["step"] = torch.tensor(int(step), dtype=torch.int32)
     return out

@@ -238,11 +238,59 @@ def submesh(mesh: DeviceMesh, axis: str, coord: int) -> DeviceMesh:
     return _SUBMESHES[key][coord]
 
 
+def layout(sharding: Sharding, mesh: DeviceMesh) -> Tuple[DeviceMesh, List]:
+    """The mesh a tensor laid out by ``sharding`` lives on (the submesh of
+    its owner coordinate where it has a ``stack`` axis) and its placements."""
+    if sharding.stack is not None:
+        mesh = submesh(mesh, sharding.stack, sharding.owner(mesh))
+    return mesh, placements(sharding.spec, mesh)
+
+
 def distribute(t: torch.Tensor, sharding: Sharding, mesh: DeviceMesh) -> DTensor:
     """``t``, the same whole tensor on every rank, as a DTensor laid out by
     ``sharding``: each rank keeps its own chunk, with no communication. A
     layer with a ``stack`` axis is a DTensor on the submesh of its owner
     coordinate; other ranks hold an empty local tensor."""
-    if sharding.stack is not None:
-        mesh = submesh(mesh, sharding.stack, sharding.owner(mesh))
-    return distribute_tensor(t, mesh, placements(sharding.spec, mesh), src_data_rank=None)
+    mesh, places = layout(sharding, mesh)
+    return distribute_tensor(t, mesh, places, src_data_rank=None)
+
+
+Box = Tuple[Tuple[int, ...], Tuple[int, ...]]
+
+
+def chunk_box(shape: Tuple[int, ...], mesh: DeviceMesh, places, coord) -> Box:
+    """``(offsets, sizes)`` of the chunk at coordinate ``coord`` of ``mesh``
+    of a tensor of whole ``shape`` laid out by DTensor ``places``: a dim
+    split over several mesh dims is split by the outer one first, as
+    DTensor splits it. Every split is even (the rules split a dim only
+    where the axis divides it)."""
+    offs, sizes = [0] * len(shape), list(shape)
+    for k, pl in enumerate(places):
+        if isinstance(pl, Shard):
+            n = mesh.size(k)
+            assert sizes[pl.dim] % n == 0, (shape, places)
+            sizes[pl.dim] //= n
+            offs[pl.dim] += coord[k] * sizes[pl.dim]
+    return tuple(offs), tuple(sizes)
+
+
+def box_index(box: Box) -> Tuple[slice, ...]:
+    return tuple(slice(o, o + n) for o, n in zip(*box))
+
+
+def from_chunk(make, sharding: Sharding, mesh: DeviceMesh, shape: Tuple[int, ...],
+               dtype: torch.dtype, device) -> DTensor:
+    """A DTensor of whole ``shape`` laid out by ``sharding`` whose local
+    tensor is ``make(box)``, this rank's chunk (``chunk_box``), made by
+    this rank alone with no communication and no whole tensor. A rank that
+    holds none (a layer given to another coordinate of its stack axis)
+    holds an empty tensor, as ``distribute`` leaves it."""
+    mesh, places = layout(sharding, mesh)
+    coord = mesh.get_coordinate()
+    local = (torch.empty(0, dtype=dtype, device=device) if coord is None
+             else make(chunk_box(shape, mesh, places, coord)))
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(local, mesh, places, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))

@@ -34,7 +34,9 @@ on plain local tensors and four autograd functions:
 
 The only collectives on the 'model' group are ``all_reduce`` and
 ``broadcast``, so one program runs on NCCL across cards and on gloo ranks
-sharing one card. Sums cross ranks in fp32.
+sharing one card. Sums cross ranks in fp32. A checkpoint gathers a split
+leaf, or a ZeRO-1 chunk, by ``broadcast`` alone (``gather_to_host``: each
+distinct chunk from the first rank that holds it), which keeps its bits.
 
 A dim splits leaf by leaf, exactly as the rules decide it: only where
 'model' divides it. So a split can be mixed. Where ``wq`` splits and
@@ -78,17 +80,19 @@ process group and runs no split.
 from __future__ import annotations
 
 import functools
+import itertools
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..launch.mesh import Mesh, MeshShape, describe
 from ..models.config import ModelConfig
 from .context import get_mesh
-from .sharding import _spec_for, param_shardings
+from .sharding import _spec_for, box_index, chunk_box, param_shardings
 
 ROADMAP_ITEM = "ROADMAP item 7d"
 
@@ -396,6 +400,70 @@ def split_model(cfg: ModelConfig, model: torch.nn.Module,
         p.data = p.data.chunk(mg.size, dim)[mg.rank].clone(
             memory_format=torch.contiguous_format)
     return model
+
+
+def _model_places(mesh: DeviceMesh, dim: int) -> list:
+    """DTensor placements of a leaf split over 'model' on ``dim``."""
+    return [Shard(dim) if n == "model" else Replicate() for n in mesh.mesh_dim_names]
+
+
+@torch.no_grad()
+def gather_to_host(local: torch.Tensor, mesh: DeviceMesh, places, shape) -> torch.Tensor:
+    """The whole tensor of ``shape`` on the host, on every rank, from the
+    chunks that ``mesh``'s ranks hold of it laid out by DTensor ``places``
+    (``local``, this rank's; empty on a rank outside ``mesh``). Each
+    distinct chunk is broadcast over the default group from the first rank
+    that holds it, so every rank of the process group calls this alike; a
+    tensor every rank holds whole is copied, with no communication. The
+    bits are the chunks' own (no sum), and a rank's device holds one
+    chunk beyond its own at a time."""
+    shape = tuple(shape)
+    grid = mesh.mesh
+    chunks: Dict[tuple, int] = {}
+    for coord in itertools.product(*map(range, grid.shape)):
+        chunks.setdefault(chunk_box(shape, mesh, places, coord), int(grid[coord]))
+    whole = ((0,) * len(shape), shape)
+    if list(chunks) == [whole] and grid.numel() == dist.get_world_size():
+        return local.detach().cpu()
+    out = torch.empty(shape, dtype=local.dtype)
+    me = dist.get_rank()
+    for box, src in chunks.items():
+        buf = (local.detach().contiguous() if src == me else
+               torch.empty(box[1], dtype=local.dtype, device=local.device))
+        dist.broadcast(buf, src=src)
+        out[box_index(box)].copy_(buf)
+        del buf
+    return out
+
+
+def host_leaf(t: torch.Tensor) -> torch.Tensor:
+    """A tensor of the model or its state as the whole leaf on the host: a
+    DTensor gathered from its chunks (``gather_to_host``, a collective), a
+    plain tensor copied."""
+    if isinstance(t, DTensor):
+        return gather_to_host(t.to_local(), t.device_mesh, t.placements, t.shape)
+    return t.detach().cpu()
+
+
+def host_params(cfg: ModelConfig, model: torch.nn.Module, mesh: Optional[DeviceMesh] = None):
+    """``name -> the whole parameter on the host`` of ``model``, this rank's
+    part on ``mesh`` (default the ambient mesh): a leaf split over 'model'
+    gathered from the ranks' slices (``gather_to_host``; every rank asks
+    for the same leaves in the same order), any other copied."""
+    mesh = get_mesh() if mesh is None else mesh
+    params = dict(model.named_parameters())
+    if model_group(mesh) is None:
+        return lambda name: params[name].detach().cpu()
+    dims = split_dims(cfg, describe(mesh))
+
+    def whole(name: str) -> torch.Tensor:
+        p = params[name]
+        if name not in dims:
+            return p.detach().cpu()
+        dim, n = dims[name]
+        shape = p.shape[:dim] + (n,) + p.shape[dim + 1:]
+        return gather_to_host(p, mesh, _model_places(mesh, dim), shape)
+    return whole
 
 
 @torch.no_grad()

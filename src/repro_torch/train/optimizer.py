@@ -12,8 +12,9 @@ under ``no_grad`` (it holds no second copy of an 8 B-parameter state).
 ZeRO-1 (``src/repro/train/optimizer.py:84-96``): ``opt_state_shardings``
 lays ``m``, ``v`` and ``master`` out by each parameter's spec extended over
 'data' and 'pod' (``zero_extend``), ``step`` replicated;
-``distribute_opt_state`` makes the state DTensors of that layout and
-``zero1_adamw_update`` updates each rank's chunk and gathers the new
+``zero1_adamw_init`` makes the state DTensors of that layout, each rank
+allocating only its own chunks (``distribute_opt_state`` lays out a state
+already made whole), and ``zero1_adamw_update`` updates each rank's chunk and gathers the new
 parameters onto every rank, with ``adamw_update``'s arithmetic: whole, or
 under tensor parallelism (``distributed/tp.py``) each rank's slice of them.
 """
@@ -31,8 +32,9 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..distributed import tp
 from ..distributed.context import P
-from ..distributed.sharding import Sharding, _axes_of, distribute, param_shardings
-from ..launch.mesh import Mesh
+from ..distributed.sharding import (Sharding, _axes_of, distribute, from_chunk,
+                                    param_shardings)
+from ..launch.mesh import Mesh, describe
 from ..models.config import ModelConfig
 
 
@@ -97,6 +99,30 @@ def _leaf(g, m, v, w, scale, bc1, bc2, cfg: AdamWConfig):
     return w32 - cfg.lr * (u + cfg.weight_decay * w32), m32, v32
 
 
+# The elements of a tensor whose fp32 temporaries an update holds at a time:
+# _leaf's arithmetic is elementwise, so updating a tensor in blocks changes no
+# bit, and its temporaries (about seven fp32 copies) stay 0.5 GiB, not seven
+# times the largest chunk (1.24 GB for a rank's half of qwen3-8b's embedding)
+_BLOCK = 1 << 24
+
+
+def _update(g, m, v, w, outs, scale, bc1, bc2, cfg: AdamWConfig) -> None:
+    """One tensor's update in place, ``_BLOCK`` elements at a time: ``m``
+    and ``v`` take the new moments and each of ``outs`` the new weights,
+    each rounded to its own dtype (``w``, the weights read, may be one of
+    them). ``m``, ``v`` and ``outs`` are contiguous."""
+    gf, wf = g.reshape(-1), w.reshape(-1)
+    mf, vf, of = m.view(-1), v.view(-1), [o.view(-1) for o in outs]
+    for i in range(0, mf.numel(), _BLOCK):
+        sl = slice(i, i + _BLOCK)
+        w32, m32, v32 = _leaf(gf[sl], mf[sl], vf[sl], wf[sl], scale, bc1, bc2, cfg)
+        mf[sl].copy_(m32)
+        vf[sl].copy_(v32)
+        for o in of:
+            o[sl].copy_(w32)
+        del w32, m32, v32
+
+
 @torch.no_grad()
 def adamw_update(model: nn.Module, grads: Mapping[str, torch.Tensor], state: Dict,
                  cfg: AdamWConfig) -> Tuple[nn.Module, Dict, torch.Tensor]:
@@ -107,17 +133,10 @@ def adamw_update(model: nn.Module, grads: Mapping[str, torch.Tensor], state: Dic
     params = dict(model.named_parameters())
     step = state["step"] + 1
     gnorm, scale, bc1, bc2 = _scalars(grads.values(), step, cfg)
-    mdt = getattr(torch, cfg.moments_dtype)
-    masters = state.get("master", params)
-    for name, p in params.items():
-        w32, m32, v32 = _leaf(grads[name], state["m"][name], state["v"][name],
-                              masters[name], scale, bc1, bc2, cfg)
-        p.copy_(w32)                                  # rounds to the param dtype
-        state["m"][name].copy_(m32.to(mdt))
-        state["v"][name].copy_(v32.to(mdt))
-        if "master" in state:
-            state["master"][name].copy_(w32)
-        del w32, m32, v32          # one tensor's fp32 temporaries live at a time
+    for name, p in params.items():          # p rounds to the param dtype
+        w = state["master"][name] if "master" in state else p
+        _update(grads[name], state["m"][name], state["v"][name], w,
+                [p] if w is p else [p, w], scale, bc1, bc2, cfg)
     state["step"] = step
     return model, state, gnorm
 
@@ -145,6 +164,47 @@ def distribute_opt_state(state: Dict, shardings: Dict, mesh: DeviceMesh) -> Dict
             out[key] = {n: distribute(t, shardings[key][n], mesh)
                         for n, t in state[key].items()}
     return out
+
+
+@torch.no_grad()
+def zero1_adamw_init(model_cfg: ModelConfig, model: nn.Module, cfg: AdamWConfig,
+                     shardings: Dict, mesh: DeviceMesh) -> Dict:
+    """``distribute_opt_state(adamw_init(...))``'s DTensors, equal bit for
+    bit, each rank allocating only its own chunks: ``m`` and ``v`` zeros in
+    ``cfg.moments_dtype``, ``master`` the fp32 chunk of the parameter,
+    ``step`` replicated, laid out by ``shardings`` (``opt_state_shardings``
+    of the whole model, or of ``init_params(cfg, None, device="meta")``).
+    ``model`` is whole, or this rank's part (``tp.split_model``), whose
+    split leaves hold the rank's 'model' slice of each chunk. A rank that
+    holds no chunk of a layer (one given to another coordinate of its stack
+    axis) holds an empty tensor, as ``distribute_opt_state`` leaves it."""
+    mdt = getattr(torch, cfg.moments_dtype)
+    mg = tp.model_group(mesh)
+    dims = tp.split_dims(model_cfg, describe(mesh)) if mg is not None else {}
+    state: Dict = {key: {} for key in ("m", "v", "master") if key in shardings}
+    device = None
+    for name, p in model.named_parameters():
+        device = p.device
+        shape = tuple(p.shape)
+        at = [0] * p.ndim                  # where the rank's part starts in the whole leaf
+        if name in dims and p.shape[dims[name][0]] != dims[name][1]:
+            dim, whole = dims[name]
+            shape = shape[:dim] + (whole,) + shape[dim + 1:]
+            at[dim] = mg.rank * p.shape[dim]
+
+        def master(box, p=p, at=at):
+            idx = tuple(slice(o - a, o - a + n) for o, a, n in zip(box[0], at, box[1]))
+            return p.detach()[idx].to(torch.float32, memory_format=torch.contiguous_format,
+                                      copy=True)
+
+        for key in state:
+            make = master if key == "master" else (
+                lambda box: torch.zeros(box[1], dtype=mdt, device=p.device))
+            state[key][name] = from_chunk(make, shardings[key][name], mesh, shape,
+                                          torch.float32 if key == "master" else mdt, p.device)
+    state["step"] = distribute(torch.zeros((), dtype=torch.int32, device=device),
+                               shardings["step"], mesh)
+    return state
 
 
 def _zero_layout(like: DTensor) -> Tuple[Optional[DeviceMesh], Tuple]:
@@ -189,7 +249,6 @@ def zero1_adamw_update(model: nn.Module, grads: Mapping[str, torch.Tensor],
     mg = tp.model_group(mesh)
     split = [any("model" in _axes_of(a) for a in shardings["m"][n].spec) for n in grads]
     gnorm, scale, bc1, bc2 = _scalars(grads.values(), step, cfg, mg, split)
-    mdt = getattr(torch, cfg.moments_dtype)
     for name, p in params.items():
         m = state["m"][name]
         held = m.device_mesh
@@ -197,18 +256,15 @@ def zero1_adamw_update(model: nn.Module, grads: Mapping[str, torch.Tensor],
             zmesh, zplace = _zero_layout(m)
             w = (state["master"][name].to_local() if "master" in state
                  else _chunk(p, zmesh, zplace))
-            w32, m32, v32 = _leaf(_chunk(grads[name], zmesh, zplace), m.to_local(),
-                                  state["v"][name].to_local(), w, scale, bc1, bc2, cfg)
-            m.to_local().copy_(m32.to(mdt))
-            state["v"][name].to_local().copy_(v32.to(mdt))
-            if "master" in state:
-                state["master"][name].to_local().copy_(w32)
-            if zmesh is None or zmesh.size() == 1:
-                p.copy_(w32)                          # rounds to the param dtype
-            else:
-                p.copy_(DTensor.from_local(w32.to(p.dtype), zmesh, zplace,
-                                           shape=p.shape, stride=p.stride()).full_tensor())
-            del w32, m32, v32      # one tensor's fp32 temporaries live at a time
+            gather = not (zmesh is None or zmesh.size() == 1)
+            # the new chunk of p (rounded to its dtype): p itself, or gathered after
+            wp = torch.empty(w.shape, dtype=p.dtype, device=p.device) if gather else p
+            _update(_chunk(grads[name], zmesh, zplace), m.to_local(),
+                    state["v"][name].to_local(), w, [w, wp], scale, bc1, bc2, cfg)
+            if gather:
+                p.copy_(DTensor.from_local(wp, zmesh, zplace, shape=p.shape,
+                                           stride=p.stride()).full_tensor())
+            del wp
         sh = shardings["m"][name]
         if sh.stack is not None and mesh.size() > 1:
             dist.broadcast(p, group=mesh.get_group(sh.stack), group_src=sh.owner(mesh))

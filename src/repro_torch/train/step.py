@@ -6,7 +6,7 @@ autograd (on the card the attention and mLSTM gradients are their backward
 kernels), added to an accumulator in ``grad_dtype``, and the sum is scaled
 by ``1 / accum`` in that dtype before ``adamw_update``. Activation memory is
 one microbatch's, as the reference's ``lax.scan`` keeps it.
-``make_zero1_train_step`` is the same step in one microbatch under a mesh,
+``make_zero1_train_step`` is the same step under a mesh,
 data parallel with the optimizer state sharded (ZeRO-1), and tensor
 parallel over the mesh's 'model' axis (``distributed/tp.py``).
 """
@@ -85,23 +85,36 @@ def data_parallel_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
 
 
-def local_batch(batch: Dict[str, torch.Tensor], mesh: DeviceMesh) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global ``batch``: split over 'pod' and 'data'
-    (major to minor), whole along 'model'."""
+def local_batch(batch: Dict[str, torch.Tensor], mesh: DeviceMesh,
+                accum: int = 1) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global ``batch`` of ``accum`` microbatches, the
+    reference's ``split_batch`` (``src/repro/train/step.py:25-30``): the
+    batch cut into ``accum`` microbatches of b / accum rows, each split over
+    'pod' and 'data' (major to minor), whole along 'model'. Data rank r of
+    n holds rows i b / accum + r b / (accum n) on to the next rank's of
+    microbatch i, the microbatches in order, so that ``_grads``' cut of the
+    rank's b / n rows into ``accum`` gives each microbatch's own rows."""
     n, i = 1, 0
     for a in data_parallel_axes(mesh):
         size = mesh.size(mesh.mesh_dim_names.index(a))
         n, i = n * size, i * size + mesh.get_local_rank(a)
-    return {key: x.chunk(n)[i] for key, x in batch.items()} if n > 1 else batch
+    if n == 1:
+        return batch
+    return {key: x.reshape((accum, n, x.shape[0] // (accum * n)) + x.shape[1:])[:, i]
+            .reshape((x.shape[0] // n,) + x.shape[1:]) for key, x in batch.items()}
 
 
 def make_zero1_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMesh,
-                          shardings: Dict, grad_dtype: str = "bfloat16"):
+                          shardings: Dict, grad_dtype: str = "bfloat16", accum: int = 1):
     """ZeRO-1 data parallelism and tensor parallelism on ``mesh``:
     ``train_step(model, opt_state, batch)`` with ``batch`` this rank's rows
-    (``local_batch``, whole along 'model') and ``opt_state`` the DTensors of
-    ``distribute_opt_state`` laid out by ``shardings``
-    (``opt_state_shardings``), both made from the whole model. Where 'model'
+    of ``accum`` microbatches (``local_batch(batch, mesh, accum)``, whole
+    along 'model') and ``opt_state`` the DTensors of ``zero1_adamw_init``
+    (or ``distribute_opt_state``) laid out by ``shardings``
+    (``opt_state_shardings`` of the whole model). The rank's gradient is
+    ``_grads``': ``accum`` microbatches, each of its own rows, added in
+    ``grad_dtype`` and scaled by 1 / accum, as ``make_train_step`` takes
+    them on one rank. Where 'model'
     has one rank the parameters are whole on every rank; with more, the
     model is this rank's part (``tp.split_model``): the step runs under
     ``use_mesh(mesh, local_rows=True)``, so the forward and backward are
@@ -125,7 +138,7 @@ def make_zero1_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMe
 
     def train_step(model: LM, opt_state: Dict, batch: Dict[str, torch.Tensor]):
         with use_mesh(mesh, local_rows=True):
-            names, grads, loss = _grads(cfg, model, batch, 1, gdt, None, None)
+            names, grads, loss = _grads(cfg, model, batch, accum, gdt, None, None)
         if groups:
             grads = [average(g).to(gdt) for g in grads]
             loss = average(loss)

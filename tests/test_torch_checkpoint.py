@@ -13,7 +13,9 @@ writer's bytes JAX's own for every registered config's state), a malformed
 one or a model's state without its config refused with a clear error, a
 reference checkpoint restored bit for bit, the port's restored by the
 reference leaf for leaf, and a launcher job resumed across the packages
-both ways; records of the port's earlier JSON treedef still restore. The byte-liveness oracle is the JAX package's JAX-free
+both ways; records of the port's earlier JSON treedef still restore; a
+model split over 'model' by two gloo ranks (``tests/_gloo.py``) saves the
+record one process writes of it gathered, which the reference restores. The byte-liveness oracle is the JAX package's JAX-free
 ``repro.core.oracle``, applied to the port's system (the same code, copied).
 """
 
@@ -354,29 +356,116 @@ def _json_record(ckpt, step, state):
         "treedef": json.dumps(list(paths)), "extra": {"cursor": [1, 2]}})).wait()
 
 
-def test_save_under_a_split_is_refused(monkeypatch):
-    """Under a 'model' group of 2, ``save`` raises naming ROADMAP item 7d
-    before it writes anything (a rank's slices are not the record's
-    shapes): no catalog record and no data fork. With no group it saves as
-    before."""
-    from repro_torch.distributed import tp
-    from repro_torch.train import AdamWConfig, adamw_init
-    cfg = rt.get_smoke_config("qwen3-8b")
-    model = rt.init_params(cfg, 3, device="cpu", trainable=True)
-    state = adamw_init(model, AdamWConfig())
-    system = BoltSystem(n_brokers=2)
-    ckpt = CheckpointManager(system)
-    logs = set(system.metadata.state.logs)
-    monkeypatch.setattr(tp, "model_group", lambda mesh=None: tp.ModelGroup(None, 2, 0))
-    for save in (lambda: ckpt.save(4, model, state, cfg=cfg),
-                 lambda: ckpt.save(5, _params(0), _opt(0))):
-        with pytest.raises(NotImplementedError, match=tp.ROADMAP_ITEM):
-            save()
-    assert ckpt.catalog.tail == 0 and ckpt.steps() == []
-    assert set(system.metadata.state.logs) == logs
-    monkeypatch.undo()
-    ckpt.save(4, model, state, cfg=cfg)
-    assert ckpt.steps() == [4] and ckpt.catalog.tail == 1
+SPLIT_SAVE = r'''
+from repro_torch import get_smoke_config, init_params
+from repro_torch.distributed import tp
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.train import (AdamWConfig, adamw_init, distribute_opt_state,
+                               opt_state_shardings)
+
+cfg = get_smoke_config(spec["arch"])
+mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+model = init_params(cfg, 2, device="cpu", trainable=True)
+opt = AdamWConfig()
+whole = adamw_init(model, opt)
+gen = torch.Generator().manual_seed(6)
+for key in ("m", "v"):
+    for t in whole[key].values():
+        t.normal_(generator=gen)
+whole["step"].fill_(5)
+state = distribute_opt_state(whole, opt_state_shardings(cfg, model, mesh, opt), mesh)
+tp.split_model(cfg, model, mesh)
+system = BoltSystem(n_brokers=2)
+log_id = CheckpointManager(system, chunk_bytes=4096).save(5, model, state,
+                                                           extra={"cursor": [5, 1]},
+                                                           cfg=cfg, mesh=mesh)
+get = tp.host_params(cfg, model, mesh)             # gathered as one process holds them
+one_model = init_params(cfg, None, device="cpu", trainable=True)
+with torch.no_grad():
+    for n, p in one_model.named_parameters():
+        p.copy_(get(n))
+one_state = {k: {n: tp.host_leaf(d) for n, d in state[k].items()} for k in ("m", "v", "master")}
+one_state["step"] = state["step"].to_local()
+report = {"log_id": log_id, "split": [list(p.shape) for p in model.parameters()]}
+if rank == 0:
+    one = BoltSystem(n_brokers=2)
+    mine = CheckpointManager(one, chunk_bytes=4096).save(5, one_model, one_state,
+                                                         extra={"cursor": [5, 1]}, cfg=cfg)
+    report["equal"] = record(system, log_id) == record(one, mine)
+    report["rank0"] = log_id == CheckpointManager(system)._replay()[5]["data_log"]
+    dump_record(system, log_id, f"{out}/record.pkl")
+json.dump(report, open(f"{out}/rank{rank}.json", "w"))
+dist.destroy_process_group()
+'''
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-v2-lite-16b", "jamba-1.5-large-398b",
+                                  "xlstm-1.3b", "whisper-small"])
+def test_split_save_writes_the_one_rank_record(arch, tmp_path):
+    """A bf16 smoke model split over 'model' by 2 gloo ranks on (1, 2), with
+    its ZeRO-1 state (random moments, step 5), is saved by both ranks: each
+    split leaf gathered over 'model', each state leaf from its chunks, rank
+    0 writing. The record equals byte for byte the one a single process
+    writes of the gathered model and state, every rank returns rank 0's
+    data fork id, and carried into a reference ``BoltSystem`` the JAX
+    ``CheckpointManager.restore`` reads it leaf for leaf equal to
+    ``params_to_jax`` and ``opt_state_to_jax`` of the whole model and state."""
+    import jax
+    from _gloo import RECORDS, load_record, run_ranks
+    from repro.core import BoltSystem as JaxBoltSystem
+    from repro.streams.records import encode_record as jax_encode_record
+    from repro.train.checkpoint import CheckpointManager as JaxCheckpointManager
+    from repro_torch.train import AdamWConfig, adamw_init, pytree_proto
+    reports = run_ranks(tmp_path, 2, RECORDS + SPLIT_SAVE, {"arch": arch})
+    assert reports[0]["equal"] and reports[0]["rank0"]
+    assert reports[0]["log_id"] == reports[1]["log_id"]
+    cfg = rt.get_smoke_config(arch)
+    model = rt.init_params(cfg, 2, device="cpu", trainable=True)
+    assert reports[0]["split"] != [list(p.shape) for p in model.parameters()]   # a split ran
+    opt = adamw_init(model, AdamWConfig())
+    gen = torch.Generator().manual_seed(6)
+    for key in ("m", "v"):
+        for t in opt[key].values():
+            t.normal_(generator=gen)
+    opt["step"].fill_(5)
+    jckpt = load_record(tmp_path / "record.pkl",
+                        lambda: JaxCheckpointManager(JaxBoltSystem(n_brokers=2)),
+                        jax_encode_record)
+    step, params, jopt, extra = jckpt.restore()
+    assert step == 5 and extra == {"cursor": [5, 1]}
+    want = {"params": rt.params_to_jax(cfg, model), "opt": rt.opt_state_to_jax(cfg, model, opt)}
+    got = {"params": params, "opt": jopt}
+    assert (jax.tree_util.tree_structure(got).serialize_using_proto()
+            == pytree_proto.serialize(pytree_proto.structure(want)))
+    for g, w in zip(jax.tree_util.tree_leaves(got), pytree_proto.leaves(want)):
+        g, w = _jax_bits(g), _as_numpy(w)
+        assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w)
+
+
+LEAVES = {"fp32": lambda: torch.randn(130, 17, 3), "bf16": lambda: torch.randn(7).bfloat16(),
+          "int32 scalar": lambda: torch.tensor(5, dtype=torch.int32),
+          "empty": lambda: torch.zeros(0, 4), "transposed": lambda: torch.randn(4, 6).t(),
+          "numpy int64": lambda: np.arange(10, dtype=np.int64),
+          "numpy scalar": lambda: np.float32(2.5)}
+
+
+@pytest.mark.parametrize("kind", list(LEAVES))
+def test_leaf_chunks_are_np_save_bytes_cut(kind):
+    """The writer cuts a leaf's ``.npy`` bytes into records without a whole
+    copy of them (``_leaf_chunks``: np.save's header, then the array's own
+    buffer sliced): for every chunk size, the records equal ``np.save``'s
+    bytes cut, and ``_leaf_restore`` reads them back bit for bit."""
+    from repro_torch.train.checkpoint import _leaf_bytes, _leaf_chunks, _leaf_restore
+    leaf = LEAVES[kind]()
+    raw, dt = _leaf_bytes(leaf)
+    for size in (1, 7, 64, 128, 129, 1 << 20):
+        chunks, dt2 = _leaf_chunks(leaf, size)
+        assert dt2 == dt and chunks == ([raw[o:o + size] for o in range(0, len(raw), size)]
+                                        or [b""]), size
+    back = _leaf_restore(bytearray().join(chunks), dt, "cpu")
+    want = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+    assert back.dtype == want.dtype and torch.equal(back, want)
 
 
 def test_json_treedef_records_still_restore():
